@@ -5,6 +5,7 @@ imports its flax model, and this package never imports JAX.
 """
 
 from ..models import wan_dit
+from .config import AttrDict, config_from_dict, default_config, load_config
 
 # user-facing size name -> (W, H)
 SIZE_CONFIGS = {
@@ -56,5 +57,6 @@ def dit_config_for_task(task: str, **kw) -> wan_dit.WanConfig:
 
 __all__ = [
     "SIZE_CONFIGS", "MAX_AREA_CONFIGS", "SUPPORTED_SIZES",
-    "SAMPLE_NEG_PROMPT", "dit_config_for_task",
+    "SAMPLE_NEG_PROMPT", "dit_config_for_task", "AttrDict", "config_from_dict",
+    "default_config", "load_config",
 ]

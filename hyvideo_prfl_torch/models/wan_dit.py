@@ -3,32 +3,40 @@
 Same math and the same precision islands as the JAX package:
 
 * bf16 (``compute_dtype``) matmuls: patch embedding, text embedding and
-  every block q/k/v/o and ffn projection, with bf16 weights;
+  every block q/k/v/o and ffn projection. Their weights are stored in
+  ``param_dtype`` (a constructor argument) and cast to the compute dtype
+  at use, as the JAX package casts its fp32 masters: the trainer builds the
+  model with fp32 masters, serving with bf16 storage;
 * fp32: the time embedding and projection, the adaLN ``modulation + e``
   add, the residual stream, and the head;
 * tanh-approximate GELU in the blocks and the text embedding.
 
-The hot ops go through the ported kernels: ``ln_scale_shift`` (K8, three
-per block and one at the head), ``rmsnorm_rope``/``rmsnorm_only`` (K6,
-four per block) and ``dot_product_attention`` (K1 for self-attention, K3
-for the text cross-attention). q and k live in the JAX "half" rope layout;
-utils/checkpoint.py permutes reference weights into it at load time.
+The hot ops go through the ported kernels, each differentiable:
+``ln_scale_shift`` (K8 forward, K9 backward; three per block and one at
+the head), ``rmsnorm_rope``/``rmsnorm_only`` (K6/K7, four per block) and
+``dot_product_attention`` (K1 for self-attention, K3 for the text
+cross-attention; K4/K5 backward). q and k live in the JAX "half" rope
+layout; utils/checkpoint.py permutes reference weights into it at load time.
 
-The state dict keys follow the JAX parameter tree (``blocks.{i}.self_attn.q``
-for ``params/blocks/self_attn/q`` at layer i), with torch's [out, in]
-weight layout. Not ported yet: i2v/flf2v conditioning (``y``, CLIP), the
-feature taps, TeaCache, int8 and the sharding policies.
+Training features: per-block activation checkpointing (``cfg.remat``,
+policies "full" and "attn") and the feature taps the reward model reads
+(``output_features``). The state dict keys follow the JAX parameter tree
+(``blocks.{i}.self_attn.q`` for ``params/blocks/self_attn/q`` at layer i),
+with torch's [out, in] weight layout. Not ported yet: i2v/flf2v
+conditioning (``y``, CLIP), TeaCache, int8, the "dots" remat policies and
+the sharding policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.qknorm_rope import rmsnorm_only, rmsnorm_rope
@@ -53,6 +61,12 @@ class WanConfig:
     num_layers: int = 32
     eps: float = 1e-6
     compute_dtype: torch.dtype = torch.bfloat16
+    # activation checkpointing per block while gradients are on: "full"
+    # recomputes the whole block in the backward; "attn" keeps the flash
+    # attention's saved tensors and recomputes only the segments between
+    # the attention calls, so the backward never re-runs K1/K3
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -117,82 +131,137 @@ def _linear(in_f, out_f, device, dtype):
                               dtype=dtype)
 
 
+def _dense(layer: nn.Linear, x, dtype):
+    """The layer in `dtype`, whatever its storage: masters cast at use."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
 def _param(*shape, device):
     return nn.Parameter(torch.empty(*shape, device=device, dtype=torch.float32))
 
 
 class _Attention(nn.Module):
-    """q/k/v/o projections in compute_dtype and fp32 qk-norm gains."""
+    """q/k/v/o projections (stored in param_dtype) and fp32 qk-norm gains."""
 
-    def __init__(self, cfg: WanConfig, device=None):
+    def __init__(self, cfg: WanConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        cd = cfg.compute_dtype
-        self.q = _linear(cfg.dim, cfg.dim, device, cd)
-        self.k = _linear(cfg.dim, cfg.dim, device, cd)
-        self.v = _linear(cfg.dim, cfg.dim, device, cd)
-        self.o = _linear(cfg.dim, cfg.dim, device, cd)
+        pd = param_dtype or cfg.compute_dtype
+        self.q = _linear(cfg.dim, cfg.dim, device, pd)
+        self.k = _linear(cfg.dim, cfg.dim, device, pd)
+        self.v = _linear(cfg.dim, cfg.dim, device, pd)
+        self.o = _linear(cfg.dim, cfg.dim, device, pd)
         self.norm_q = _param(cfg.dim, device=device)
         self.norm_k = _param(cfg.dim, device=device)
 
+    def attend(self, q, k, v):
+        return dot_product_attention(q, k, v, qk_layout="bnld", bounded_logits=True)
+
+    def out(self, o):
+        """[B, L, N, D] attention output -> o projection, compute dtype."""
+        b, l = o.shape[:2]
+        return _dense(self.o, o.reshape(b, l, self.cfg.dim), self.cfg.compute_dtype)
+
 
 class SelfAttention(_Attention):
-    """qk-RMSNorm + 3D RoPE + flash attention."""
+    """qk-RMSNorm + 3D RoPE + flash attention (the block calls qkv, attend
+    and out in turn, so remat can split around the attention)."""
 
-    def forward(self, x, c_tab, s_tab):
+    def qkv(self, x, c_tab, s_tab):
+        """-> q, k head-major [B, N, L, D] and v [B, L, N, D]."""
         cfg = self.cfg
+        cd = cfg.compute_dtype
         b, l, _ = x.shape
         n, d = cfg.num_heads, cfg.head_dim
-        x = x.to(cfg.compute_dtype)
-        q = rmsnorm_rope(self.q(x), self.norm_q, c_tab, s_tab, n, cfg.eps)
-        k = rmsnorm_rope(self.k(x), self.norm_k, c_tab, s_tab, n, cfg.eps)
-        v = self.v(x).view(b, l, n, d)
-        out = dot_product_attention(q, k, v, qk_layout="bnld", bounded_logits=True)
-        return self.o(out.reshape(b, l, cfg.dim))
+        x = x.to(cd)
+        q = rmsnorm_rope(_dense(self.q, x, cd), self.norm_q, c_tab, s_tab, n, cfg.eps)
+        k = rmsnorm_rope(_dense(self.k, x, cd), self.norm_k, c_tab, s_tab, n, cfg.eps)
+        return q, k, _dense(self.v, x, cd).view(b, l, n, d)
 
 
 class CrossAttention(_Attention):
     """Text cross-attention with qk-RMSNorm."""
 
-    def forward(self, x, context):
+    def qkv(self, x, context):
+        """-> q [B, N, L, D], k [B, N, Lk, D] head-major and v [B, Lk, N, D]."""
         cfg = self.cfg
-        b, l, _ = x.shape
+        cd = cfg.compute_dtype
+        b = x.shape[0]
         n, d = cfg.num_heads, cfg.head_dim
-        x = x.to(cfg.compute_dtype)
-        context = context.to(cfg.compute_dtype)
-        q = rmsnorm_only(self.q(x), self.norm_q, n, cfg.eps)
-        k = rmsnorm_only(self.k(context), self.norm_k, n, cfg.eps)
-        v = self.v(context).view(b, -1, n, d)
-        out = dot_product_attention(q, k, v, qk_layout="bnld", bounded_logits=True)
-        return self.o(out.reshape(b, l, cfg.dim))
+        x = x.to(cd)
+        context = context.to(cd)
+        q = rmsnorm_only(_dense(self.q, x, cd), self.norm_q, n, cfg.eps)
+        k = rmsnorm_only(_dense(self.k, context, cd), self.norm_k, n, cfg.eps)
+        return q, k, _dense(self.v, context, cd).view(b, -1, n, d)
 
 
 class WanBlock(nn.Module):
     """DiT block: adaLN-modulated self-attn, cross-attn, FFN. The residual
-    stream is fp32; the matmuls run in compute_dtype."""
+    stream is fp32; the matmuls run in compute_dtype.
 
-    def __init__(self, cfg: WanConfig, device=None):
+    The block is written as three segments around its two attention calls,
+    so the "attn" remat policy can checkpoint the segments and keep the
+    attention Function's saved tensors (the JAX policy saves the flash
+    residuals the same way)."""
+
+    def __init__(self, cfg: WanConfig, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
-        cd = cfg.compute_dtype
+        pd = param_dtype or cfg.compute_dtype
         self.modulation = _param(1, 6, cfg.dim, device=device)
-        self.self_attn = SelfAttention(cfg, device)
+        self.self_attn = SelfAttention(cfg, device, param_dtype)
         self.norm3_scale = _param(cfg.dim, device=device)
         self.norm3_bias = _param(cfg.dim, device=device)
-        self.cross_attn = CrossAttention(cfg, device)
-        self.ffn_0 = _linear(cfg.dim, cfg.ffn_dim, device, cd)
-        self.ffn_2 = _linear(cfg.ffn_dim, cfg.dim, device, cd)
+        self.cross_attn = CrossAttention(cfg, device, param_dtype)
+        self.ffn_0 = _linear(cfg.dim, cfg.ffn_dim, device, pd)
+        self.ffn_2 = _linear(cfg.ffn_dim, cfg.dim, device, pd)
+
+    def _pre_self(self, x, e6, c_tab, s_tab):
+        h = ln_scale_shift(x, 1.0 + e6[:, 1], e6[:, 0], out_dtype=self.cfg.compute_dtype)
+        return self.self_attn.qkv(h, c_tab, s_tab)
+
+    def _mid(self, x, o, e6, context):
+        x = x + self.self_attn.out(o).float() * e6[:, 2:3]
+        h = ln_scale_shift(x, self.norm3_scale, self.norm3_bias,
+                           out_dtype=self.cfg.compute_dtype)
+        return (x, *self.cross_attn.qkv(h, context))
+
+    def _post(self, x, o, e6):
+        cd = self.cfg.compute_dtype
+        x = x + self.cross_attn.out(o).float()
+        h = ln_scale_shift(x, 1.0 + e6[:, 4], e6[:, 3], out_dtype=cd)
+        h = _dense(self.ffn_2, F.gelu(_dense(self.ffn_0, h, cd), approximate="tanh"), cd)
+        return x + h.float() * e6[:, 5:6]
+
+    def _body(self, x, e6, context, c_tab, s_tab, seg):
+        o = self.self_attn.attend(*seg(self._pre_self, x, e6, c_tab, s_tab))
+        x, *qkv = seg(self._mid, x, o, e6, context)
+        return seg(self._post, x, self.cross_attn.attend(*qkv), e6)
 
     def forward(self, x, e, context, c_tab, s_tab):
-        cd = self.cfg.compute_dtype
         e6 = self.modulation + e.float()  # [B, 6, dim] fp32
-        h = ln_scale_shift(x, 1.0 + e6[:, 1], e6[:, 0], out_dtype=cd)
-        x = x + self.self_attn(h, c_tab, s_tab).float() * e6[:, 2:3]
-        h = ln_scale_shift(x, self.norm3_scale, self.norm3_bias, out_dtype=cd)
-        x = x + self.cross_attn(h, context).float()
-        h = ln_scale_shift(x, 1.0 + e6[:, 4], e6[:, 3], out_dtype=cd)
-        h = self.ffn_2(F.gelu(self.ffn_0(h), approximate="tanh"))
-        return x + h.float() * e6[:, 5:6]
+        cfg = self.cfg
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return self._body(x, e6, context, c_tab, s_tab, _call)
+        if cfg.remat_policy == "full":
+            return _ckpt(self._body, x, e6, context, c_tab, s_tab, _call)
+        return self._body(x, e6, context, c_tab, s_tab, _ckpt)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _ckpt(fn, *args):
+    # Launch counts under remat: the backward re-runs a checkpointed
+    # segment's forward up to its last op that saved a tensor (early stop).
+    # Under "attn" that re-runs, per block, the three K8 and the self q/k
+    # and cross q K6 launches, plus the cross k K6 when the context needs a
+    # gradient; never K1/K3. Under "full" it re-runs the whole block.
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+REMAT_POLICIES = ("full", "attn")
 
 
 class Head(nn.Module):
@@ -213,28 +282,39 @@ class Head(nn.Module):
 class WanModel(nn.Module):
     """The video DiT.
 
-    forward(x, t, context, grid=None)
+    WanModel(cfg, device=None, param_dtype=None, with_head=True):
+    ``param_dtype`` stores the dense weights (default: the compute dtype;
+    the trainer passes fp32 masters); ``with_head=False`` builds the
+    head-less tower the reward model trims to.
+
+    forward(x, t, context, grid=None, output_features=False, selected_layers=())
       x: [B, F, H, W, in_dim] latent video, or the token-cell layout
          [B, L, cells, in_dim] from ``patchify`` with ``grid`` given (the
          sampling loop keeps its state in that layout).
       t: [B] or scalar timesteps.  context: [B, text_len, text_dim].
     Returns fp32 [B, F, H, W, out_dim], or [B, L, cells, out_dim] in token
-    mode."""
+    mode; with output_features, the residual stream after block ``idx``
+    for each ``idx + 1`` in selected_layers, stacked [n_sel, B, L, dim]
+    fp32, and no head."""
 
-    def __init__(self, cfg: WanConfig, device=None):
+    def __init__(self, cfg: WanConfig, device=None, param_dtype=None, with_head: bool = True):
         super().__init__()
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported (have {REMAT_POLICIES})")
         self.cfg = cfg
-        cd = cfg.compute_dtype
+        pd = param_dtype or cfg.compute_dtype
         cells = math.prod(cfg.patch_size)
         f32 = torch.float32
-        self.patch_embedding = _linear(cells * cfg.in_dim, cfg.dim, device, cd)
-        self.text_0 = _linear(cfg.text_dim, cfg.dim, device, cd)
-        self.text_2 = _linear(cfg.dim, cfg.dim, device, cd)
+        self.patch_embedding = _linear(cells * cfg.in_dim, cfg.dim, device, pd)
+        self.text_0 = _linear(cfg.text_dim, cfg.dim, device, pd)
+        self.text_2 = _linear(cfg.dim, cfg.dim, device, pd)
         self.time_0 = _linear(cfg.freq_dim, cfg.dim, device, f32)
         self.time_2 = _linear(cfg.dim, cfg.dim, device, f32)
         self.time_proj = _linear(cfg.dim, 6 * cfg.dim, device, f32)
-        self.blocks = nn.ModuleList(WanBlock(cfg, device) for _ in range(cfg.num_layers))
-        self.head = Head(cfg, device)
+        self.blocks = nn.ModuleList(WanBlock(cfg, device, param_dtype)
+                                    for _ in range(cfg.num_layers))
+        self.head = Head(cfg, device) if with_head else None
         self._rope = {}  # (grid, device) -> rolled [L, D] tables
 
     def rope_tables(self, grid, device):
@@ -245,7 +325,8 @@ class WanModel(nn.Module):
                                torch.from_numpy(s).to(device))
         return self._rope[key]
 
-    def forward(self, x, t, context, grid: Optional[Tuple[int, int, int]] = None):
+    def forward(self, x, t, context, grid: Optional[Tuple[int, int, int]] = None,
+                output_features: bool = False, selected_layers: Sequence[int] = ()):
         cfg = self.cfg
         cd = cfg.compute_dtype
         pt, ph, pw = cfg.patch_size
@@ -258,7 +339,7 @@ class WanModel(nn.Module):
         else:
             x, grid = patchify(x, cfg.patch_size)
             b, seq_len, cells, c_in = x.shape
-        h = self.patch_embedding(x.reshape(b, seq_len, cells * c_in).to(cd)).float()
+        h = _dense(self.patch_embedding, x.reshape(b, seq_len, cells * c_in), cd).float()
 
         t = torch.as_tensor(t, dtype=torch.float32, device=h.device).reshape(-1)
         t = t.expand(b) if t.numel() == 1 else t
@@ -266,12 +347,25 @@ class WanModel(nn.Module):
         e = self.time_2(F.silu(e))
         e0 = self.time_proj(F.silu(e)).view(b, 6, cfg.dim)
 
-        ctx = self.text_2(F.gelu(self.text_0(context.to(cd)), approximate="tanh"))
+        ctx = _dense(self.text_2, F.gelu(_dense(self.text_0, context, cd), approximate="tanh"),
+                     cd)
 
         c_tab, s_tab = self.rope_tables(grid, h.device)
+        sel = tuple(selected_layers)
+        if output_features:
+            if not sel or max(sel) > len(self.blocks) or min(sel) < 1:
+                raise ValueError(f"selected_layers {sel} must name blocks 1..{len(self.blocks)}")
+            taps = {}
+            for idx, block in enumerate(self.blocks[:max(sel)]):
+                h = block(h, e0, ctx, c_tab, s_tab)
+                if idx + 1 in sel:
+                    taps[idx + 1] = h
+            return torch.stack([taps[i] for i in sel])
         for block in self.blocks:
             h = block(h, e0, ctx, c_tab, s_tab)
 
+        if self.head is None:
+            raise ValueError("a head-less WanModel only returns feature taps")
         out = self.head(h, e).reshape(b, seq_len, cells, cfg.out_dim)
         if not token_mode:
             out = unpatchify(out, grid, cfg.patch_size)

@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with nvcc into one shared library with a
-plain C interface, loaded through ctypes. The library lands in
+Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ctypes. The library lands in
 ``build/hyvideo_prfl_torch/`` under the repository root, named by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
 one loads the library already there. Nothing here runs at import time:
@@ -27,8 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hyvideo_prfl_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Counter = Counter()
@@ -41,6 +41,9 @@ _SIGNATURES = {
     "hyv_flash_fwd_bounded": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                               _LL, _LL, _LL, _F, _I, _P],
+    "hyv_ln_scale_shift_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "hyv_rmsnorm_rope_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "hyv_flash_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 18 + [_F, _F, _I, _P],
 }
 
 _lib = None
@@ -76,7 +79,8 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one nvcc
+    per source, all at once, then one link."""
     global build_seconds, build_log
     out = BUILD_DIR / f"libhyv_kernels_{_digest()}.so"
     if out.exists():
@@ -85,15 +89,35 @@ def build() -> Path:
         build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    tmp = BUILD_DIR / f"{tag}.so"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     out.with_suffix(".log").write_text(build_log)
     os.replace(tmp, out)
     return out

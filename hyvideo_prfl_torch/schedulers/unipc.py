@@ -161,10 +161,18 @@ def _apply(c: Dict[str, float], state: UniPCState, model_output, sample):
                                    step_index=state.step_index + 1)
 
 
+def unipc_step(schedule: UniPCSchedule, state: UniPCState, model_output, sample):
+    """One predictor(-corrector) step at ``state.step_index``: continues the
+    chain from the state a truncated ``rollout`` returns. Differentiable in
+    ``model_output`` (PRFL's gradient-carrying step)."""
+    return _apply(schedule.row(state.step_index), state, model_output, sample)
+
+
 def rollout(schedule: UniPCSchedule, velocity_fn, x_init: torch.Tensor,
             num_steps: int | None = None):
     """The denoising chain: velocity_fn(x, t) -> v at each table row.
-    Returns (x_final, state_final)."""
+    Returns (x_final, state_final); with ``num_steps`` the chain stops
+    after that many steps, with ``state.step_index == num_steps``."""
     n = schedule.num_steps if num_steps is None else num_steps
     x = x_init.float()
     state = init_state(x)

@@ -5,7 +5,10 @@ Two sources:
 
 * ``from_jax_params``: the JAX package's flax tree as numpy arrays
   (``{"params": {...}}`` with blocks stacked [L, ...]), already in the
-  half rope layout.
+  half rope layout; with ``with_head=False`` the first ``cfg.num_layers``
+  blocks of a tree form the reward model's trimmed, head-less tower, and
+  ``lrm_from_jax`` adds the QueryAttention and RewardMLP trees to give a
+  ``PavrmModel`` state dict.
 * ``from_reference_state``: a reference Wan state dict (released
   ``diffusion_pytorch_model*.safetensors`` keys). Self-attention q/k rows
   and their norm scales move from the adjacent-pair rope layout to the
@@ -41,8 +44,10 @@ def rope_perm_full(dim: int, head_dim: int) -> np.ndarray:
     return np.concatenate([per_head + h * head_dim for h in range(dim // head_dim)])
 
 
-def from_jax_params(tree_np: Dict, cfg: WanConfig) -> Dict[str, torch.Tensor]:
-    """JAX flax tree (numpy leaves, stacked blocks) -> port state dict."""
+def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX flax tree (numpy leaves, stacked blocks) -> port state dict of
+    its first cfg.num_layers blocks, with or without the head."""
     p = tree_np["params"] if "params" in tree_np else tree_np
     state: Dict[str, torch.Tensor] = {}
 
@@ -69,9 +74,31 @@ def from_jax_params(tree_np: Dict, cfg: WanConfig) -> Dict[str, torch.Tensor]:
         state[pre + ".norm3_bias"] = _t(np.asarray(blk["norm3_bias"])[i])
         dense(pre + ".ffn_0", blk["ffn_0"], i)
         dense(pre + ".ffn_2", blk["ffn_2"], i)
-    state["head.modulation"] = _t(p["head"]["modulation"])
-    dense("head.head", p["head"]["head"])
+    if with_head:
+        state["head.modulation"] = _t(p["head"]["modulation"])
+        dense("head.head", p["head"]["head"])
     return state
+
+
+def reward_heads_from_jax(q_tree: Dict, m_tree: Dict) -> Dict[str, torch.Tensor]:
+    """QueryAttention and RewardMLP flax trees -> ``q_attn.*``/``mlp.*``
+    keys of a PavrmModel state dict (the pool keeps the JAX orientation;
+    the MLP's kernels transpose to torch's [out, in])."""
+    q = q_tree["params"] if "params" in q_tree else q_tree
+    m = m_tree["params"] if "params" in m_tree else m_tree
+    state = {f"q_attn.{k}": _t(np.asarray(v)) for k, v in q.items()}
+    for name, node in m.items():
+        state[f"mlp.{name}.weight"] = _t(np.asarray(node["kernel"]).T)
+        state[f"mlp.{name}.bias"] = _t(node["bias"])
+    return state
+
+
+def lrm_from_jax(dit_tree: Dict, q_tree: Dict, m_tree: Dict, cfg: WanConfig
+                 ) -> Dict[str, torch.Tensor]:
+    """The JAX LRM tower ({"dit", "q", "m"} of the PRFL trainer) -> a
+    PavrmModel state dict; ``cfg`` is the trimmed config."""
+    tower = {f"dit.{k}": v for k, v in from_jax_params(dit_tree, cfg, with_head=False).items()}
+    return {**tower, **reward_heads_from_jax(q_tree, m_tree)}
 
 
 def seeded_jax_tree(cfg: WanConfig, seed: int) -> Dict:
