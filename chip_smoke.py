@@ -6,24 +6,31 @@
 Phases, each of which raises on failure:
 
 1. Print the card's name and power limit; build the Hopper kernels from
-   hyvideo_prfl_torch/csrc and print the build time.
-2. Hold each kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1 streaming and
-   K3 single-block flash forward) against its plain PyTorch version at the
-   t2v-1.3B 832*480 81-frame shapes, with a stated bound, and time both
-   with CUDA events, in turns.
+   hyvideo_prfl_torch/csrc (one nvcc per source, all at once) and print the
+   build time and each slice kernel's registers and spills.
+2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
+   streaming and K3 single-block flash forward, K10 int8-score flash
+   forward) against its plain PyTorch version at the t2v-1.3B 832*480
+   81-frame CFG-2 shapes, with a stated bound, K10 also against K1, and
+   time each with CUDA events, in turns with its plain version and, where
+   one PyTorch call computes the same function, that call.
 3. Whole-model check: WanModel at t2v-1.3B width with 2 blocks on the
    9-frame grid (4,680 tokens), seeded weights with a non-zero head, loaded
    through utils/checkpoint.from_jax_params, on the card against the same
-   module on the CPU (which runs the plain versions).
+   module on the CPU (which runs the plain versions); then the same for
+   the int8 model (W8A8 block matmuls and the int8 self-attention, K10).
 4. Serve through the CLI path (scripts/inference_torch.py) at t2v-1.3B
-   full width and depth, 832*480, CFG 5.0, pipeline built once: two
-   21-frame requests with 4 UniPC steps, one 81-frame request with 2 steps.
-   Latents must be finite and of the expected shape, and every kernel's
-   launch count must match the number of DiT forwards.
+   full width and depth, 832*480, CFG 5.0: two 21-frame requests with 4
+   UniPC steps and one 81-frame request with 2 steps in bf16, then the
+   first and the last again under --quant int8 --quant_attn int8. Latents
+   must be finite and of the expected shape, every kernel's launch count
+   must match the number of DiT forwards, and the int8 latents must lie
+   near the bf16 ones of the same seed.
 5. Hold each backward kernel (K4 merged and K5 split flash backward, K7
    qk-norm+rope backward, K9 LayerNorm+modulate backward) against its
    plain PyTorch version at the training shapes (81 frames, batch 1), with
-   a stated bound, and time both with CUDA events, in turns.
+   a stated bound, and time each with its plain version and, for K4/K5,
+   the flash backward of PyTorch's scaled_dot_product_attention.
 6. Whole-model gradient check: the 2-block full-width WanModel (fp32
    masters, remat "attn") on the 9-frame grid, loss = sum(out * r), every
    parameter's and the input's gradient on the card against the CPU's
@@ -32,14 +39,22 @@ Phases, each of which raises on failure:
 7. Train through the CLI path (scripts/train_prfl_torch.py) on a seeded
    latent cache: the train_prfl_t2v_480.yaml config at t2v-1.3B (8 PRFL
    steps, fixed_mid 3, no accumulation, remat "attn"), two outer steps at
-   21 frames and one at 81. Metrics finite, grad norm above 0, the
-   policy's blocks moved, launch counts per outer step equal to the
-   derivation (expected_train_launches); prints seconds per refl and SFT
+   21 frames and one at 81; then, from the same weights and draws, one at
+   21 and one at 81 with train.rollout_quant int8. Metrics finite, grad
+   norm above 0, the policy's blocks moved, launch counts per outer step
+   equal to the derivation (expected_train_launches), the int8 run's first
+   reward within 0.05 of the bf16 run's; prints seconds per refl and SFT
    step and the peak device memory.
+8. The int8 probes P1 and P2 through their scripts
+   (scripts/probe_int8_{rate,mosaic}_torch.py): exact against their plain
+   versions, int8 and bf16 TOPS beside torch._int_mm's and torch.matmul's.
 
-The line before the last is a JSON object of per-kernel results; the last
-is {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
-no CUDA device is available or the package is missing.
+The line before the last is a JSON object of per-kernel results (launches
+counted on the main paths: serving and training for the forward and
+backward kernels, the split-route gradient call for K5, the probe scripts
+for P1/P2); the last is {"ok": true, "device": {...}}. Exits non-zero,
+printing no result, when no CUDA device is available or the package is
+missing.
 """
 
 from __future__ import annotations
@@ -79,7 +94,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
            "hyvideo_prfl_tpu/ops/qknorm_rope.py:106"),
     "K9": ("hyvideo_prfl_torch/csrc/ln_scale_shift_bwd.cu",
            "hyvideo_prfl_tpu/ops/stream.py:84"),
+    "K10": ("hyvideo_prfl_torch/csrc/flash_fwd_qk8.cu",
+            "hyvideo_prfl_tpu/ops/flash_attention.py:290"),
+    "P1": ("hyvideo_prfl_torch/csrc/int8_probe.cu", "scripts/probe_int8_rate.py:25"),
+    "P2": ("hyvideo_prfl_torch/csrc/int8_probe.cu", "scripts/probe_int8_mosaic.py:29"),
 }
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s, ops/s by type
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def _add(total, counts, times=1):
@@ -89,15 +110,18 @@ def _add(total, counts, times=1):
 
 
 FWD_BLOCK = {"K8": 3, "K6": 4, "K1": 1, "K3": 1}
+FWD_BLOCK_QK8 = {"K8": 3, "K6": 4, "K10": 1, "K3": 1}
 
 
-def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn"):
+def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn", qk8=False):
     """Kernel launches of one DiT forward, and of its backward.
 
     A forward launches, per block, three K8 (two adaLN norms and norm3),
     four K6 (self q and k with rope, cross q and k without), one K1
-    (self-attention) and one K3 (text cross-attention), plus one K8 at the
-    head. The backward launches, per block, three K9, one K4 per attention
+    (self-attention; K10 instead under quant_attn "int8", qk8, at the
+    slice's streaming lengths) and one K3 (text cross-attention), plus one
+    K8 at the head. The int8 forward has no backward. The backward
+    launches, per block, three K9, one K4 per attention
     call (every call at the slice's lengths takes the merged route) and one
     K7 per qk-norm whose input needs a gradient: four, or three when the
     text context needs none (the frozen LRM's cross k); plus one K9 at the
@@ -105,7 +129,7 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn")
     block's checkpointed segments re-run up to their last op that saved a
     tensor, which is every K8 and every K6 whose output is differentiated,
     and never K1/K3; under "full" the whole block forward re-runs."""
-    total = _add({"K8": 1} if head else {}, FWD_BLOCK, n_layers)
+    total = _add({"K8": 1} if head else {}, FWD_BLOCK_QK8 if qk8 else FWD_BLOCK, n_layers)
     if backward:
         recompute = {"attn": {"K8": 3, "K6": 3 + ctx_grad}, "full": FWD_BLOCK,
                      "off": {}}[remat_policy]
@@ -115,14 +139,16 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn")
     return total
 
 
-def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn"):
+def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_quant=None):
     """Kernel launches of one outer PRFL step: the refl step (mid no-grad
-    rollout forwards, one policy forward and backward, one forward and
-    backward of the head-less LRM, whose text context needs no gradient)
-    and the SFT step (one policy forward and backward)."""
+    rollout forwards, through the int8 model under rollout_quant "int8",
+    one policy forward and backward, one forward and backward of the
+    head-less LRM, whose text context needs no gradient) and the SFT step
+    (one policy forward and backward)."""
     policy = dit_launches(n_policy, True, remat_policy=remat_policy)
     lrm = dit_launches(n_lrm, True, ctx_grad=0, head=False, remat_policy=remat_policy)
-    return _add(_add(_add({}, dit_launches(n_policy, False), mid), lrm), policy, 2)
+    rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8")
+    return _add(_add(_add({}, rollout, mid), lrm), policy, 2)
 
 
 class SmokeFailure(RuntimeError):
@@ -141,18 +167,19 @@ def max_err(got, ref):
     return d, ref.float().abs().max().item(), bool(torch.isfinite(got.float()).all())
 
 
-def timed_pair(kernel_fn, plain_fn, reps=5, calls=10):
-    """Median ms per call of kernel and plain version, in turns (plain,
-    kernel, kernel, plain, ...) after a warm-up. Each turn times `calls`
+def timed_turns(fns, reps=5, calls=10):
+    """Median ms per call of each named function, in turns (forward order,
+    then reversed, ...) after a warm-up. Each turn times `calls`
     back-to-back calls between two CUDA events, so the queue stays full and
     the host's launch cost is hidden behind the device's work."""
     import torch
 
-    kernel_fn(), plain_fn()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    times = {"kernel": [], "plain": []}
+    times = {name: [] for name in fns}
+    order = list(fns.items())
     for i in range(reps):
-        order = (("plain", plain_fn), ("kernel", kernel_fn))
         for name, fn in (order if i % 2 == 0 else order[::-1]):
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
@@ -162,19 +189,49 @@ def timed_pair(kernel_fn, plain_fn, reps=5, calls=10):
             ev1.record()
             torch.cuda.synchronize()
             times[name].append(ev0.elapsed_time(ev1) / calls)
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
-def report(name, err, ref_max, finite, bound, ms, plain_ms, results):
-    print(f"  {name}: max_abs_err {err:.3e} (bound {bound:.3e}, max|ref| {ref_max:.3e}),"
-          f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+def timed_pair(kernel_fn, plain_fn, reps=5, calls=10):
+    """(kernel ms, plain ms), in turns plain, kernel, kernel, plain, ..."""
+    t = timed_turns({"plain": plain_fn, "kernel": kernel_fn}, reps, calls)
+    return t["kernel"], t["plain"]
+
+
+def bound(nbytes, **ops):
+    """The least time the card could take for the work: the bytes it must
+    move (each input read once, each output written once) over the memory
+    rate, or the operations over each type's peak, whichever is larger."""
+    t_bytes = nbytes / PEAK["bytes"]
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sdpa_flash(q, k, v):
+    """PyTorch's own flash attention on [B, N, L, D] q/k/v: the library call
+    timed beside K1/K3 and, through its backward, K4/K5 (library_ms). The
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return F.scaled_dot_product_attention(q, k, v)
+
+
+def report(name, err, ref_max, finite, bound_, ms, plain_ms, results, **extra):
+    print(f"  {name}: max_abs_err {err:.3e} (bound {bound_:.3e}, max|ref| {ref_max:.3e}),"
+          f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          + "".join(f", {k} {v:.4f}" for k, v in extra.items() if isinstance(v, float)))
     expect(finite, f"{name}: non-finite output")
-    expect(err <= bound, f"{name}: error {err} over bound {bound}")
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    expect(err <= bound_, f"{name}: error {err} over bound {bound_}")
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra}
 
 
 def phase_kernels(results):
-    """Phase 2: each kernel against its plain version at the 81-frame shapes."""
+    """Phase 2: each forward kernel against its plain version at the
+    81-frame shapes."""
     import torch
 
     from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
@@ -187,6 +244,7 @@ def phase_kernels(results):
     b, n, d = 2, 12, 128
     dim = n * d
     lq = math.prod(GRID_81)
+    rows = b * lq * dim
 
     # K8: the block sites write bf16, the head writes fp32.
     # Bound: the two differ only in fp32 summation order, which can move a
@@ -203,7 +261,10 @@ def phase_kernels(results):
     err, rmax, fin = max_err(stream._kernel(x, s, t, 1e-6, torch.bfloat16), ref)
     ms, pms = timed_pair(lambda: stream._kernel(x, s, t, 1e-6, torch.bfloat16),
                          lambda: stream.ln_scale_shift_plain(x, s, t, 1e-6, torch.bfloat16))
-    report("K8", err, rmax, fin, 2.0 ** -7 * rmax, ms, pms, results)
+    # no single PyTorch call: layer_norm has no per-batch modulation and
+    # writes its input's type, not bf16 from fp32
+    report("K8", err, rmax, fin, 2.0 ** -7 * rmax, ms, pms, results,
+           **bound(rows * (4 + 2), fp32=8 * rows), library_ms=None)
     del x, ref, ref32
 
     # K6 with rope (self-attention q/k at 32,760 tokens) and without (cross
@@ -225,7 +286,10 @@ def phase_kernels(results):
     err, rmax, fin = max_err(qr._kernel(xq, w, c_tab, s_tab, n, 1e-6, True), ref)
     ms, pms = timed_pair(lambda: qr._kernel(xq, w, c_tab, s_tab, n, 1e-6, True),
                          lambda: qr.rmsnorm_rope_plain(xq, w, c_tab, s_tab, n, 1e-6, True))
-    report("K6", err, rmax, fin, 2.0 ** -6 * rmax, ms, pms, results)
+    # no single PyTorch call: rms_norm over the 1,536 features of all heads
+    # fused with the rope and the head-major relayout
+    report("K6", err, rmax, fin, 2.0 ** -6 * rmax, ms, pms, results,
+           **bound(rows * (2 + 2) + 2 * lq * d * 4, fp32=7 * rows), library_ms=None)
     del xq, ref
 
     # K1 (self-attention, 32,760 keys: a 56-key ragged last tile) and K3
@@ -236,6 +300,7 @@ def phase_kernels(results):
     # ulps of the largest |o| (2^-6 max|ref|); lse 1e-5 max|lse| (fp32 sums
     # in another order).
     q = torch.randn(b, n, lq, d, device=dev, generator=g).bfloat16()
+    keep = {}
     for name, lk in (("K1", lq), ("K3", TEXT_LEN)):
         k = torch.randn(b, n, lk, d, device=dev, generator=g).bfloat16()
         v = torch.randn(b, lk, n, d, device=dev, generator=g).bfloat16()
@@ -247,24 +312,78 @@ def phase_kernels(results):
         print(f"  {name} lse: max_abs_err {el:.3e} (bound {1e-5 * ml:.3e})")
         expect(fl and el <= 1e-5 * ml, f"{name} lse disagrees with its plain version")
         err, rmax, fin = max_err(o, po)
+        if name == "K1":
+            keep = {"k": k, "v": v, "o": o, "po": po}
         del o, lse, po, plse
-        ms, pms = timed_pair(lambda: fa.flash_fwd_kernel(q, k, v, single),
-                             lambda: fa.flash_attention_plain(q, k, v), reps=3, calls=2)
-        tflops = 4 * b * n * lq * lk * d / (ms * 1e9)
-        print(f"  {name}: {tflops:.1f} TFLOP/s (kernel), "
-              f"{4 * b * n * lq * lk * d / (pms * 1e9):.1f} TFLOP/s (plain)")
-        report(name, err, rmax, fin, 2.0 ** -6 * rmax, ms, pms, results)
-        del k, v
-    del q
+        vt = v.movedim(1, 2).contiguous()  # SDPA's [B, N, L, D]
+        t = timed_turns({"plain": lambda: fa.flash_attention_plain(q, k, v),
+                         "kernel": lambda: fa.flash_fwd_kernel(q, k, v, single),
+                         "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=2)
+        flop = 4 * b * n * lq * lk * d
+        print(f"  {name}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), "
+              f"{flop / (t['plain'] * 1e9):.1f} (plain), "
+              f"{flop / (t['library'] * 1e9):.1f} (SDPA flash)")
+        report(name, err, rmax, fin, 2.0 ** -6 * rmax, t["kernel"], t["plain"], results,
+               **bound(2 * b * n * (lq + lk) * d * 2, bf16=flop), library_ms=t["library"])
+        del vt
+        if name == "K3":
+            del k, v
+
+    # K10 at the self-attention shape, on K1's inputs: q and k quantized per
+    # (batch, head) as the port quantizes them before the launch.
+    # Bound against its plain version (same q8, k8, c): the int32 scores are
+    # exact on both; exp2 within 2 ulp flips bf16(p) on a few keys and o
+    # rounds to bf16: two bf16 ulps of max|o|, lse 1e-5 max|lse|, as K1.
+    k, v = keep["k"], keep["v"]
+    q8, sq = fa.quantize_bn(q)
+    k8, sk = fa.quantize_bn(k)
+    c = fa.qk8_scale(sq, sk, d)
+    o10, lse10 = fa.flash_qk8_kernel(q8, k8, v, c)
+    po10, plse10 = fa.flash_attention_qk8_plain(q8, k8, v, c)
+    el, ml, fl = max_err(lse10, plse10)
+    print(f"  K10 lse: max_abs_err {el:.3e} (bound {1e-5 * ml:.3e})")
+    expect(fl and el <= 1e-5 * ml, "K10 lse disagrees with its plain version")
+    err, rmax, fin = max_err(o10, po10)
+    # Against K1 on the same bf16 q/k/v: the plain versions differ only by
+    # the quantization of q and k (their max distance is that effect), and
+    # each kernel lies within two bf16 ulps of max|o| of its plain version,
+    # so |K10 - K1| <= max|plain10 - plain1| + 4 ulps. First-order, the
+    # per-head rounding (a uniform error of s/2 on 256 terms, s = max|x|/127)
+    # moves each logit by ~0.017 here, and o, an average over ~32k keys,
+    # by ~1e-4; the check prints what the card shows.
+    quant, _, _ = max_err(po10, keep["po"])
+    e1, m1, _ = max_err(o10, keep["o"])
+    b1 = quant + 4 * 2.0 ** -7 * m1
+    print(f"  K10 against K1: max_abs_err {e1:.3e} (bound {b1:.3e}: quantization effect "
+          f"{quant:.3e} between the plain versions, max|o| {m1:.3e})")
+    expect(e1 <= b1, f"K10 against K1: {e1} over {b1}")
+    del o10, lse10, po10, plse10, keep
+    t = timed_turns({"plain": lambda: fa.flash_attention_qk8_plain(q8, k8, v, c),
+                     "kernel": lambda: fa.flash_qk8_kernel(q8, k8, v, c),
+                     "K1": lambda: fa.flash_fwd_kernel(q, k, v, False)}, reps=3, calls=2)
+    tq = timed_turns({"quantize": lambda: (fa.quantize_bn(q), fa.quantize_bn(k))},
+                     reps=3, calls=2)["quantize"]
+    ops = 2 * b * n * lq * lq * d  # of each product
+    print(f"  K10: {2 * ops / (t['kernel'] * 1e9):.1f} TOPS (int8 score + bf16 p v), K1 "
+          f"{2 * ops / (t['K1'] * 1e9):.1f} TFLOP/s in the same turns; per-head "
+          f"quantization of q and k outside the kernel {tq:.4f} ms")
+    # no single PyTorch call computes the int8 score softmax: library_ms null
+    report("K10", err, rmax, fin, 2.0 ** -6 * rmax, t["kernel"], t["plain"], results,
+           **bound(2 * b * n * lq * d + 2 * b * n * lq * d * 2 + b * n * 4, int8=ops, bf16=ops),
+           library_ms=None, k1_ms=t["K1"])
+    del q, k, v, q8, k8
     torch.cuda.empty_cache()
 
 
 def phase_model():
-    """Phase 3: 2-block full-width WanModel, card against CPU."""
+    """Phase 3: 2-block full-width WanModel, card against CPU, in bf16 and
+    as the int8 model."""
     import torch
 
     from hyvideo_prfl_torch.models import wan_dit
-    from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.utils.checkpoint import (
+        from_jax_params, quantize_state, seeded_jax_tree)
 
     cfg = wan_dit.t2v_1_3b(num_layers=2)
     state = from_jax_params(seeded_jax_tree(cfg, seed=7), cfg)
@@ -273,54 +392,108 @@ def phase_model():
     x = torch.from_numpy(rng.standard_normal((2, f, hh, ww, 16), dtype=np.float32))
     t = torch.tensor([900.0, 300.0])
     ctx = torch.from_numpy(rng.standard_normal((2, TEXT_LEN, cfg.text_dim), dtype=np.float32))
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        model = wan_dit.WanModel(cfg, device=torch.device(dev))
-        model.load_state_dict(state)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            outs[dev] = model(x.to(dev), t.to(dev), ctx.to(dev)).cpu()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        print(f"  forward on {dev}: {time.perf_counter() - t0:.2f} s")
-        del model
-    err, rmax, fin = max_err(outs["cuda"], outs["cpu"])
-    # Bound: bf16 matmuls accumulate in another order on the card than on
-    # the CPU and activations round to bf16 at a dozen points per block, so
-    # after two blocks a few bf16 ulps of the largest value remain:
-    # 3e-2 max|cpu|, the CPU tests' bf16 tolerance against JAX.
-    bound = 3e-2 * rmax
-    print(f"  whole model [2, 3, 60, 104, 16] (4,680 tokens, K1 with a 8-key "
-          f"ragged tile): max_abs_err {err:.3e} (bound {bound:.3e}, max|cpu| {rmax:.3e})")
-    expect(tuple(outs["cuda"].shape) == (2, f, hh, ww, 16), "whole model: wrong shape")
-    expect(fin and bool(torch.isfinite(outs["cpu"]).all()), "whole model: non-finite output")
-    expect(rmax > 0, "whole model: output is all zeros")
-    expect(err <= bound, f"whole model: error {err} over bound {bound}")
+    qcfg = dataclasses.replace(cfg, quant_dense="int8", quant_attn="int8")
+    for label, mcfg, mstate, attn in (("bf16", cfg, state, "K1"),
+                                      ("int8", qcfg, quantize_state(state, qcfg), "K10")):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            model = wan_dit.WanModel(mcfg, device=torch.device(dev))
+            model.load_state_dict(mstate)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                outs[dev] = model(x.to(dev), t.to(dev), ctx.to(dev)).cpu()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(_build.LAUNCHES)
+            print(f"  {label} forward on {dev}: {time.perf_counter() - t0:.2f} s")
+            del model
+        err, rmax, fin = max_err(outs["cuda"], outs["cpu"])
+        # Bound: bf16 matmuls accumulate in another order on the card than on
+        # the CPU and activations round to bf16 at a dozen points per block,
+        # so after two blocks a few bf16 ulps of the largest value remain:
+        # 3e-2 max|cpu|, the CPU tests' bf16 tolerance against JAX. The int8
+        # model quantizes those activations, so a value that rounds apart
+        # may land on the neighbouring int8 step: one step is 1/127 of a
+        # token's largest value, inside the same bound.
+        bound_ = 3e-2 * rmax
+        print(f"  {label} whole model [2, 3, 60, 104, 16] (4,680 tokens, {attn} with an "
+              f"8-key ragged tile): max_abs_err {err:.3e} (bound {bound_:.3e}, "
+              f"max|cpu| {rmax:.3e}); launches {launches}")
+        expect(tuple(outs["cuda"].shape) == (2, f, hh, ww, 16), f"{label} model: wrong shape")
+        expect(fin and bool(torch.isfinite(outs["cpu"]).all()),
+               f"{label} model: non-finite output")
+        expect(rmax > 0, f"{label} model: output is all zeros")
+        expect(err <= bound_, f"{label} model: error {err} over bound {bound_}")
+        want = dit_launches(cfg.num_layers, False, qk8=label == "int8")
+        expect(launches == want, f"{label} model: launches {launches}, expected {want}")
     torch.cuda.empty_cache()
 
 
-def phase_serve():
-    """Phase 4: three requests through the CLI path; returns launch counts."""
+def _serve(cli, pipe, requests, per_forward, label):
+    """Answer each request through the CLI path with the launch counters set
+    to 0 just before and read just after -> (latents, launches)."""
     import torch
 
     from hyvideo_prfl_torch.ops import _build
 
-    cli = load_script("inference_torch")
-    args = cli.args_init(["--task", "t2v-1.3B", "--size", SIZE, "--frame_num", "21",
-                          "--sample_steps", "4", "--sample_guide_scale", "5.0",
-                          "--device", "cuda"])
-    t0 = time.perf_counter()
-    pipe = cli.build_pipeline(args)
-    cfg = pipe.cfg
-    dev = torch.device("cuda")
-    # the JAX initialisers zero the head, which would make every latent
-    # independent of the blocks: give it seeded weights
-    with torch.no_grad():
-        pipe.model.head.head.weight.normal_(
-            0.0, cfg.dim ** -0.5, generator=torch.Generator(device=dev).manual_seed(11))
     torch.cuda.synchronize()
-    print(f"  pipeline built once in {time.perf_counter() - t0:.2f} s "
-          f"({sum(p.numel() for p in pipe.model.parameters()) / 1e9:.3f} B params)")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    totals, latents = {}, []
+    for req in requests:
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = cli.run_request(pipe, req, SIZE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = (1, *cli.latent_grid(SIZE, req.frame_num), 16)
+        print(f"  {label} request seed {req.seed}, {req.frame_num} frames, {req.sample_steps} "
+              f"steps: {dt:.3f} s, {dt / req.sample_steps:.3f} s/step, latents {tuple(lat.shape)}")
+        expect(tuple(lat.shape) == want, f"latents {tuple(lat.shape)}, expected {want}")
+        expect(bool(torch.isfinite(lat).all()), f"{label}: non-finite latents")
+        for name, per in per_forward.items():
+            got = _build.LAUNCHES[name] - before.get(name, 0)
+            expect(got == per * req.sample_steps,
+                   f"{label}: {name} launched {got} times, expected {per * req.sample_steps}")
+        _add(totals, per_forward, req.sample_steps)
+        latents.append(lat)
+    launches = dict(_build.LAUNCHES)
+    expect(launches == totals, f"{label}: launch counts {launches}, expected {totals}")
+    print(f"  {label} launches {launches} (per DiT forward {per_forward}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return latents, launches
+
+
+def phase_serve():
+    """Phase 4: three bf16 and two int8 requests through the CLI path;
+    returns the launch counts of both."""
+    import torch
+
+    cli = load_script("inference_torch")
+    dev = torch.device("cuda")
+
+    def build(flags):
+        args = cli.args_init(["--task", "t2v-1.3B", "--size", SIZE, "--frame_num", "21",
+                              "--sample_steps", "4", "--sample_guide_scale", "5.0",
+                              "--device", "cuda", *flags])
+        t0 = time.perf_counter()
+        pipe = cli.build_pipeline(args)
+        # the JAX initialisers zero the head, which would make every latent
+        # independent of the blocks: give it seeded weights (the head is not
+        # quantized, so both pipelines get the same one)
+        with torch.no_grad():
+            pipe.model.head.head.weight.normal_(
+                0.0, pipe.cfg.dim ** -0.5, generator=torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        n_weights = sum(p.numel() for p in pipe.model.state_dict().values())
+        print(f"  pipeline {flags or '(bf16)'} built once in {time.perf_counter() - t0:.2f} s "
+              f"({n_weights / 1e9:.3f} B weights)")
+        return pipe, args
+
+    pipe, args = build([])
+    cfg = pipe.cfg
 
     def embeds(seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -335,41 +508,38 @@ def phase_serve():
         cli.Request(seed=44, context=embeds(103), context_null=null, frame_num=81,
                     sample_steps=2, guide_scale=args.sample_guide_scale),
     ]
-    per_forward = {"K8": 3 * cfg.num_layers + 1, "K6": 4 * cfg.num_layers,
-                   "K1": cfg.num_layers, "K3": cfg.num_layers}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    totals = {k: 0 for k in per_forward}
-    latents = []
-    for req in requests:
-        before = dict(_build.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lat = cli.run_request(pipe, req, SIZE)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        want = (1, *cli.latent_grid(SIZE, req.frame_num), 16)
-        print(f"  request seed {req.seed}, {req.frame_num} frames, {req.sample_steps} steps: "
-              f"{dt:.3f} s, {dt / req.sample_steps:.3f} s/step, latents {tuple(lat.shape)}")
-        expect(tuple(lat.shape) == want, f"latents {tuple(lat.shape)}, expected {want}")
-        expect(bool(torch.isfinite(lat).all()), "non-finite latents")
-        for name, per in per_forward.items():
-            got = _build.LAUNCHES[name] - before.get(name, 0)
-            expect(got == per * req.sample_steps,
-                   f"{name} launched {got} times, expected {per * req.sample_steps}")
-            totals[name] += per * req.sample_steps
-        latents.append(lat)
-    launches = {k: _build.LAUNCHES[k] for k in per_forward}
-    expect(launches == totals, f"launch counts {launches}, expected {totals}")
-    expect(not torch.equal(latents[0], latents[1]), "two distinct requests gave one result")
-    print(f"  launches {launches} (per DiT forward {per_forward})")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    bf16, launches = _serve(cli, pipe, requests, dit_launches(cfg.num_layers, False), "bf16")
+    expect(not torch.equal(bf16[0], bf16[1]), "two distinct requests gave one result")
+    del pipe
+    torch.cuda.empty_cache()
+
+    pipe, _ = build(["--quant", "int8", "--quant_attn", "int8"])
+    int8, launches8 = _serve(cli, pipe, [requests[0], requests[2]],
+                             dit_launches(cfg.num_layers, False, qk8=True), "int8")
+    del pipe
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # Bound: the int8 sample of a seed must stay near the bf16 sample of the
+    # same seed. Two unrelated samples lie ~sqrt(2) of a norm apart (seeds 42
+    # and 43 below); W8A8 noise of ~1% per matmul, over 30 blocks and a
+    # guidance of 5 on the cond - uncond difference, may move the latents
+    # by a few tenths of that: bound 0.3 relative, a fifth of the distance
+    # between two unrelated samples.
+    apart = rel(bf16[1], bf16[0])
+    for lat8, lat, req in ((int8[0], bf16[0], requests[0]), (int8[1], bf16[2], requests[2])):
+        d = rel(lat8, lat)
+        print(f"  int8 against bf16, seed {req.seed}, {req.frame_num} frames: relative L2 "
+              f"distance {d:.4f} (bound 0.3; seeds 42 and 43 in bf16 lie {apart:.4f} apart)")
+        expect(d <= 0.3, f"int8 latents of seed {req.seed} lie {d} from the bf16 ones")
+    return _add(dict(launches), launches8)
 
 
-def report_many(name, label, checks, results=None, timing=None):
-    """Check each (output name, got, ref, bound relative to max|ref|)."""
+def report_many(name, label, checks, results=None, timing=None, **extra):
+    """Check each (output name, got, ref, bound relative to max|ref|); with
+    a timing (kernel ms, plain ms), record it and `extra` in results."""
     worst = 0.0
     for out_name, got, ref, bound_rel in checks:
         err, rmax, fin = max_err(got, ref)
@@ -381,16 +551,19 @@ def report_many(name, label, checks, results=None, timing=None):
         worst = max(worst, err)
     if timing is not None:
         ms, pms = timing
-        print(f"  {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        results[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": pms}
+        print(f"  {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms"
+              + "".join(f", {k} {v:.4f}" for k, v in extra.items() if isinstance(v, float)))
+        results[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **extra}
 
 
 def phase_bwd_kernels(results):
     """Phase 5: each backward kernel against its plain version at the
-    training shapes of the 81-frame slice (batch 1: training has no CFG)."""
+    training shapes of the 81-frame slice (batch 1: training has no CFG);
+    returns the launches of the split-route gradient call (K5's path)."""
     import torch
 
     from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
+    from hyvideo_prfl_torch.ops import _build
     from hyvideo_prfl_torch.ops import flash_attention as fa
     from hyvideo_prfl_torch.ops import qknorm_rope as qr
     from hyvideo_prfl_torch.ops import stream
@@ -410,37 +583,66 @@ def phase_bwd_kernels(results):
     # fp32 sum differs in its last bits, and every output rounds to bf16
     # (K4's dq also adds its atomics in a run-dependent order): two bf16
     # ulps of the largest gradient (2^-6 max|ref|) per output.
+    # The split route runs through the op as training would reach it: a
+    # gradient of flash_attention at lq 1,024, where the JAX rule picks K5.
     cases = (("K4", lq, lq, "self-attention, 32,760 keys (56 valid in the last 64-key tile)"),
              ("K4", lq, TEXT_LEN, "cross-attention, 512 keys"),
-             ("K5", 1024, lq, "lq 1,024 (the split route)"),
+             ("K5", 1024, lq, "lq 1,024 (the split route, through the autograd op)"),
              ("K5", lq, lq, "self-attention shape, called directly for timing"))
+    route_launches = {}
     for name, lq_, lk_, label in cases:
         merged = name == "K4"
         if "directly" not in label:
             expect(fa.uses_merged_bwd(lq_, lk_) == merged, f"{name}: wrong route for {label}")
         q, k = randn(1, n, lq_, d), randn(1, n, lk_, d)
         v = randn(1, lk_, n, d)
-        o, lse = fa.flash_fwd_kernel(q, k, v, fa.uses_single_block(lk_))
-        do = randn(*o.shape)
-        got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
+        if "autograd" in label:
+            qkv = [x.requires_grad_() for x in (q, k, v)]
+            o, lse = fa.flash_attention(*qkv, return_lse=True)
+            do = randn(*o.shape)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = torch.autograd.grad(o, qkv, do)
+            torch.cuda.synchronize()
+            route_launches = dict(_build.LAUNCHES)
+            expect(route_launches == {"K5": 1}, f"the split route launched {route_launches}")
+            q, k, v, o = q.detach(), k.detach(), v.detach(), o.detach()
+        else:
+            o, lse = fa.flash_fwd_kernel(q, k, v, fa.uses_single_block(lk_))
+            do = randn(*o.shape)
+            got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
         torch.cuda.synchronize()
         timed = (name == "K4" and lk_ == lq) or "directly" in label
-        timing = None
+        timing, extra = None, {}
         if timed:
             del got, ref
-            timing = timed_pair(lambda: fa.bwd_kernel(q, k, v, o, lse, do, merged),
-                                lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                                reps=3, calls=1)
+            # the library yardstick: SDPA's flash backward on the same
+            # tensors in its [B, N, L, D] layout, one op per call
+            qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
+            vs = v.movedim(1, 2).contiguous().requires_grad_()
+            out = sdpa_flash(qs, ks, vs)
+            dot = do.movedim(1, 2).contiguous()
+            t = timed_turns({
+                "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, merged),
+                "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                       retain_graph=True)}, reps=3, calls=1)
+            del qs, ks, vs, out, dot
+            timing = (t["kernel"], t["plain"])
             got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
             ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
             flop = 10 * n * lq_ * lk_ * d  # five products of 2 flop per multiply-add
-            print(f"  {name} {label}: {flop / (timing[0] * 1e9):.1f} TFLOP/s (kernel), "
-                  f"{flop / (timing[1] * 1e9):.1f} TFLOP/s (plain), counting the five "
-                  f"products of the algorithm{' (K5 runs seven)' if name == 'K5' else ''}")
+            print(f"  {name} {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), "
+                  f"{flop / (t['plain'] * 1e9):.1f} (plain), {flop / (t['library'] * 1e9):.1f} "
+                  f"(SDPA flash backward), counting the five products of the "
+                  f"algorithm{' (K5 runs seven)' if name == 'K5' else ''}")
+            # q, k, v, dO in; dq, dk, dv out (bf16); lse and delta fp32
+            extra = {**bound(n * d * 2 * (3 * lq_ + 4 * lk_) + 8 * n * lq_, bf16=flop),
+                     "library_ms": t["library"]}
         report_many(name, label, [(o_, a, b, 2.0 ** -6)
                                   for o_, a, b in zip(("dq", "dk", "dv"), got, ref)],
-                    results, timing)
+                    results, timing, **extra)
         del q, k, v, o, lse, do, got, ref
         torch.cuda.empty_cache()
 
@@ -462,8 +664,12 @@ def phase_bwd_kernels(results):
         timing = (timed_pair(lambda: qr.bwd_kernel(x, w, c, s_, gg, n, 1e-6, rope),
                              lambda: qr.rmsnorm_rope_bwd_plain(x, w, c, s_, gg, n, 1e-6, rope))
                   if rope else None)
+        # x and g in, dx out (bf16), the rope tables; no single PyTorch call
+        # computes the fused norm-and-rope backward
         report_many("K7", label, [("dx", got[0], ref[0], 2.0 ** -6),
-                                  ("dw", got[1], ref[1], 2.0 ** -7)], results, timing)
+                                  ("dw", got[1], ref[1], 2.0 ** -7)], results, timing,
+                    **bound(3 * l * dim * 2 + 2 * l * d * 4, fp32=12 * l * dim),
+                    library_ms=None)
         del x, gg, got, ref
 
     # K9 with the blocks' bf16 cotangent and the head's fp32 one. Bound:
@@ -478,12 +684,17 @@ def phase_bwd_kernels(results):
         timing = (timed_pair(lambda: stream.bwd_kernel(x, s, gg, 1e-6),
                              lambda: stream.ln_scale_shift_bwd_plain(x, s, gg, 1e-6))
                   if gdt == torch.bfloat16 else None)
+        # x (fp32) and g in, dx (fp32) out; no single PyTorch call computes
+        # the LayerNorm-with-modulation backward
         report_many("K9", label, [(o_, a, b, 1e-5)
                                   for o_, a, b in zip(("dx", "ds", "dt"), got, ref)],
-                    results, timing)
+                    results, timing,
+                    **bound(lq * dim * (4 + gg.element_size() + 4), fp32=12 * lq * dim),
+                    library_ms=None)
         del gg, got, ref
     del x
     torch.cuda.empty_cache()
+    return route_launches
 
 
 def phase_grad_model():
@@ -635,11 +846,30 @@ def load_script(name):
     return mod
 
 
-def phase_train(root):
-    """Phase 7: PRFL training through the CLI path; returns launch counts."""
+def _build_trainer(cli, raw, dev):
+    """The trainer of a raw config, with the head seeded as the JAX
+    initialisers would not (a zero head gives every block a zero gradient
+    in the first refl step)."""
     import torch
 
     from hyvideo_prfl_torch.configs import config_from_dict
+
+    config = config_from_dict(json.loads(json.dumps(raw)))
+    t0 = time.perf_counter()
+    trainer = cli.build_trainer(config, "cuda")
+    with torch.no_grad():
+        trainer.model.dit.head.head.weight.normal_(
+            0.0, trainer.model.dit_cfg.dim ** -0.5,
+            generator=torch.Generator(device=dev).manual_seed(12))
+    torch.cuda.synchronize()
+    return trainer, config, time.perf_counter() - t0
+
+
+def phase_train(root):
+    """Phase 7: PRFL training through the CLI path, with the bf16 and the
+    int8 rollout; returns the launch counts of both."""
+    import torch
+
     from hyvideo_prfl_torch.data.dataset import LatentCacheDataset
     from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler
     from hyvideo_prfl_torch.ops import _build
@@ -649,20 +879,12 @@ def phase_train(root):
     raw = json.loads(json.dumps(TRAIN_CONFIG))
     raw["dataset"].update(meta_file_list=[lists[21]], null_dir=null_dir)
     raw["save"] = {"output_dir": os.path.join(root, "out")}
-    config = config_from_dict(raw)
-    t0 = time.perf_counter()
-    trainer = cli.build_trainer(config, "cuda")
+    dev = torch.device("cuda")
+    trainer, config, build_s = _build_trainer(cli, raw, dev)
     model = trainer.model
     cfg = model.dit_cfg
-    dev = torch.device("cuda")
-    # the JAX initialisers zero the head, which would give every block a
-    # zero gradient in the first refl step: give it seeded weights
-    with torch.no_grad():
-        model.dit.head.head.weight.normal_(
-            0.0, cfg.dim ** -0.5, generator=torch.Generator(device=dev).manual_seed(12))
-    torch.cuda.synchronize()
     n_lrm = model.lrm.dit_cfg.num_layers
-    print(f"  trainer built in {time.perf_counter() - t0:.2f} s: policy "
+    print(f"  trainer built in {build_s:.2f} s: policy "
           f"{sum(p.numel() for p in model.dit.parameters()) / 1e9:.3f} B fp32 master params, "
           f"{cfg.num_layers} blocks; LRM {n_lrm} blocks, frozen")
     watched = {name: p.detach().clone() for name, p in model.dit.named_parameters()
@@ -716,9 +938,83 @@ def phase_train(root):
         expect(math.isfinite(m[key]), f"{key} is not finite at 81 frames: {m}")
     expect(peak < 80e9, f"peak memory {peak} does not fit 80 GB")
     expect(got == want, f"launches over 3 outer steps {got}, expected {want}")
+    first_reward = hist[0]["reward"]
     del trainer, model
     torch.cuda.empty_cache()
-    return got
+
+    # The int8 rollout, from the same weights and draws: one outer step at
+    # 21 frames and one at 81, each with the counters set to 0 just before.
+    raw["train"]["rollout_quant"] = "int8"
+    trainer, config, build_s = _build_trainer(cli, raw, dev)
+    print(f"  int8-rollout trainer built in {build_s:.2f} s")
+    per_step8 = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
+                                        cfg.remat_policy, rollout_quant="int8")
+    got8 = {}
+    for frames in (21, 81):
+        if frames == 81:
+            trainer.loader = iter(BatchIterator(ds81, BlockDistributedSampler(len(ds81))))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        (m,) = cli.run(trainer, 1)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        print(f"  int8 rollout, {frames} frames: refl_loss {m['refl_loss']:.6f}, reward "
+              f"{m['reward']:.6f}, grad_norm {m['grad_norm']:.6e}, sft_loss {m['sft_loss']:.6f}, "
+              f"t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+        for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+            expect(math.isfinite(m[key]), f"{key} is not finite with the int8 rollout: {m}")
+        expect(m["grad_norm"] > 0, f"grad norm {m['grad_norm']} is not above 0")
+        expect(launches == per_step8, f"int8 rollout launches {launches}, expected {per_step8}")
+        if frames == 21:
+            # the same weights, data and draws as the bf16 run's first step:
+            # only the rollout's quantization moves the reward (the bound of
+            # tests/test_learning_dynamics.py:392)
+            d = abs(m["reward"] - first_reward)
+            print(f"  first reward, int8 rollout against bf16: {m['reward']:.6f} against "
+                  f"{first_reward:.6f} ({d:.2e}, bound 0.05)")
+            expect(d <= 0.05, f"the int8 rollout's first reward lies {d} from the bf16 run's")
+        _add(got8, launches)
+    del trainer
+    torch.cuda.empty_cache()
+    return _add(got, got8)
+
+
+def phase_probes(results):
+    """Phase 8: the int8 probes P1 and P2 through their scripts, each with
+    the counters set to 0 just before; returns their launches."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+
+    launches = {}
+    for name, script, shown in (("P1", "probe_int8_rate_torch", "qk"),
+                                ("P2", "probe_int8_mosaic_torch", "chain")):
+        cli = load_script(script)
+        _build.reset_launches()
+        res = cli.main([])
+        torch.cuda.synchronize()
+        launches[name] = _build.LAUNCHES[name]
+        for r in res:
+            print(f"  {name} {r['probe']} [{r['m']}, {r['k']}] x [{r['k']}, {r['n_cols']}] x "
+                  f"{r['nblocks']} blocks x {r['reps']} reps: int8 {r['int8_ms']:.4f} ms "
+                  f"{r['int8_tops']:.1f} TOPS (torch._int_mm {r['int8_library_tops']:.1f}), "
+                  f"bf16 {r['bf16_ms']:.4f} ms {r['bf16_tops']:.1f} TFLOP/s (torch.matmul "
+                  f"{r['bf16_library_tops']:.1f}), int8 {r['int8_over_bf16']:.2f}x bf16; exact "
+                  f"{r['int8_exact']}/{r['bf16_exact']}")
+            expect(r["int8_exact"] and r["bf16_exact"],
+                   f"{name} {r['probe']} differs from its plain version")
+        r = next(r for r in res if r["probe"] == shown)
+        ops = 2 * r["m"] * r["k"] * r["n_cols"] * r["nblocks"] * r["reps"]
+        nbytes = r["m"] * r["k"] + r["nblocks"] * r["n_cols"] * r["k"] + 4 * r["m"] * r["n_cols"]
+        # no single PyTorch call sums the reps and the b-blocks: library_ms
+        # is null; the library's rate for one rep's product is printed above
+        results[name] = {"max_abs_err": 0.0, "ms": r["int8_ms"], "plain_ms": r["plain_ms"],
+                         **bound(nbytes, int8=ops), "library_ms": None,
+                         "bf16_ms": r["bf16_ms"], "int8_tops": r["int8_tops"],
+                         "bf16_tops": r["bf16_tops"]}
+    return launches
 
 
 def print_ptxas(log: str) -> None:
@@ -735,7 +1031,10 @@ def print_ptxas(log: str) -> None:
               "ln_scale_shift_kernelILi12E13__nv_bfloat16": "K8 D=1536 bf16-out",
               "ln_scale_shift_kernelILi12Ef": "K8 D=1536 fp32-out",
               "rmsnorm_rope_kernelILi6ELb1": "K6 12x128 rope",
-              "rmsnorm_rope_kernelILi6ELb0": "K6 12x128 norm-only"}
+              "rmsnorm_rope_kernelILi6ELb0": "K6 12x128 norm-only",
+              "flash_fwd_qk8_kernel": "K10",
+              "probe_kernelILb1E": "P1/P2 int8",
+              "probe_kernelILb0E": "P1/P2 bf16"}
     current = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -783,21 +1082,27 @@ def main() -> int:
     print("phase 4: serving through the CLI path")
     serve_launches = phase_serve()
     print("phase 5: backward kernels against their plain versions at the training shapes")
-    phase_bwd_kernels(results)
+    route_launches = phase_bwd_kernels(results)
     print("phase 6: whole-model gradients, card against CPU")
     phase_grad_model()
     print("phase 7: PRFL training through the CLI path")
     with tempfile.TemporaryDirectory() as root:
         train_launches = phase_train(root)
     # every kernel of the training path ran there; K5 is not on it (the JAX
-    # rule routes every full-width call to K4) and is held and timed in phase 5
-    expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k != "K5"),
+    # rule routes every full-width call to K4): its launches are the
+    # split-route gradient call of phase 5
+    expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k not in ("K5", "P1", "P2")),
            f"a kernel of the training path never launched: {train_launches}")
     print(f"  serving launches {serve_launches}; training launches {train_launches}")
+    print("phase 8: the int8 probes P1 and P2")
+    probe_launches = phase_probes(results)
 
+    launches = _add(_add(_add(dict(serve_launches), train_launches), route_launches),
+                    probe_launches)
+    expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": train_launches.get(name, 0), **results[name]}
+         "launches": launches[name], **results[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,233 @@
+// K10: fixed-max ("bounded") flash-attention forward with an int8 q k^T,
+// head_dim 128.
+//
+// Replaces hyvideo_prfl_tpu/ops/flash_attention.py
+//   K10 _fwd_kernel_bounded_qk8 (pallas_call at flash_attention.py:713, via
+//       _flash_fwd_qk8): the serving-only forward of the DiT self-attention
+//       under WanConfig.quant_attn = "int8" (int8 serving and the int8 PRFL
+//       rollout). It has no backward.
+// q and k arrive as int8 with one symmetric scale per (batch, head), made
+// outside the kernel (flash_attention.py _quantize_bn); c folds both scales,
+// the softmax scale and log2(e) into one fp32 scalar per (batch, head).
+// Per q row:
+//
+//   s32 = q8 . k8 (exact int32);  p = exp2(float(s32) * c)   (no running max)
+//   l = sum p;  o = (sum bf16(p) v) / l;  lse = ln(l)
+//
+// Keys past lk get p = 0 in the last tile; the TPU zero-padded them (they
+// quantize to 0, so s32 = 0 and p = 1) and subtracted the pad count from l,
+// which gives the same result.
+//
+// Bound on the H100: tensor-core math. At the 81-frame CFG-2 shape (24
+// heads x 32,760 x 32,760 x 128) one call is 6.6e12 int8 ops for the score
+// (1,979 TOPS peak) and 6.6e12 bf16 flop for p v (989 TFLOP/s peak), ~10 ms
+// together, against ~0.3 GB of q8/k8/v/o traffic.
+//
+// Design: K1's (flash_fwd.cu) with the score product on the int8 path.
+// * A block of 8 warps owns 128 q rows of one (batch, head); each warp keeps
+//   the int8 fragments of its 16 rows in registers for the whole key loop.
+// * q k^T is mma.sync m16n8k32 s8 x s8 -> s32. An int8 row of 128 features
+//   is 128 B, one swz128 row; the int8 A and B fragments have the byte
+//   layout of the bf16 m16n8k16 ones, so ldmatrix loads them as K1 loads
+//   bf16, and each key tile takes 4 products along the features, not 8.
+// * The s32 accumulator has the fp32 one's register layout: exp2(s32 * c)
+//   goes straight into acc_to_a as the bf16 A operand of p v, which stays
+//   mma.sync m16n8k16 bf16 -> fp32, v through ldmatrix.trans as in K1.
+// * Keys stream in 64-row tiles (8 KB of int8 K, 16 KB of bf16 V) through a
+//   two-stage cp.async ring; q (16 KB) lands once, beside tile 0.
+// * lse is written as [B*N, Lq] fp32; the TPU kernel's 128-lane lse layout
+//   is a TPU layout artefact the port drops.
+#include "tensor_core.cuh"
+
+namespace {
+
+constexpr int kD = 128;
+constexpr int kBlockM = 128;
+constexpr int kBlockN = 64;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRow8 = kD;        // bytes of an int8 row
+constexpr int kRow16 = kD * 2;   // bytes of a bf16 row
+constexpr int kKTileBytes = kBlockN * kRow8;
+constexpr int kVTileBytes = kBlockN * kRow16;
+constexpr int kSmemBytes = kBlockM * kRow8 + 2 * (kKTileBytes + kVTileBytes);  // Q + 2x(K, V)
+constexpr float kLn2 = 0.6931471805599453f;
+
+using hyv::acc_to_a;
+using hyv::cp_async16;
+using hyv::cp_async_commit;
+using hyv::cp_async_wait;
+using hyv::ldsm_x4;
+using hyv::ldsm_x4_t;
+using hyv::mma;
+using hyv::mma_s8;
+using hyv::pack_bf16x2;
+using hyv::swz;
+using hyv::swz128;
+
+struct Strides {  // element strides of (batch, head, row); the feature stride is 1
+  long long b, h, l;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_qk8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ c,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int N, int Lq, int Lk, Strides qs, Strides ks, Strides vs, Strides os) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sQ = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t sK0 = sQ + kBlockM * kRow8;
+  const uint32_t sV0 = sK0 + 2 * kKTileBytes;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / N, h = bh - b * N;
+  const int m0 = blockIdx.x * kBlockM;
+  const int8_t* qp = q + b * qs.b + h * qs.h;
+  const int8_t* kp = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vp = v + b * vs.b + h * vs.h;
+  const float cs = c[bh];
+
+  auto load_kv = [&](int tile, int stage) {
+    const int n0 = tile * kBlockN;
+#pragma unroll
+    for (int i = 0; i < kBlockN * 8 / kThreads; ++i) {  // K: 8 chunks of 16 B a row
+      const int idx = tid + i * kThreads, r = idx >> 3, ch = idx & 7;
+      const bool valid = n0 + r < Lk;
+      const long long key = valid ? n0 + r : 0;
+      cp_async16(sK0 + stage * kKTileBytes + swz128(r, ch), kp + key * ks.l + ch * 16, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < kBlockN * 16 / kThreads; ++i) {  // V: 16 chunks a row
+      const int idx = tid + i * kThreads, r = idx >> 4, ch = idx & 15;
+      const bool valid = n0 + r < Lk;
+      const long long key = valid ? n0 + r : 0;
+      cp_async16(sV0 + stage * kVTileBytes + swz(r, ch), vp + key * vs.l + ch * 8, valid);
+    }
+  };
+
+  // q tile (rows past Lq zero-filled) and key tile 0 in one group
+#pragma unroll
+  for (int i = 0; i < kBlockM * 8 / kThreads; ++i) {
+    const int idx = tid + i * kThreads, r = idx >> 3, ch = idx & 7;
+    const bool valid = m0 + r < Lq;
+    const long long row = valid ? m0 + r : 0;
+    cp_async16(sQ + swz128(r, ch), qp + row * qs.l + ch * 16, valid);
+  }
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int wr = warp * 16;
+  uint32_t qf[kD / 32][4];  // 4 products of 32 features each
+#pragma unroll
+  for (int kk = 0; kk < kD / 32; ++kk)
+    ldsm_x4(sQ + swz128(wr + (lane & 15), kk * 2 + (lane >> 4)),
+            qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int t = 0; t < kD / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  float lsum[2] = {0.f, 0.f};
+
+  const int n_tiles = (Lk + kBlockN - 1) / kBlockN;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) load_kv(j + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t sK = sK0 + st * kKTileBytes, sV = sV0 + st * kVTileBytes;
+
+    // s32 = q8 k8^T: 16 rows x 64 keys per warp (8 fragments of 8 keys)
+    int s[kBlockN / 8][4];
+#pragma unroll
+    for (int t = 0; t < kBlockN / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0;
+#pragma unroll
+    for (int kk = 0; kk < kD / 32; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < kBlockN / 16; ++nn) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(sK + swz128(nn * 16 + (lane & 7) + ((lane >> 4) << 3), kk * 2 + ((lane >> 3) & 1)),
+                b0, b1, b2, b3);
+        mma_s8(s[2 * nn], qf[kk], b0, b1);
+        mma_s8(s[2 * nn + 1], qf[kk], b2, b3);
+      }
+    }
+
+    // p = exp2(s32 * c); keys past Lk (only in the last tile) get p = 0
+    float p[kBlockN / 8][4];
+    const int key0 = j * kBlockN + (lane & 3) * 2;
+    const bool tail = j * kBlockN + kBlockN > Lk;
+#pragma unroll
+    for (int t = 0; t < kBlockN / 8; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pe = exp2f(__fmul_rn(__int2float_rn(s[t][e]), cs));
+        if (tail && key0 + t * 8 + (e & 1) >= Lk) pe = 0.f;
+        p[t][e] = pe;
+        lsum[e >> 1] += pe;
+      }
+    }
+
+    // o += bf16(p) v
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(p[2 * kk], p[2 * kk + 1], a);
+#pragma unroll
+      for (int dd = 0; dd < kD / 16; ++dd) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(sV + swz(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), dd * 2 + (lane >> 4)),
+                  b0, b1, b2, b3);
+        mma(acc[2 * dd], a, b0, b1);
+        mma(acc[2 * dd + 1], a, b2, b3);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's load
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    lsum[e] += __shfl_xor_sync(0xffffffffu, lsum[e], 1);
+    lsum[e] += __shfl_xor_sync(0xffffffffu, lsum[e], 2);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + wr + (lane >> 2) + 8 * half;
+    if (row >= Lq) continue;
+    const float l = lsum[half];
+    const float l_safe = l <= 0.f ? 1.f : l;
+    __nv_bfloat16* orow = o + b * os.b + h * os.h + row * os.l + (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < kD / 8; ++t)
+      *reinterpret_cast<uint32_t*>(orow + t * 8) =
+          pack_bf16x2(acc[t][2 * half] / l_safe, acc[t][2 * half + 1] / l_safe);
+    if ((lane & 3) == 0) lse[(long long)bh * Lq + row] = log2f(fmaxf(l, 1e-30f)) * kLn2;
+  }
+}
+
+}  // namespace
+
+// q8 [B, N, Lq, 128], k8 [B, N, Lk, 128] int8 and v [B, Lk, N, 128] bf16
+// addressed by element strides (feature stride 1, rows 16 B aligned); c
+// [B*N] fp32; o [B, Lq, N, 128] bf16 by strides; lse [B*N, Lq] fp32.
+extern "C" int hyv_flash_fwd_qk8(
+    const void* q8, const void* k8, const void* v, const void* c, void* o, void* lse,
+    int B, int N, int Lq, int Lk,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl, void* stream) {
+  if (Lk <= 0) return (int)cudaErrorInvalidValue;
+  if (B * N == 0 || Lq == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_qk8_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Lq + kBlockM - 1) / kBlockM, B * N);
+  flash_fwd_qk8_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const int8_t*)q8, (const int8_t*)k8, (const __nv_bfloat16*)v, (const float*)c,
+      (__nv_bfloat16*)o, (float*)lse, N, Lq, Lk, Strides{q_sb, q_sh, q_sl},
+      Strides{k_sb, k_sh, k_sl}, Strides{v_sb, v_sh, v_sl}, Strides{o_sb, o_sh, o_sl});
+  return (int)cudaGetLastError();
+}

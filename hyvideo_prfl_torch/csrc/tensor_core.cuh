@@ -1,6 +1,7 @@
 // Tensor-core and async-copy helpers shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): cp.async into shared memory, ldmatrix, and
-// mma.sync m16n8k16 bf16 -> fp32.
+// (flash_fwd.cu, flash_fwd_qk8.cu, flash_bwd.cu) and the int8 probes
+// (int8_probe.cu): cp.async into shared memory, ldmatrix, mma.sync m16n8k16
+// bf16 -> fp32 and m16n8k32 int8 -> int32.
 //
 // Shared-memory tiles hold bf16 rows of 128 features (256 B) or 64 (128 B),
 // XOR-swizzled in 16 B chunks so that ldmatrix's eight row addresses of one
@@ -50,6 +51,18 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x32, row) * b (32x8, col); int8 in, int32 accumulate. The byte
+// layout of the a and b fragments is the m16n8k16 bf16 one (a 16-row x
+// 32-byte slice, b 8 rows of 32 bytes), so the same ldmatrix addressing
+// loads them, and c has the fp32 accumulator's register layout.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -22,9 +22,16 @@ Training features: per-block activation checkpointing (``cfg.remat``,
 policies "full" and "attn") and the feature taps the reward model reads
 (``output_features``). The state dict keys follow the JAX parameter tree
 (``blocks.{i}.self_attn.q`` for ``params/blocks/self_attn/q`` at layer i),
-with torch's [out, in] weight layout. Not ported yet: i2v/flf2v
-conditioning (``y``, CLIP), TeaCache, int8, the "dots" remat policies and
-the sharding policies.
+with torch's [out, in] weight layout.
+
+The int8 serving path: ``cfg.quant_dense = "int8"`` makes the ten block
+matmuls (self and cross q/k/v/o, ``ffn_0``, ``ffn_2``) ``QuantLinear``
+(W8A8, ops/quant.py), and ``cfg.quant_attn = "int8"`` sends the
+self-attention to the int8 q k^T forward (K10) wherever its keys stream in
+several blocks; the text cross-attention stays on K3. Both are forward
+only. Not ported yet: i2v/flf2v conditioning (``y``, CLIP, and the
+``k_img``/``v_img`` matmuls), TeaCache, the "dots" remat policies and the
+sharding policies.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.qknorm_rope import rmsnorm_only, rmsnorm_rope
+from ..ops.quant import int8_dense, quantize_weight
 from ..ops.stream import ln_scale_shift
 from .rope import rope_tables_rolled_np
 
@@ -67,6 +75,12 @@ class WanConfig:
     # the attention calls, so the backward never re-runs K1/K3
     remat: bool = True
     remat_policy: str = "full"
+    # "int8": the ten block matmuls run as W8A8 int8 GEMMs (serving and the
+    # int8 rollout; QuantLinear)
+    quant_dense: Optional[str] = None
+    # "int8": the self-attention's q k^T runs on the int8 path (K10) where
+    # its keys stream; the cross-attention stays bf16
+    quant_attn: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -131,8 +145,43 @@ def _linear(in_f, out_f, device, dtype):
                               dtype=dtype)
 
 
-def _dense(layer: nn.Linear, x, dtype):
-    """The layer in `dtype`, whatever its storage: masters cast at use."""
+class QuantLinear(nn.Module):
+    """W8A8 int8 dense, the JAX package's QuantDense: an int8 weight
+    [out, in] with fp32 per-output scales and an fp32 bias, all buffers
+    (filled by utils/checkpoint.quantize_state or ``quantize_``)."""
+
+    def __init__(self, in_f, out_f, device=None):
+        super().__init__()
+        device = device or "cpu"
+        self.register_buffer("weight_q", torch.empty(out_f, in_f, dtype=torch.int8,
+                                                     device=device))
+        self.register_buffer("weight_scale", torch.empty(out_f, device=device))
+        self.register_buffer("bias", torch.empty(out_f, device=device))
+
+    def forward(self, x):
+        return int8_dense(x, self.weight_q, self.weight_scale, self.bias)
+
+    @torch.no_grad()
+    def quantize_(self, weight, bias):
+        """Refill the buffers in place from a float weight [out, in] and bias."""
+        q, s = quantize_weight(weight)
+        self.weight_q.copy_(q)
+        self.weight_scale.copy_(s)
+        self.bias.copy_(bias)
+
+
+def _block_linear(cfg: WanConfig, in_f, out_f, device, dtype):
+    """One of the ten block matmuls: int8 under cfg.quant_dense."""
+    if cfg.quant_dense == "int8":
+        return QuantLinear(in_f, out_f, device)
+    return _linear(in_f, out_f, device, dtype)
+
+
+def _dense(layer, x, dtype):
+    """The layer in `dtype`, whatever its storage: masters cast at use; an
+    int8 layer quantizes x in `dtype` and writes `dtype`."""
+    if isinstance(layer, QuantLinear):
+        return layer(x.to(dtype))
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
@@ -147,10 +196,10 @@ class _Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         pd = param_dtype or cfg.compute_dtype
-        self.q = _linear(cfg.dim, cfg.dim, device, pd)
-        self.k = _linear(cfg.dim, cfg.dim, device, pd)
-        self.v = _linear(cfg.dim, cfg.dim, device, pd)
-        self.o = _linear(cfg.dim, cfg.dim, device, pd)
+        self.q = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
+        self.k = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
+        self.v = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
+        self.o = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
         self.norm_q = _param(cfg.dim, device=device)
         self.norm_k = _param(cfg.dim, device=device)
 
@@ -177,6 +226,10 @@ class SelfAttention(_Attention):
         q = rmsnorm_rope(_dense(self.q, x, cd), self.norm_q, c_tab, s_tab, n, cfg.eps)
         k = rmsnorm_rope(_dense(self.k, x, cd), self.norm_k, c_tab, s_tab, n, cfg.eps)
         return q, k, _dense(self.v, x, cd).view(b, l, n, d)
+
+    def attend(self, q, k, v):
+        return dot_product_attention(q, k, v, qk_layout="bnld", bounded_logits=True,
+                                     qk_int8=self.cfg.quant_attn == "int8")
 
 
 class CrossAttention(_Attention):
@@ -213,8 +266,8 @@ class WanBlock(nn.Module):
         self.norm3_scale = _param(cfg.dim, device=device)
         self.norm3_bias = _param(cfg.dim, device=device)
         self.cross_attn = CrossAttention(cfg, device, param_dtype)
-        self.ffn_0 = _linear(cfg.dim, cfg.ffn_dim, device, pd)
-        self.ffn_2 = _linear(cfg.ffn_dim, cfg.dim, device, pd)
+        self.ffn_0 = _block_linear(cfg, cfg.dim, cfg.ffn_dim, device, pd)
+        self.ffn_2 = _block_linear(cfg, cfg.ffn_dim, cfg.dim, device, pd)
 
     def _pre_self(self, x, e6, c_tab, s_tab):
         h = ln_scale_shift(x, 1.0 + e6[:, 1], e6[:, 0], out_dtype=self.cfg.compute_dtype)

@@ -44,6 +44,9 @@ _SIGNATURES = {
     "hyv_ln_scale_shift_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "hyv_rmsnorm_rope_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "hyv_flash_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 18 + [_F, _F, _I, _P],
+    "hyv_flash_fwd_qk8": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_P],
+    "hyv_probe_rate": [_P, _P, _P] + [_I] * 7 + [_P],
+    "hyv_probe_chain": [_P, _P, _P] + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -16,8 +16,19 @@ and recomputes p from lse in its backward. On a CUDA tensor the forward
 runs K1 (streaming, lk > FULL_K_MAX after padding to 128) or K3
 (single-K-block), both csrc/flash_fwd.cu, and the backward runs K4
 (merged) or K5 (split), both csrc/flash_bwd.cu, routed by the JAX rule
-(``uses_merged_bwd``). A CPU tensor runs the plain versions below. The
-shifted online-softmax form (K2) is not ported yet.
+(``uses_merged_bwd``). A CPU tensor runs the plain versions below.
+
+``qk_int8=True`` (WanConfig.quant_attn) takes the JAX package's int8
+serving forward wherever the keys stream in several blocks (not
+``uses_single_block``; FULL_K_MAX is read at call time): q and k are
+quantized to int8 with one symmetric scale per (batch, head), and
+
+    s32 = q8 k8^T;  p = exp2(s32 c);  o = bf16(p) v / sum p
+
+with c = fp32(sq sk) fp32(scale log2(e)). A CUDA tensor runs K10
+(csrc/flash_fwd_qk8.cu). It has no backward, as in the JAX package, and
+refuses a call that could need one. The shifted online-softmax form (K2)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .quant import over_127
 
 FULL_K_MAX = 3584
 DEFAULT_BLOCK_Q = 512
@@ -87,27 +99,67 @@ def uses_merged_bwd(lq: int, lk: int) -> bool:
     return lq_p // _divisor_block(lq_p, 512) >= 4
 
 
-def flash_attention_plain(q, k, v, q_chunk: int = 512):
-    """Plain bounded forward -> (o [B, Lq, N, D], lse [B*N, Lq] fp32).
-
-    Runs over chunks of q rows, so the fp32 score block is
-    [B, N, q_chunk, Lk] rather than the whole [B, N, Lq, Lk]."""
-    b, n, lq, d = q.shape
-    qscale = _qscale(d)
-    kf = k.float()
+def _bounded_fwd_plain(scores, v, b, n, lq, q_chunk):
+    """The bounded softmax and p v over chunks of q rows, given the log2-domain
+    scores of rows i0:i1 as scores(i0, i1) -> [B, N, i1 - i0, Lk] fp32, so the
+    score block is [B, N, q_chunk, Lk] rather than the whole [B, N, Lq, Lk]."""
+    d = v.shape[-1]
     vf = v.movedim(2, 1).float()  # [B, N, Lk, D]
-    o = torch.empty((b, lq, n, d), dtype=v.dtype, device=q.device)
-    lse = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    lse = torch.empty((b, n, lq), dtype=torch.float32, device=v.device)
     for i0 in range(0, lq, q_chunk):
         i1 = min(i0 + q_chunk, lq)
-        qs = (q[:, :, i0:i1].float() * qscale).to(q.dtype).float()
-        p = torch.exp2(qs @ kf.transpose(-1, -2))  # [B, N, c, Lk] fp32
+        p = torch.exp2(scores(i0, i1))
         l = p.sum(dim=-1, keepdim=True)
         acc = p.to(v.dtype).float() @ vf
         l_safe = torch.where(l <= 0.0, torch.ones_like(l), l)
         o[:, i0:i1] = (acc / l_safe).to(v.dtype).movedim(1, 2)
         lse[:, :, i0:i1] = torch.log2(l.clamp_min(1e-30))[..., 0] * LN2
     return o, lse.reshape(b * n, lq)
+
+
+def flash_attention_plain(q, k, v, q_chunk: int = 512):
+    """Plain bounded forward -> (o [B, Lq, N, D], lse [B*N, Lq] fp32)."""
+    b, n, lq, d = q.shape
+    qscale = _qscale(d)
+    kt = k.float().transpose(-1, -2)
+
+    def scores(i0, i1):
+        return (q[:, :, i0:i1].float() * qscale).to(q.dtype).float() @ kt
+
+    return _bounded_fwd_plain(scores, v, b, n, lq, q_chunk)
+
+
+def quantize_bn(x):
+    """[B, N, L, D] float -> (int8 of x's shape, fp32 scales [B*N]): one
+    symmetric absmax scale per (batch, head), s = max(a, 1e-30) / 127 (the
+    JAX package's _quantize_bn)."""
+    b, n = x.shape[:2]
+    xf = x.float()
+    s = over_127(xf.abs().amax(dim=(2, 3)).clamp_min(1e-30))
+    x8 = torch.round(xf / s[:, :, None, None]).clamp(-127, 127).to(torch.int8)
+    return x8, s.reshape(b * n)
+
+
+def qk8_scale(sq, sk, d: int):
+    """c = fp32(sq sk) * fp32(scale * log2(e)), as the JAX package forms it."""
+    return (sq * sk) * _f32((1.0 / d ** 0.5) * LOG2E)
+
+
+def flash_attention_qk8_plain(q8, k8, v, c, q_chunk: int = 512):
+    """Plain int8-score bounded forward -> (o [B, Lq, N, D], lse [B*N, Lq]).
+
+    q8 [B, N, Lq, D], k8 [B, N, Lk, D] int8, v [B, Lk, N, D], c [B*N] fp32.
+    The integer scores are exact in an fp32 product: |s32| <= 128 * 127^2
+    < 2^24."""
+    b, n, lq, _ = q8.shape
+    kt = k8.float().transpose(-1, -2)
+    cf = c.float().reshape(b, n, 1, 1)
+
+    def scores(i0, i1):
+        return (q8[:, :, i0:i1].float() @ kt) * cf
+
+    return _bounded_fwd_plain(scores, v, b, n, lq, q_chunk)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, q_chunk: int = 512):
@@ -180,6 +232,40 @@ def flash_fwd_kernel(q, k, v, single: bool):
     return o, lse
 
 
+def flash_qk8_kernel(q8, k8, v, c):
+    """Launch K10 on CUDA tensors -> (o, lse) as flash_attention_qk8_plain."""
+    b, n, lq, d = q8.shape
+    lk = k8.shape[2]
+    _build.require(d == 128, f"the kernel takes head_dim 128, got {d}")
+    _build.require(k8.shape == (b, n, lk, d) and v.shape == (b, lk, n, d),
+                   f"shapes q8 {tuple(q8.shape)} k8 {tuple(k8.shape)} v {tuple(v.shape)}"
+                   " do not match the BNLD/BNLD/BLND contract")
+    _build.require(q8.device.type == "cuda"
+                   and all(x.device == q8.device for x in (k8, v, c)),
+                   "q8, k8, v, c must be on one CUDA device")
+    for x, name in ((q8, "q8"), (k8, "k8")):
+        _build.require(x.dtype == torch.int8, f"{name} must be int8, got {x.dtype}")
+        _build.require(x.stride(-1) == 1 and all(s % 16 == 0 for s in x.stride()[:-1])
+                       and _build.aligned16(x),
+                       f"{name}: feature dim must be contiguous with 16-byte aligned rows")
+    _check_rows(v, "v")
+    _build.require(c.shape == (b * n,) and c.dtype == torch.float32 and c.is_contiguous(),
+                   f"c must be contiguous fp32 [{b * n}]")
+    o = torch.empty((b, lq, n, d), dtype=torch.bfloat16, device=q8.device)
+    lse = torch.empty((b * n, lq), dtype=torch.float32, device=q8.device)
+    qs, ks, vs, os_ = q8.stride(), k8.stride(), v.stride(), o.stride()
+    err = _build.lib().hyv_flash_fwd_qk8(
+        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), c.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, n, lq, lk,
+        qs[0], qs[1], qs[2],
+        ks[0], ks[1], ks[2],
+        vs[0], vs[2], vs[1],          # v is [B, L, N, D]: (batch, head, row)
+        os_[0], os_[2], os_[1],       # o likewise
+        _build.stream_ptr(q8.device))
+    _build.check(err, "K10")
+    return o, lse
+
+
 def bwd_kernel(q, k, v, o, lse, do, merged: bool):
     """Launch K4 (merged) or K5 on CUDA tensors -> (dq, dk, dv) as
     flash_attention_bwd_plain."""
@@ -239,13 +325,35 @@ class _FlashAttention(torch.autograd.Function):
                           merged=uses_merged_bwd(q.shape[2], k.shape[2]))
 
 
+def flash_attention_qk8(q, k, v):
+    """The int8 q k^T bounded forward -> (o [B, Lq, N, D], lse [B*N, Lq]).
+
+    Serving only: it has no backward, so a call that could need one (grad
+    mode on and an input that requires a gradient) raises rather than
+    giving no gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("the int8 q k^T attention has no backward: "
+                           "call it under torch.no_grad() on inputs that need no gradient")
+    q8, sq = quantize_bn(q)
+    k8, sk = quantize_bn(k)
+    c = qk8_scale(sq, sk, q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_qk8_plain(q8, k8, v, c)
+    return flash_qk8_kernel(q8, k8, v, c)
+
+
 def flash_attention(q, k, v, qk_layout: str = "bnld", bounded_logits: bool = True,
-                    return_lse: bool = False):
+                    return_lse: bool = False, qk_int8: bool = False):
     """Bounded flash attention, differentiable in q, k, v; returns
-    o [B, Lq, N, D] (and lse)."""
+    o [B, Lq, N, D] (and lse). ``qk_int8`` takes the int8 score forward
+    (no backward) where the keys stream in several blocks, and keeps the
+    bf16 one otherwise, by the JAX package's rule."""
     if qk_layout != "bnld" or not bounded_logits:
         raise NotImplementedError(
             "only the bounded, head-major q/k attention is ported "
             f"(qk_layout={qk_layout!r}, bounded_logits={bounded_logits})")
-    o, lse = _FlashAttention.apply(q, k, v)
+    if qk_int8 and not uses_single_block(k.shape[2]):
+        o, lse = flash_attention_qk8(q, k, v)
+    else:
+        o, lse = _FlashAttention.apply(q, k, v)
     return (o, lse) if return_lse else o

@@ -19,6 +19,11 @@ another framework's draws; otherwise they draw from a ``torch.Generator``.
 The finite guard is the JAX package's: a non-finite loss zeroes the
 gradients, and the optimizer still applies that update (AdamW then still
 moves the weights through its moments and the weight decay).
+
+``rollout_quant="int8"`` runs the no-grad rollout to ``mid`` through the
+int8 serving path (W8A8 block matmuls and the int8 q k^T self-attention,
+K10); the gradient-carrying forward, the LRM and the SFT step stay bf16
+with fp32 masters.
 """
 
 from __future__ import annotations
@@ -47,6 +52,11 @@ class PrflConfig:
     logit_mean: float = 0.0
     logit_std: float = 1.0
     fixed_mid: Optional[int] = None
+    # "int8": the no-grad rollout runs through the int8 serving path
+    rollout_quant: Optional[str] = None
+
+
+ROLLOUT_QUANTS = (None, "int8")
 
 
 class PrflModel:
@@ -69,6 +79,27 @@ def _finish(state, tx, loss):
     return state, (loss.detach() if finite else torch.zeros_like(loss)), gnorm
 
 
+def int8_rollout_model(model: PrflModel):
+    """The int8 model of the rollout (quant_dense and quant_attn "int8"),
+    built once -> (model, [(QuantLinear, the policy's nn.Linear), ...]).
+
+    Every tensor that is not quantized is the policy's own fp32 master, so
+    the rollout always sees the live weights there; the JAX package
+    re-derives the same tensors from the live parameters every step. The
+    QuantLinear buffers are refilled from the masters once per refl step."""
+    qcfg = dataclasses.replace(model.dit_cfg, quant_dense="int8", quant_attn="int8")
+    device = next(model.dit.parameters()).device
+    qdit = wan_dit.WanModel(qcfg, device=device, param_dtype=torch.float32)
+    for name, p in model.dit.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        sub = qdit.get_submodule(owner)
+        if not isinstance(sub, wan_dit.QuantLinear):
+            setattr(sub, leaf, p)
+    pairs = [(sub, model.dit.get_submodule(name)) for name, sub in qdit.named_modules()
+             if isinstance(sub, wan_dit.QuantLinear)]
+    return qdit.eval(), pairs
+
+
 def make_refl_step(model: PrflModel, tx: common.Optimizer):
     """The PRFL reward step: refl_step(state, batch, generator=None,
     latent0=None, mid=None) -> (state, metrics)."""
@@ -76,6 +107,12 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
     sched = unipc.unipc_schedule(cfg.inference_steps, shift=cfg.flow_shift,
                                  num_train_timesteps=cfg.num_train_timesteps)
     patch = model.dit_cfg.patch_size
+    if cfg.rollout_quant not in ROLLOUT_QUANTS:
+        # a typo here would silently run the bf16 rollout
+        raise ValueError(f"rollout_quant must be one of {ROLLOUT_QUANTS}, "
+                         f"got {cfg.rollout_quant!r}")
+    rollout_dit, quant_pairs = (int8_rollout_model(model) if cfg.rollout_quant == "int8"
+                                else (model.dit, []))
 
     def refl_step(state: common.TrainState, batch, generator=None, latent0=None, mid=None):
         text = batch["text"]
@@ -93,7 +130,13 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
             return model.dit(x, t, text, grid=grid)
 
         with torch.no_grad():
-            latent, solver_state = unipc.rollout(sched, velocity, latent0_t, num_steps=mid)
+            # the int8 weights follow the live masters: quantized in place,
+            # once per step, before the rollout reads them
+            for qlayer, layer in quant_pairs:
+                qlayer.quantize_(layer.weight, layer.bias)
+            latent, solver_state = unipc.rollout(
+                sched, lambda x, t: rollout_dit(x, t, text, grid=grid), latent0_t,
+                num_steps=mid)
 
         v = velocity(latent, float(sched.timesteps[mid]))
         latent_next, _ = unipc.unipc_step(sched, solver_state, v, latent)

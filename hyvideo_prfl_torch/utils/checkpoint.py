@@ -17,10 +17,15 @@ Two sources:
 
 Both return fp32 CPU tensors keyed like ``WanModel.state_dict()``;
 ``load_state_dict`` casts to the model's dtypes and device.
+``from_jax_params`` also takes the JAX int8 tree (``quantize_params``'s
+``kernel_q`` [D, F] int8, ``kernel_scale`` [F], ``bias``), which goes to the
+``QuantLinear`` buffers, the weight transposed; ``quantize_state`` makes
+the same int8 state from the port's own float state.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict
 
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 
 from ..models.rope import rope_permutation
-from ..models.wan_dit import WanConfig
+from ..models.wan_dit import WanConfig, WanModel
+from ..ops.quant import quantize_weight
 
 _TOP_DENSE = ("patch_embedding", "text_0", "text_2", "time_0", "time_2", "time_proj")
 _ATTN_DENSE = ("q", "k", "v", "o")
@@ -52,12 +58,17 @@ def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
     state: Dict[str, torch.Tensor] = {}
 
     def dense(dst, node, i=None):
-        k = np.asarray(node["kernel"])
-        b = np.asarray(node["bias"])
-        if i is not None:
-            k, b = k[i], b[i]
-        state[dst + ".weight"] = _t(k.T)
-        state[dst + ".bias"] = _t(b)
+        def leaf(key):
+            a = np.asarray(node[key])
+            return a if i is None else a[i]
+
+        if "kernel_q" in node:  # an int8 layer of the JAX quantized tree
+            state[dst + ".weight_q"] = torch.from_numpy(np.ascontiguousarray(
+                leaf("kernel_q").T.astype(np.int8)))
+            state[dst + ".weight_scale"] = _t(leaf("kernel_scale"))
+        else:
+            state[dst + ".weight"] = _t(leaf("kernel").T)
+        state[dst + ".bias"] = _t(leaf("bias"))
 
     for name in _TOP_DENSE:
         dense(name, p[name])
@@ -78,6 +89,34 @@ def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
         state["head.modulation"] = _t(p["head"]["modulation"])
         dense("head.head", p["head"]["head"])
     return state
+
+
+def quantize_state(state: Dict[str, torch.Tensor], cfg: WanConfig) -> Dict[str, torch.Tensor]:
+    """A float WanModel state (bf16 or fp32) -> the state of the int8 model
+    ``cfg`` describes (cfg.quant_dense = "int8"), with the numbers of the
+    JAX package's ``quantize_params``: each ``QuantLinear`` of the target
+    gets its float weight quantized per output channel; every other tensor
+    passes through, cast to the target's dtype. Walking the target model's
+    keys keeps the list of quantized layers in the model alone."""
+    target = WanModel(cfg, device="meta").state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, ref in target.items():
+        if key.endswith(".weight_q"):
+            layer = key[: -len(".weight_q")]
+            out[key], out[layer + ".weight_scale"] = quantize_weight(state[layer + ".weight"])
+        elif not key.endswith(".weight_scale"):
+            out[key] = state[key].to(ref.dtype)
+    return out
+
+
+def quantize_model(model: WanModel) -> WanModel:
+    """A float WanModel -> its int8 counterpart (cfg.quant_dense "int8") on
+    the same device, the weights quantized by ``quantize_state``."""
+    qcfg = dataclasses.replace(model.cfg, quant_dense="int8")
+    state = quantize_state(model.state_dict(), qcfg)
+    qmodel = WanModel(qcfg, device=next(model.parameters()).device)
+    qmodel.load_state_dict(state)
+    return qmodel
 
 
 def reward_heads_from_jax(q_tree: Dict, m_tree: Dict) -> Dict[str, torch.Tensor]:

@@ -7,10 +7,13 @@ weights from the JAX package's initialisers; without --prompt_embeds /
 --uncond_embeds the text context is zeros, as in the JAX CLI.
 
     python3 scripts/inference_torch.py --task t2v-1.3B --size 832*480 \\
-        --frame_num 21 --sample_steps 4
+        --frame_num 21 --sample_steps 4 [--quant int8] [--quant_attn int8]
 
-Not ported yet: T5 (--prompt), the VAE, i2v/flf2v, TeaCache, int8, LoRA
-and multi-GPU.
+``--quant int8`` serves the ten block matmuls as W8A8 int8 GEMMs, the
+weights quantized once after they load; ``--quant_attn int8`` runs the
+self-attention's q k^T on the int8 path (kernel K10) wherever its keys
+stream in several blocks. Either flag works alone. Not ported yet: T5
+(--prompt), the VAE, i2v/flf2v, TeaCache, LoRA and multi-GPU.
 """
 
 from __future__ import annotations
@@ -51,6 +54,10 @@ def args_init(argv=None):
     p.add_argument("--sample_shift", type=float, default=None)
     p.add_argument("--sample_guide_scale", type=float, default=5.0)
     p.add_argument("--base_seed", type=int, default=42)
+    p.add_argument("--quant", choices=("none", "int8"), default="none",
+                   help="serve the DiT block matmuls as W8A8 int8 GEMMs")
+    p.add_argument("--quant_attn", choices=("none", "int8"), default="none",
+                   help="run the self-attention q k^T on the int8 path (K10)")
     p.add_argument("--save_file", default="out.mp4")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -79,17 +86,22 @@ class Request:
 
 
 def build_pipeline(args) -> WanT2V:
-    """The DiT on args.device, from --ckpt_dir or random weights."""
+    """The DiT on args.device, from --ckpt_dir or random weights, quantized
+    after the weights load under --quant int8."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    cfg = dit_config_for_task(args.task)
+    cfg = dit_config_for_task(args.task, quant_attn=None if args.quant_attn == "none"
+                              else args.quant_attn)
     model = wan_dit.WanModel(cfg, device=device)
     if args.ckpt_dir and os.path.isdir(args.ckpt_dir):
         model.load_state_dict(ck.load_reference_dir(args.ckpt_dir, cfg))
     else:
         logging.warning("no --ckpt_dir; random weights")
         wan_dit.init_params(model, torch.Generator(device=device).manual_seed(0))
+    if args.quant == "int8":
+        model = ck.quantize_model(model)
+        logging.info("quantized the block matmuls to int8 (W8A8)")
     return WanT2V(model.eval())
 
 

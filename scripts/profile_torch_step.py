@@ -1,23 +1,27 @@
 """Where the port spends its device time: one batched-CFG DiT forward, or
 one PRFL refl training step (PyTorch port).
 
-    python3 scripts/profile_torch_step.py --frame_num 21 81
-    python3 scripts/profile_torch_step.py --refl --frame_num 21 81 [--steps 8 --mid 3]
+    python3 scripts/profile_torch_step.py --frame_num 21 81 [--quant int8] [--quant_attn int8]
+    python3 scripts/profile_torch_step.py --refl --frame_num 21 81 [--steps 8 --mid 3] \
+        [--rollout_quant int8]
 
 Forward mode, for each frame count: builds the t2v-1.3B 832*480 pipeline
 once (random weights, seeded non-zero head), runs one warm-up forward at
 CFG batch 2, one timed forward with the profiler off, then one under
 torch.profiler. One sampling step is one such forward plus a few
-elementwise solver passes.
+elementwise solver passes. ``--quant int8`` quantizes the block matmuls
+after the weights are made and ``--quant_attn int8`` takes K10, as the
+serving CLI's flags do.
 
 Refl mode (--refl): builds the PRFL trainer's model at t2v-1.3B (fp32
 policy masters, remat "attn", the 8-block frozen LRM, AdamW), then for
 each frame count runs one warm-up refl step, one timed with the profiler
 off and one under torch.profiler: ``mid`` no-grad rollout forwards, one
-forward and backward of the policy and of the LRM, and the optimizer.
+forward and backward of the policy and of the LRM, and the optimizer;
+``--rollout_quant int8`` runs the rollout through the int8 model.
 
 Each run prints one JSON line with both wall times, the device time by
-group (K1, K3, K4, K5, K6, K7, K8, K9, GEMM, other) from the traced run,
+group (K1, K3, K4, K5, K6, K7, K8, K9, K10, GEMM, other) from the traced run,
 and the idle share: 1 - device busy time / untraced wall time. Needs a
 CUDA device.
 """
@@ -39,10 +43,12 @@ import torch  # noqa: E402
 from hyvideo_prfl_torch.configs import dit_config_for_task  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.pipelines.pipeline import latent_size_for  # noqa: E402
+from hyvideo_prfl_torch.utils.checkpoint import quantize_model  # noqa: E402
 
 # kernel-name fragment -> group; first match wins
 GROUPS = (("flash_fwd_bounded_kernel<false>", "K1"),
           ("flash_fwd_bounded_kernel<true>", "K3"),
+          ("flash_fwd_qk8_kernel", "K10"),
           ("flash_bwd_dkv_kernel<true>", "K4"),
           ("flash_bwd_dkv_kernel<false>", "K5"),
           ("flash_bwd_dq_kernel", "K5"),
@@ -109,10 +115,11 @@ def profile_forward(model, frame_num: int, dev) -> dict:
         with torch.inference_mode():
             model(tokens, t, ctx, grid=grid)
 
-    return _profile(run, {"mode": "forward", "frame_num": frame_num, "tokens": tokens.shape[1]})
+    return _profile(run, {"mode": "forward", "frame_num": frame_num, "tokens": tokens.shape[1],
+                          "quant_dense": cfg.quant_dense, "quant_attn": cfg.quant_attn})
 
 
-def build_prfl(dev, steps: int, mid: int):
+def build_prfl(dev, steps: int, mid: int, rollout_quant=None):
     """The trainer's model at t2v-1.3B: fp32 policy masters with seeded
     JAX-initialiser weights and a seeded non-zero head, the frozen LRM."""
     from hyvideo_prfl_torch.training import common
@@ -121,7 +128,8 @@ def build_prfl(dev, steps: int, mid: int):
 
     cfg = dataclasses.replace(dit_config_for_task("t2v-1.3B"), remat_policy="attn")
     model = PrflModel(cfg, PavrmConfig(feature_layer=(8,)),
-                      PrflConfig(inference_steps=steps, fixed_mid=mid), device=dev)
+                      PrflConfig(inference_steps=steps, fixed_mid=mid,
+                                 rollout_quant=rollout_quant), device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     wan_dit.init_params(model.dit, g)
     model.lrm.init_params(g)
@@ -143,7 +151,7 @@ def profile_refl(prfl, frame_num: int, dev) -> dict:
 
     return _profile(run, {"mode": "refl", "frame_num": frame_num, "mid": model.cfg.fixed_mid,
                           "inference_steps": model.cfg.inference_steps,
-                          "peak_gib": None})
+                          "rollout_quant": model.cfg.rollout_quant, "peak_gib": None})
 
 
 def main(argv=None) -> int:
@@ -152,6 +160,12 @@ def main(argv=None) -> int:
     p.add_argument("--refl", action="store_true", help="profile one PRFL refl step")
     p.add_argument("--steps", type=int, default=8, help="refl: PRFL inference steps")
     p.add_argument("--mid", type=int, default=3, help="refl: rollout forwards before the step")
+    p.add_argument("--quant", choices=("none", "int8"), default="none",
+                   help="forward: W8A8 int8 block matmuls")
+    p.add_argument("--quant_attn", choices=("none", "int8"), default="none",
+                   help="forward: the int8 q k^T self-attention (K10)")
+    p.add_argument("--rollout_quant", choices=("none", "int8"), default="none",
+                   help="refl: the rollout through the int8 model")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -160,18 +174,23 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0])
     dev = torch.device("cuda")
     if args.refl:
-        prfl = build_prfl(dev, args.steps, args.mid)
+        prfl = build_prfl(dev, args.steps, args.mid,
+                          None if args.rollout_quant == "none" else args.rollout_quant)
         for frame_num in args.frame_num:
             torch.cuda.reset_peak_memory_stats()
             out = profile_refl(prfl, frame_num, dev)
             out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             print(json.dumps(out))
         return 0
-    model = wan_dit.WanModel(dit_config_for_task("t2v-1.3B"), device=dev)
+    cfg = dit_config_for_task(
+        "t2v-1.3B", quant_attn=None if args.quant_attn == "none" else args.quant_attn)
+    model = wan_dit.WanModel(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     wan_dit.init_params(model, g)
     with torch.no_grad():
         model.head.head.weight.normal_(0.0, model.cfg.dim ** -0.5, generator=g)
+    if args.quant == "int8":
+        model = quantize_model(model)
     for frame_num in args.frame_num:
         print(json.dumps(profile_forward(model.eval(), frame_num, dev)))
     return 0

@@ -13,9 +13,11 @@ each after a device synchronize) as one JSON line.
 so a caller can give the trainer other weights between the two. Without a
 base checkpoint the policy and the LRM start from the JAX initialisers
 (seeded), as the JAX CLI does without weights. Options the port does not
-have yet raise NotImplementedError: LoRA, EMA, the int8 rollout,
-multi-device training, resume, checkpoint export (save_interval must
-exceed the steps run), LRM checkpoint loading and the VAE sanity decode.
+have yet raise NotImplementedError: LoRA, EMA, multi-device training,
+resume, checkpoint export (save_interval must exceed the steps run), LRM
+checkpoint loading and the VAE sanity decode. ``train.rollout_quant: int8``
+runs the no-grad rollout through the int8 serving path (W8A8 block
+matmuls, int8 q k^T self-attention), as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -73,7 +75,6 @@ def check_scope(config) -> None:
     asks = {
         "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora"),
         "EMA (model.ema.use_ema)": config.get_path("model.ema.use_ema"),
-        "the int8 rollout (train.rollout_quant)": config.get_path("train.rollout_quant"),
         "multi-device training (dataset.sp_size > 1)":
             int(config.get_path("dataset.sp_size", 1) or 1) > 1,
         "optimizer-state offload (model.fsdp.use_cpu_offload, train.offload_opt_state)":
@@ -129,7 +130,8 @@ def build_trainer(config, device="cuda") -> Trainer:
         weighting_scheme=sched_cfg.weighting_scheme, logit_mean=sched_cfg.logit_mean,
         logit_std=sched_cfg.logit_std,
         fixed_mid=(int(config.train.fixed_mid)
-                   if config.train.get("fixed_mid") is not None else None))
+                   if config.train.get("fixed_mid") is not None else None),
+        rollout_quant=config.train.get("rollout_quant"))
     model = PrflModel(dit_cfg, pc, prfl_cfg, device=device)
     seed = int(config.train.seed)
     base = config.model.init_transformer_path or config.model.base_path

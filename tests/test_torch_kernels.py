@@ -17,7 +17,9 @@ import torch
 from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
 from hyvideo_prfl_torch.ops import _build
 from hyvideo_prfl_torch.ops import flash_attention as tfa
+from hyvideo_prfl_torch.ops import int8_probe
 from hyvideo_prfl_torch.ops import qknorm_rope as tqr
+from hyvideo_prfl_torch.ops import quant as tquant
 from hyvideo_prfl_torch.ops import stream as tstream
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp at the top binade, relative to max|ref|
@@ -193,3 +195,71 @@ def test_k9_matches_plain(cuda, l, out_dtype):
     # fp32 throughout; sums in another order: 1e-5 of each output's max
     for a, b in zip(got, (rdx, rds.sum(0), rdt)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", [(100, 3700), (4680, 4680), (300, 4100), (9360, 9360)])
+def test_k10_matches_plain(cuda, lq, lk):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(2, 12, lq, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(2, 12, lk, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16()
+    before = _build.LAUNCHES["K10"]
+    with torch.no_grad():
+        o, lse = tfa.flash_attention(q, k, v, qk_int8=True, return_lse=True)
+    assert _build.LAUNCHES["K10"] == before + 1
+    q8, sq = tfa.quantize_bn(q)
+    k8, sk = tfa.quantize_bn(k)
+    po, plse = tfa.flash_attention_qk8_plain(q8, k8, v, tfa.qk8_scale(sq, sk, 128))
+    # the same int32 scores; exp2 within 2 ulp can flip bf16(p), o rounds
+    # to bf16: two bf16 ulps
+    _close(o, po, 2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_k10_has_no_backward_and_checks_its_inputs(cuda):
+    q = torch.randn(1, 2, 4000, 128, device=cuda).bfloat16().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.flash_attention(q, q, q.movedim(1, 2), qk_int8=True)
+    q8 = torch.zeros(1, 2, 4000, 128, device=cuda, dtype=torch.int8)
+    v = torch.zeros(1, 4000, 2, 128, device=cuda).bfloat16()
+    c = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        tfa.flash_qk8_kernel(q8.float(), q8, v, c)
+    with pytest.raises(ValueError, match="fp32"):
+        tfa.flash_qk8_kernel(q8, q8, v, c.double())
+
+
+@pytest.mark.gpu
+def test_int8_dense_on_the_card_matches_the_cpu(cuda):
+    # torch._int_mm on the [out, in] weight's transpose view: the int32
+    # product is exact on both devices, so y agrees to fp32 rounding
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 300, 1536, generator=g).bfloat16()
+    wq, ws = tquant.quantize_weight(torch.randn(8960, 1536, generator=g) * 0.02)
+    bias = torch.randn(8960, generator=g) * 0.1
+    want = tquant.int8_dense(x, wq, ws, bias, out_dtype=torch.float32)
+    got = tquant.int8_dense(x.to(cuda), wq.to(cuda), ws.to(cuda), bias.to(cuda),
+                            out_dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("chain", [False, True])
+def test_probes_match_plain(cuda, dtype, chain):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    k = 128 // (1 if dtype == torch.int8 else 2) * 3   # three 128-byte chunks of K
+    nblocks, reps = (1, 9) if chain else (3, 5)
+    a8, a16 = int8_probe.ternary((512, k), g, cuda)
+    b8, b16 = int8_probe.ternary((nblocks * 256, k), g, cuda)
+    a, bt = (a8, b8) if dtype == torch.int8 else (a16, b16)
+    name = "P2" if chain else "P1"
+    before = _build.LAUNCHES[name]
+    got = (int8_probe.probe_chain(a, bt, reps) if chain
+           else int8_probe.probe_rate(a, bt, nblocks, reps))
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.dtype == (torch.int32 if dtype == torch.int8 else torch.float32)
+    # integer partial sums far below 2^24: exact in any order, fp32 too
+    assert torch.equal(got.double(), int8_probe.probe_plain(a8, b8, nblocks, reps))

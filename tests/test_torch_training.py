@@ -77,12 +77,13 @@ def setup():
                 lrm_np=(lrm_dit, jax.tree.map(np.asarray, qp), jax.tree.map(np.asarray, mp)))
 
 
-def _port(setup, tx, remat_policy="attn"):
+def _port(setup, tx, remat_policy="attn", rollout_quant=None):
     import dataclasses
 
     cfg = dataclasses.replace(setup["tcfg"], remat_policy=remat_policy)
     model = tprfl.PrflModel(cfg, PavrmConfig(feature_layer=(2,), trainable_blocks=(0, 1)),
-                            tprfl.PrflConfig(inference_steps=STEPS, fixed_mid=MID))
+                            tprfl.PrflConfig(inference_steps=STEPS, fixed_mid=MID,
+                                             rollout_quant=rollout_quant))
     model.dit.load_state_dict(tck.from_jax_params(setup["policy"], cfg))
     model.lrm.load_state_dict(tck.lrm_from_jax(*setup["lrm_np"], model.lrm.dit_cfg))
     return model, tcommon.init_train_state(model.dit, tx)
@@ -315,12 +316,18 @@ def test_reward_heads_match_jax(pool):
                                float(jrw.siamese_prob(0.3, -0.2)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("remat_policy", ["attn", "full"])
-def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy):
+@pytest.mark.parametrize("remat_policy,rollout_quant", [
+    pytest.param("attn", None, id="attn"), pytest.param("full", None, id="full"),
+    pytest.param("attn", "int8", id="attn-int8-rollout")])
+def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy, rollout_quant):
     # chip_smoke.py checks the card's launch counters against this
     # derivation; on the CPU the same Functions call the plain versions,
-    # so counting those calls checks the derivation itself
+    # so counting those calls checks the derivation itself. With the int8
+    # rollout, FULL_K_MAX shrinks so the 48 self-attention tokens stream
+    # and its forwards take K10, as the card's 9,360 and 32,760 do
     smoke = _load_script("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    if rollout_quant:
+        monkeypatch.setattr(tfa, "FULL_K_MAX", 64)
     counts = {}
 
     def counted(mod, name, key_fn):
@@ -340,12 +347,14 @@ def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy):
     counted(tfa, "flash_attention_plain",
             lambda q, k, v: "K3" if k.shape[2] == TEXT_LEN else "K1")
     counted(tfa, "flash_attention_bwd_plain", lambda *a: "K4")
+    counted(tfa, "flash_attention_qk8_plain", lambda *a: "K10")
     tx = tcommon.make_optimizer(learning_rate=LR)
-    model, state = _port(setup, tx, remat_policy)
+    model, state = _port(setup, tx, remat_policy, rollout_quant)
     state, _ = tprfl.make_refl_step(model, tx)(state, _tbatch(setup))
     tprfl.make_sft_step(model, tx, tfm.train_schedule(1000))(
         state, _tbatch(setup), generator=torch.Generator().manual_seed(0))
-    assert counts == smoke.expected_train_launches(2, 2, MID, remat_policy)
+    assert counts == smoke.expected_train_launches(2, 2, MID, remat_policy, rollout_quant)
+    assert ("K10" in counts) == (rollout_quant == "int8")
 
 
 def _smoke_config(tmp_path):
@@ -400,6 +409,7 @@ def test_port_imports_without_jax_or_yaml():
         "from hyvideo_prfl_torch.training import common, pavrm, prfl\n"
         "from hyvideo_prfl_torch.data import dataset, loader\n"
         "from hyvideo_prfl_torch.schedulers import flow_match\n"
+        "from hyvideo_prfl_torch.ops import int8_probe, quant\n"
         "spec = importlib.util.spec_from_file_location(\n"
         "    'train_prfl_torch', 'scripts/train_prfl_torch.py')\n"
         "mod = importlib.util.module_from_spec(spec)\n"
