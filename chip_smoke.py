@@ -14,6 +14,10 @@ Phases, each of which raises on failure:
    81-frame CFG-2 shapes, with a stated bound, K10 also against K1, and
    time each with CUDA events, in turns with its plain version and, where
    one PyTorch call computes the same function, that call.
+   2b. The same for the shifted forward K2 (also against K1, with a user
+   key mask, and at logits near 300, where K1 overflows), its single-block
+   form K3s at the cross-attention shape, and the rope R forward and
+   backward (bit for bit).
 3. Whole-model check: WanModel at t2v-1.3B width with 2 blocks on the
    9-frame grid (4,680 tokens), seeded weights with a non-zero head, loaded
    through utils/checkpoint.from_jax_params, on the card against the same
@@ -21,16 +25,20 @@ Phases, each of which raises on failure:
    the int8 model (W8A8 block matmuls and the int8 self-attention, K10).
 4. Serve through the CLI path (scripts/inference_torch.py) at t2v-1.3B
    full width and depth, 832*480, CFG 5.0: two 21-frame requests with 4
-   UniPC steps and one 81-frame request with 2 steps in bf16, then the
-   first and the last again under --quant int8 --quant_attn int8. Latents
-   must be finite and of the expected shape, every kernel's launch count
-   must match the number of DiT forwards, and the int8 latents must lie
-   near the bf16 ones of the same seed.
+   UniPC steps and one 81-frame request with 2 steps in bf16, the 81-frame
+   one again on the shifted route (HYV_FLASH_BOUNDED=0: K2 and K3s, no
+   K1/K3), then the first and the last again under --quant int8
+   --quant_attn int8. Latents must be finite and of the expected shape,
+   every kernel's launch count must match the number of DiT forwards, and
+   the shifted and int8 latents must lie near the bf16 ones of the same
+   seed.
 5. Hold each backward kernel (K4 merged and K5 split flash backward, K7
    qk-norm+rope backward, K9 LayerNorm+modulate backward) against its
    plain PyTorch version at the training shapes (81 frames, batch 1), with
    a stated bound, and time each with its plain version and, for K4/K5,
    the flash backward of PyTorch's scaled_dot_product_attention.
+   5b. K4 and K5 with a key mask: within their bound, masked keys'
+   gradients exactly 0.
 6. Whole-model gradient check: the 2-block full-width WanModel (fp32
    masters, remat "attn") on the 9-frame grid, loss = sum(out * r), every
    parameter's and the input's gradient on the card against the CPU's
@@ -40,21 +48,27 @@ Phases, each of which raises on failure:
    latent cache: the train_prfl_t2v_480.yaml config at t2v-1.3B (8 PRFL
    steps, fixed_mid 3, no accumulation, remat "attn"), two outer steps at
    21 frames and one at 81; then, from the same weights and draws, one at
-   21 and one at 81 with train.rollout_quant int8. Metrics finite, grad
-   norm above 0, the policy's blocks moved, launch counts per outer step
-   equal to the derivation (expected_train_launches), the int8 run's first
-   reward within 0.05 of the bf16 run's; prints seconds per refl and SFT
-   step and the peak device memory.
+   21 and one at 81 with train.rollout_quant int8, and one at 21 on the
+   shifted route. Metrics finite, grad norm above 0, the policy's blocks
+   moved, launch counts per outer step equal to the derivation
+   (expected_train_launches), the int8 run's first reward within 0.05 and
+   the shifted run's within 0.01 of the bf16 run's; prints seconds per
+   refl and SFT step and the peak device memory.
 8. The int8 probes P1 and P2 through their scripts
    (scripts/probe_int8_{rate,mosaic}_torch.py): exact against their plain
    versions, int8 and bf16 TOPS beside torch._int_mm's and torch.matmul's.
+9. The un-normed DiT (qk_norm off, the shifted route by nature, R for its
+   rope): 2 blocks (and no norm3) card against CPU, output and every
+   gradient, as phases 3 and 6; then 30 blocks at 81 frames, one
+   batched-CFG forward through the pipeline, latents finite and the R,
+   K2 and K3s launches as derived.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call for K5, the probe scripts
-for P1/P2); the last is {"ok": true, "device": {...}}. Exits non-zero,
-printing no result, when no CUDA device is available or the package is
-missing.
+for P1/P2, the un-normed pipeline for R); the last is
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
+CUDA device is available or the package is missing.
 """
 
 from __future__ import annotations
@@ -86,6 +100,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
            "hyvideo_prfl_tpu/ops/flash_attention.py:250"),
     "K3": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:331"),
+    "K2": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
+           "hyvideo_prfl_tpu/ops/flash_attention.py:198"),
+    "K3s": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
+            "hyvideo_prfl_tpu/ops/flash_attention.py:351"),
     "K4": ("hyvideo_prfl_torch/csrc/flash_bwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:453"),
     "K5": ("hyvideo_prfl_torch/csrc/flash_bwd.cu",
@@ -98,6 +116,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
             "hyvideo_prfl_tpu/ops/flash_attention.py:290"),
     "P1": ("hyvideo_prfl_torch/csrc/int8_probe.cu", "scripts/probe_int8_rate.py:25"),
     "P2": ("hyvideo_prfl_torch/csrc/int8_probe.cu", "scripts/probe_int8_mosaic.py:29"),
+    "R": ("hyvideo_prfl_torch/csrc/rope.cu", "hyvideo_prfl_tpu/ops/rope_pallas.py:32"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s, ops/s by type
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -109,45 +128,60 @@ def _add(total, counts, times=1):
     return total
 
 
-FWD_BLOCK = {"K8": 3, "K6": 4, "K1": 1, "K3": 1}
-FWD_BLOCK_QK8 = {"K8": 3, "K6": 4, "K10": 1, "K3": 1}
-
-
-def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn", qk8=False):
+def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn", qk8=False,
+                 shifted=False, qk_norm=True, cross_attn_norm=True):
     """Kernel launches of one DiT forward, and of its backward.
 
-    A forward launches, per block, three K8 (two adaLN norms and norm3),
-    four K6 (self q and k with rope, cross q and k without), one K1
-    (self-attention; K10 instead under quant_attn "int8", qk8, at the
-    slice's streaming lengths) and one K3 (text cross-attention), plus one
-    K8 at the head. The int8 forward has no backward. The backward
-    launches, per block, three K9, one K4 per attention
-    call (every call at the slice's lengths takes the merged route) and one
-    K7 per qk-norm whose input needs a gradient: four, or three when the
-    text context needs none (the frozen LRM's cross k); plus one K9 at the
-    head. Remat re-runs forward work inside the backward: under "attn" each
-    block's checkpointed segments re-run up to their last op that saved a
-    tensor, which is every K8 and every K6 whose output is differentiated,
-    and never K1/K3; under "full" the whole block forward re-runs."""
-    total = _add({"K8": 1} if head else {}, FWD_BLOCK_QK8 if qk8 else FWD_BLOCK, n_layers)
+    A forward launches, per block, three K8 (two adaLN norms and norm3; two
+    without cross_attn_norm), four K6 (self q and k with rope, cross q and
+    k without; none without qk_norm, where two R rotate the self q and k
+    instead), one self-attention forward and one text cross-attention
+    forward, plus one K8 at the head. The attention forwards are K1 and K3,
+    or K10 and K3 under quant_attn "int8" (qk8, at the slice's streaming
+    lengths), or K2 and K3s on the shifted route (HYV_FLASH_BOUNDED=0,
+    shifted, or no qk_norm). The int8 forward has no backward. The backward
+    launches, per block, one K9 per K8, one K4 per attention call (every
+    call at the slice's lengths takes the merged route) and one K7 per
+    qk-norm whose input needs a gradient: four, or three when the text
+    context needs none (the frozen LRM's cross k), or two R (the rotations'
+    backward) without qk_norm; plus one K9 at the head. Remat re-runs
+    forward work inside the backward: under "attn" each block's
+    checkpointed segments re-run up to their last op that saved a tensor,
+    which is every K8, every K6 whose output is differentiated and every
+    R, never the attention forward; under "full" the whole block forward
+    re-runs."""
+    k8 = 2 + int(cross_attn_norm)
+    norms = {"K6": 4} if qk_norm else {"R": 2}
+    if qk8 and qk_norm and not shifted:
+        attn = {"K10": 1, "K3": 1}
+    elif shifted or not qk_norm:
+        attn = {"K2": 1, "K3s": 1}
+    else:
+        attn = {"K1": 1, "K3": 1}
+    fwd_block = {"K8": k8, **norms, **attn}
+    total = _add({"K8": 1} if head else {}, fwd_block, n_layers)
     if backward:
-        recompute = {"attn": {"K8": 3, "K6": 3 + ctx_grad}, "full": FWD_BLOCK,
+        norm_recompute = {"K6": 3 + ctx_grad} if qk_norm else {"R": 2}
+        recompute = {"attn": {"K8": k8, **norm_recompute}, "full": fwd_block,
                      "off": {}}[remat_policy]
-        total = _add(total, _add({"K9": 3, "K7": 3 + ctx_grad, "K4": 2}, recompute), n_layers)
+        norm_bwd = {"K7": 3 + ctx_grad} if qk_norm else {"R": 2}
+        total = _add(total, _add({"K9": k8, **norm_bwd, "K4": 2}, recompute), n_layers)
         if head:
             total = _add(total, {"K9": 1})
     return total
 
 
-def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_quant=None):
+def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_quant=None,
+                            shifted=False):
     """Kernel launches of one outer PRFL step: the refl step (mid no-grad
     rollout forwards, through the int8 model under rollout_quant "int8",
     one policy forward and backward, one forward and backward of the
     head-less LRM, whose text context needs no gradient) and the SFT step
-    (one policy forward and backward)."""
-    policy = dit_launches(n_policy, True, remat_policy=remat_policy)
-    lrm = dit_launches(n_lrm, True, ctx_grad=0, head=False, remat_policy=remat_policy)
-    rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8")
+    (one policy forward and backward); ``shifted`` for HYV_FLASH_BOUNDED=0."""
+    policy = dit_launches(n_policy, True, remat_policy=remat_policy, shifted=shifted)
+    lrm = dit_launches(n_lrm, True, ctx_grad=0, head=False, remat_policy=remat_policy,
+                       shifted=shifted)
+    rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8", shifted=shifted)
     return _add(_add(_add({}, rollout, mid), lrm), policy, 2)
 
 
@@ -375,6 +409,146 @@ def phase_kernels(results):
     torch.cuda.empty_cache()
 
 
+def phase_shifted_kernels(results):
+    """Phase 2b: the shifted forward (K2, K3s) and the rope R against their
+    plain versions at the 81-frame CFG-2 shapes."""
+    import torch
+
+    from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.ops import rope
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    b, n, d = 2, 12, 128
+    lq = math.prod(GRID_81)
+    ulp2 = 2.0 ** -6  # two bf16 ulps of the largest |o|
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=g)).bfloat16()
+
+    def check_fwd(label, o, lse, ref, bound_rel=ulp2):
+        # Bound: as K1's, two bf16 ulps of max|o|: K2 rounds bf16(p) at the
+        # running max rather than the row max, so any p may round the other
+        # way (the errors average over the keys), and o rounds to bf16; lse
+        # 1e-5 max|lse| (fp32 sums in another order)
+        el, ml, fl = max_err(lse, ref[1])
+        err, rmax, fin = max_err(o, ref[0])
+        print(f"  {label}: max_abs_err {err:.3e} (bound {bound_rel * rmax:.3e}, max|ref| "
+              f"{rmax:.3e}); lse {el:.3e} (bound {1e-5 * ml:.3e})")
+        expect(fl and el <= 1e-5 * ml, f"{label}: lse disagrees with its plain version")
+        expect(fin, f"{label}: non-finite output")
+        expect(err <= bound_rel * rmax, f"{label}: error {err} over {bound_rel * rmax}")
+        return err, rmax
+
+    # K2 at the self-attention shape (32,760 keys: a 56-key ragged last
+    # tile), on unit-variance q/k standing in for qk-normed activations
+    q, k = randn(b, n, lq, d), randn(b, n, lq, d)
+    v = randn(b, lq, n, d)
+    o2, lse2 = fa.flash_fwd_kernel(q, k, v, False, True)
+    ref2 = fa.flash_attention_shifted_plain(q, k, v)
+    err2, rmax2 = check_fwd("K2 against its plain version", o2, lse2, ref2)
+    # against K1 on the same inputs: the two plain versions differ only in
+    # where bf16 rounds p, and each kernel lies within two ulps of its own,
+    # so |K2 - K1| <= max|plain2 - plain1| + 4 ulps of max|o|
+    o1, _ = fa.flash_fwd_kernel(q, k, v, False, False)
+    po1, _ = fa.flash_attention_plain(q, k, v)
+    forms, _, _ = max_err(ref2[0], po1)
+    e21, m21, _ = max_err(o2, o1)
+    b21 = forms + 2 * ulp2 * m21
+    print(f"  K2 against K1: max_abs_err {e21:.3e} (bound {b21:.3e}: the plain forms differ "
+          f"by {forms:.3e}, max|o| {m21:.3e})")
+    expect(e21 <= b21, f"K2 against K1: {e21} over {b21}")
+    del o1, po1, o2, lse2, ref2
+    # the user mask: batch 0 keeps all 32,760 keys, batch 1 the first 20,001
+    kvalid = torch.tensor([lq, 20001], device=dev, dtype=torch.int32).repeat_interleave(n)
+    om, lsem = fa.flash_fwd_kernel(q, k, v, False, True, kvalid)
+    check_fwd("K2 with k_valid_len [32760, 20001]", om, lsem,
+              fa.flash_attention_shifted_plain(q, k, v, kvalid))
+    del om, lsem
+    vt = v.movedim(1, 2).contiguous()  # SDPA's [B, N, L, D]
+    t = timed_turns({"plain": lambda: fa.flash_attention_shifted_plain(q, k, v),
+                     "kernel": lambda: fa.flash_fwd_kernel(q, k, v, False, True),
+                     "K1": lambda: fa.flash_fwd_kernel(q, k, v, False, False),
+                     "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=2)
+    flop = 4 * b * n * lq * lq * d
+    print(f"  K2: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), K1 "
+          f"{flop / (t['K1'] * 1e9):.1f} in the same turns ({t['kernel'] / t['K1']:.3f}x its "
+          f"time), {flop / (t['plain'] * 1e9):.1f} (plain), "
+          f"{flop / (t['library'] * 1e9):.1f} (SDPA flash)")
+    report("K2", err2, rmax2, True, ulp2 * rmax2, t["kernel"], t["plain"], results,
+           **bound(2 * b * n * 2 * lq * d * 2, bf16=flop), library_ms=t["library"],
+           k1_ms=t["K1"])
+    del q, k, v, vt
+
+    # logits near 300: q and k of standard deviation 6.7 give logits of
+    # standard deviation ~45, the largest of the 2.6e10 near 300. exp of
+    # anything past ~88 overflows fp32: K1 returns inf / inf there.
+    q, k = randn(b, n, lq, d, scale=6.7), randn(b, n, lq, d, scale=6.7)
+    v = randn(b, lq, n, d)
+    s0 = (q[:, :, :512].float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    top = s0.abs().max().item()
+    del s0
+    o1, _ = fa.flash_fwd_kernel(q, k, v, False, False)
+    k1_finite = bool(torch.isfinite(o1.float()).all())
+    del o1
+    oh, lseh = fa.flash_fwd_kernel(q, k, v, False, True)
+    print(f"  large logits (largest |logit| of the first 512 q rows {top:.1f}; max lse "
+          f"{lseh.max().item():.1f}): K1 output finite: {k1_finite}")
+    expect(top > 150, f"the large-logit inputs reach only {top}")
+    expect(not k1_finite, "K1 stayed finite: the inputs do not leave the bounded range")
+    check_fwd("K2 at large logits", oh, lseh, fa.flash_attention_shifted_plain(q, k, v))
+    del q, k, v, oh, lseh
+
+    # K3s at the text cross-attention shape (lq 32,760 x lk 512)
+    q = randn(b, n, lq, d)
+    k, v = randn(b, n, TEXT_LEN, d), randn(b, TEXT_LEN, n, d)
+    o3, lse3 = fa.flash_fwd_kernel(q, k, v, True, True)
+    err3, rmax3 = check_fwd("K3s against its plain version", o3, lse3,
+                            fa.flash_attention_shifted_plain(q, k, v))
+    vt = v.movedim(1, 2).contiguous()
+    t = timed_turns({"plain": lambda: fa.flash_attention_shifted_plain(q, k, v),
+                     "kernel": lambda: fa.flash_fwd_kernel(q, k, v, True, True),
+                     "K3": lambda: fa.flash_fwd_kernel(q, k, v, True, False),
+                     "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=2)
+    flop = 4 * b * n * lq * TEXT_LEN * d
+    print(f"  K3s: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), K3 "
+          f"{flop / (t['K3'] * 1e9):.1f} in the same turns, {flop / (t['plain'] * 1e9):.1f} "
+          f"(plain), {flop / (t['library'] * 1e9):.1f} (SDPA flash)")
+    report("K3s", err3, rmax3, True, ulp2 * rmax3, t["kernel"], t["plain"], results,
+           **bound(2 * b * n * (lq + TEXT_LEN) * d * 2, bf16=flop), library_ms=t["library"],
+           k3_ms=t["K3"])
+    del q, k, v, vt, o3, lse3
+
+    # R forward and backward at the self-attention q/k, [2, 32,760, 12, 128]
+    # bf16. Bound: 0. The kernel and the plain version form the same fp32
+    # products and sum, each rounded once, then one rounding to bf16.
+    c_np, s_np = rope_tables_rolled_np(GRID_81, d)
+    c_tab, s_tab = torch.from_numpy(c_np).to(dev), torch.from_numpy(s_np).to(dev)
+    s_bwd = torch.roll(s_tab, d // 2, dims=-1).contiguous()
+    x, gy = randn(b, lq, n, d), randn(b, lq, n, d)
+    worst, rmax_r = 0.0, 0.0
+    for label, inp, tab in (("forward", x, s_tab), ("backward (S rolled)", gy, s_bwd)):
+        err, rmax, fin = max_err(rope.rope_kernel(inp, c_tab, tab),
+                                 rope.rope_rotate_plain(inp, c_tab, tab))
+        print(f"  R {label}: max_abs_err {err:.3e} (bound 0: bit for bit; max|ref| {rmax:.3e})")
+        expect(fin and err == 0.0, f"R {label} differs from its plain version by {err}")
+        worst, rmax_r = max(worst, err), max(rmax_r, rmax)
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(rope.rope_rotate(xg, c_tab, s_tab), xg, gy)
+    expect(torch.equal(dx, rope.rope_rotate_plain(gy, c_tab, s_bwd)),
+           "R's autograd backward differs from the rotation by the rolled table")
+    del xg, dx
+    ms, pms = timed_pair(lambda: rope.rope_kernel(x, c_tab, s_tab),
+                         lambda: rope.rope_rotate_plain(x, c_tab, s_tab), reps=5, calls=10)
+    # x read and out written (bf16), the two [L, 128] fp32 tables read once;
+    # three fp32 operations per element. No single PyTorch call rotates.
+    report("R", worst, rmax_r, True, 0.0, ms, pms, results,
+           **bound(2 * x.numel() * 2 + 2 * lq * d * 4, fp32=3 * x.numel()), library_ms=None)
+    del x, gy
+    torch.cuda.empty_cache()
+
+
 def phase_model():
     """Phase 3: 2-block full-width WanModel, card against CPU, in bf16 and
     as the int8 model."""
@@ -467,9 +641,12 @@ def _serve(cli, pipe, requests, per_forward, label):
 
 
 def phase_serve():
-    """Phase 4: three bf16 and two int8 requests through the CLI path;
-    returns the launch counts of both."""
+    """Phase 4: three bf16 requests, the 81-frame one again on the shifted
+    route, and two int8 requests through the CLI path; returns the launch
+    counts of all."""
     import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
 
     cli = load_script("inference_torch")
     dev = torch.device("cuda")
@@ -510,6 +687,27 @@ def phase_serve():
     ]
     bf16, launches = _serve(cli, pipe, requests, dit_launches(cfg.num_layers, False), "bf16")
     expect(not torch.equal(bf16[0], bf16[1]), "two distinct requests gave one result")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # The shifted route (HYV_FLASH_BOUNDED=0; the module switch is read at
+    # call time): the 81-frame request again, through K2 and K3s only.
+    # Bound: the two routes differ only in where bf16 rounds p, far less
+    # than int8 against bf16 moves the latents (~0.01 relative L2, checked
+    # below): 0.05, a tenth of the distance between two unrelated samples.
+    fa.FLASH_BOUNDED = False
+    try:
+        shifted, launches_s = _serve(cli, pipe, [requests[2]],
+                                     dit_launches(cfg.num_layers, False, shifted=True), "shifted")
+    finally:
+        fa.FLASH_BOUNDED = True
+    expect(launches_s.get("K1", 0) == 0 and launches_s.get("K3", 0) == 0,
+           f"the shifted route launched K1 or K3: {launches_s}")
+    d = rel(shifted[0], bf16[2])
+    print(f"  shifted against bounded route, seed {requests[2].seed}, 81 frames: relative L2 "
+          f"distance {d:.4f} (bound 0.05); K1 and K3 launched 0 times")
+    expect(d <= 0.05, f"the shifted route's latents lie {d} from the bounded route's")
     del pipe
     torch.cuda.empty_cache()
 
@@ -518,9 +716,6 @@ def phase_serve():
                              dit_launches(cfg.num_layers, False, qk8=True), "int8")
     del pipe
     torch.cuda.empty_cache()
-
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
 
     # Bound: the int8 sample of a seed must stay near the bf16 sample of the
     # same seed. Two unrelated samples lie ~sqrt(2) of a norm apart (seeds 42
@@ -534,7 +729,7 @@ def phase_serve():
         print(f"  int8 against bf16, seed {req.seed}, {req.frame_num} frames: relative L2 "
               f"distance {d:.4f} (bound 0.3; seeds 42 and 43 in bf16 lie {apart:.4f} apart)")
         expect(d <= 0.3, f"int8 latents of seed {req.seed} lie {d} from the bf16 ones")
-    return _add(dict(launches), launches8)
+    return _add(_add(dict(launches), launches8), launches_s)
 
 
 def report_many(name, label, checks, results=None, timing=None, **extra):
@@ -598,7 +793,8 @@ def phase_bwd_kernels(results):
         v = randn(1, lk_, n, d)
         if "autograd" in label:
             qkv = [x.requires_grad_() for x in (q, k, v)]
-            o, lse = fa.flash_attention(*qkv, return_lse=True)
+            o, lse = fa.flash_attention(*qkv, return_lse=True, qk_layout="bnld",
+                                        bounded_logits=True)
             do = randn(*o.shape)
             torch.cuda.synchronize()
             _build.reset_launches()
@@ -697,6 +893,46 @@ def phase_bwd_kernels(results):
     return route_launches
 
 
+def phase_masked_bwd():
+    """Phase 5b: K4 and K5 with the key mask against the plain backward at
+    the training shapes (batch 1). The gradients of masked keys must be
+    exactly 0."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8642)
+    n, d = 12, 128
+    lq = math.prod(GRID_81)
+    valid = 20001
+    kvalid = torch.full((n,), valid, dtype=torch.int32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+
+    # o and lse from K2 under the same mask; dO a seeded cotangent. Bound:
+    # as the unmasked backward, two bf16 ulps of each gradient's largest
+    # entry (2^-6 max|ref|)
+    for name, lq_ in (("K4", lq), ("K5", 1024)):
+        merged = name == "K4"
+        expect(fa.uses_merged_bwd(lq_, lq) == merged, f"{name}: wrong route at lq {lq_}")
+        q, k, v = randn(1, n, lq_, d), randn(1, n, lq, d), randn(1, lq, n, d)
+        o, lse = fa.flash_fwd_kernel(q, k, v, False, True, kvalid)
+        do = randn(*o.shape)
+        got = fa.bwd_kernel(q, k, v, o, lse, do, merged, kvalid)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kvalid)
+        report_many(name, f"key mask ({valid:,} of {lq:,} keys, lq {lq_:,})",
+                    [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)])
+        dk, dv = got[1], got[2]
+        zero = not dk[:, :, valid:].any() and not dv[:, valid:].any()
+        print(f"  {name} masked keys: dk and dv exactly 0 past key {valid:,}: {zero}")
+        expect(zero, f"{name}: masked keys got non-zero gradients")
+        expect(dk[:, :, :valid].abs().sum().item() > 0, f"{name}: dk of the kept keys is 0")
+        del q, k, v, o, lse, do, got, ref
+        torch.cuda.empty_cache()
+
+
 def phase_grad_model():
     """Phase 6: gradients of the 2-block full-width model, card against CPU."""
     import torch
@@ -771,6 +1007,121 @@ def phase_grad_model():
     print(f"  launches {launches}, derived {want}")
     expect(launches == want, f"launches {launches}, expected {want}")
     torch.cuda.empty_cache()
+
+
+def phase_unnormed():
+    """Phase 9: the un-normed DiT (qk_norm off) at t2v-1.3B width: a
+    2-block card-against-CPU check of the output and every gradient on the
+    9-frame grid, then a 30-block batched-CFG forward at 81 frames through
+    the pipeline; returns the pipeline's launches."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.pipelines.pipeline import GenerateConfig, WanT2V
+    from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
+
+    # no qk-norm and no norm3 (no K6, K7 or norm3 K8/K9: R, K2 and K3s in
+    # their place), remat "full" (the training path runs "attn")
+    cfg = wan_dit.t2v_1_3b(num_layers=2, qk_norm=False, cross_attn_norm=False,
+                           remat_policy="full")
+    state = from_jax_params(seeded_jax_tree(cfg, seed=31), cfg)
+    rng = np.random.default_rng(32)
+    f, hh, ww = GRID_9[0], GRID_9[1] * 2, GRID_9[2] * 2
+    x = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
+    ctx = rng.standard_normal((1, TEXT_LEN, cfg.text_dim), dtype=np.float32)
+    r = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
+    outs, grads, launches = {}, {}, {}
+    for key, dev, cd in (("card", "cuda", torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
+                         ("cpu fp32", "cpu", torch.float32)):
+        model = wan_dit.WanModel(dataclasses.replace(cfg, compute_dtype=cd),
+                                 device=torch.device(dev), param_dtype=torch.float32)
+        model.load_state_dict(state)
+        xi = torch.from_numpy(x).to(dev).requires_grad_()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = model(xi, torch.tensor([700.0], device=dev), torch.from_numpy(ctx).to(dev))
+        (out * torch.from_numpy(r).to(dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        print(f"  un-normed forward + backward, {key}: {time.perf_counter() - t0:.2f} s")
+        outs[key] = out.detach().cpu()
+        grads[key] = {"input latent": xi.grad.cpu(),
+                      **{name: p.grad.cpu() for name, p in model.named_parameters()}}
+        del model, out, xi
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    # Output bound: 3e-2 max|cpu|, phase 3's (bf16 roundings in another order)
+    err, rmax, fin = max_err(outs["card"], outs["cpu"])
+    print(f"  un-normed 2-block output: max_abs_err {err:.3e} (bound {3e-2 * rmax:.3e}, "
+          f"max|cpu| {rmax:.3e})")
+    expect(fin and rmax > 0 and err <= 3e-2 * rmax, f"un-normed output: error {err}")
+    # Gradient bounds, phase 6's: 2e-2 of each norm against the CPU bf16
+    # run; the k biases, whose gradients are near-cancelling sums over keys,
+    # against the CPU fp32 run at 1.5x the CPU bf16 run's distance from it.
+    # Without qk-norm the cross-attention k bias shifts every logit of a row
+    # alike and the softmax ignores it: its gradient is 0 up to rounding on
+    # every run, so both distances measure rounding noise alone; its bound
+    # is 2x (the noise norms of two runs agree only to a factor).
+    worst = []
+    for name, ref in grads["cpu"].items():
+        got = grads["card"][name]
+        expect(bool(torch.isfinite(got).all()), f"un-normed gradient of {name}: non-finite")
+        if name.endswith(".k.bias"):
+            exact = grads["cpu fp32"][name]
+            noise, e = rel(ref, exact), rel(got, exact)
+            factor = 2.0 if "cross_attn" in name else 1.5
+            print(f"  {name}: card against CPU fp32 {e:.3e} (bound {factor} x {noise:.3e}, the "
+                  f"CPU bf16 run against fp32; norms card {got.norm():.3e}, CPU bf16 "
+                  f"{ref.norm():.3e}, fp32 {exact.norm():.3e})")
+            expect(e <= factor * noise, f"un-normed gradient of {name}: {e} over "
+                                        f"{factor} x {noise}")
+            continue
+        expect(ref.norm().item() > 0, f"un-normed gradient of {name} is zero on the CPU")
+        e = rel(got, ref)
+        worst.append((e, name))
+        expect(e <= 2e-2, f"un-normed gradient of {name}: relative error {e:.3e} over 2e-2")
+    worst.sort(reverse=True)
+    print(f"  the other {len(worst)} gradients within 2e-2 of the CPU bf16 run's; the largest: "
+          + ", ".join(f"{name} {e:.3e}" for e, name in worst[:3]))
+    want = dit_launches(cfg.num_layers, True, remat_policy="full", qk_norm=False,
+                        cross_attn_norm=False)
+    print(f"  launches {launches}, derived {want}")
+    expect(launches == want, f"un-normed launches {launches}, expected {want}")
+
+    # 30 blocks at 81 frames: one batched-CFG forward pair through the
+    # pipeline (one UniPC step), random seeded weights with a seeded head
+    dev = torch.device("cuda")
+    cfg = wan_dit.t2v_1_3b(qk_norm=False)
+    model = wan_dit.init_params(wan_dit.WanModel(cfg, device=dev),
+                                torch.Generator(device=dev).manual_seed(33))
+    with torch.no_grad():
+        model.head.head.weight.normal_(0.0, cfg.dim ** -0.5,
+                                       generator=torch.Generator(device=dev).manual_seed(34))
+    pipe = WanT2V(model.eval())
+    g = torch.Generator(device=dev).manual_seed(35)
+    context = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev)
+    lat_grid = (GRID_81[0], GRID_81[1] * 2, GRID_81[2] * 2)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    lat = pipe.generate(g, context, torch.zeros_like(context), *lat_grid,
+                        gen=GenerateConfig(sampling_steps=1, guide_scale=5.0, shift=5.0))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = dit_launches(cfg.num_layers, False, qk_norm=False)
+    print(f"  un-normed 30 blocks, 81 frames, one forward pair: {dt:.3f} s, latents "
+          f"{tuple(lat.shape)}, launches {launches} (derived {want})")
+    expect(tuple(lat.shape) == (1, *lat_grid, 16), f"un-normed latents {tuple(lat.shape)}")
+    expect(bool(torch.isfinite(lat).all()), "un-normed latents are not finite")
+    expect(launches == want, f"un-normed pipeline launches {launches}, expected {want}")
+    del pipe, model, lat
+    torch.cuda.empty_cache()
+    return launches
 
 
 TRAIN_CONFIG = {  # configs/train_prfl_t2v_480.yaml, with the smoke's changes marked
@@ -867,12 +1218,14 @@ def _build_trainer(cli, raw, dev):
 
 def phase_train(root):
     """Phase 7: PRFL training through the CLI path, with the bf16 and the
-    int8 rollout; returns the launch counts of both."""
+    int8 rollout, then one step on the shifted route; returns the launch
+    counts of all."""
     import torch
 
     from hyvideo_prfl_torch.data.dataset import LatentCacheDataset
     from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler
     from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
 
     cli = load_script("train_prfl_torch")
     lists, null_dir = write_latent_cache(root, (21, 81))
@@ -978,7 +1331,43 @@ def phase_train(root):
         _add(got8, launches)
     del trainer
     torch.cuda.empty_cache()
-    return _add(got, got8)
+
+    # The shifted route (HYV_FLASH_BOUNDED=0), from the same weights, data
+    # and draws: one outer step at 21 frames through K2 and K3s. Bound on
+    # the first reward: the routes differ only in where bf16 rounds p, so
+    # the reward moves far less than under the int8 rollout (bound 0.05
+    # above): 0.01.
+    del raw["train"]["rollout_quant"]
+    fa.FLASH_BOUNDED = False
+    try:
+        trainer, config, build_s = _build_trainer(cli, raw, dev)
+        per_step_s = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
+                                             cfg.remat_policy, shifted=True)
+        name = "blocks.29.self_attn.q.weight"
+        before = dict(trainer.model.dit.named_parameters())[name].detach().clone()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        (m,) = cli.run(trainer, 1)
+        torch.cuda.synchronize()
+        got_s = dict(_build.LAUNCHES)
+    finally:
+        fa.FLASH_BOUNDED = True
+    moved = (dict(trainer.model.dit.named_parameters())[name].detach() != before).float().mean()
+    print(f"  shifted route, 21 frames: refl_loss {m['refl_loss']:.6f}, reward "
+          f"{m['reward']:.6f}, grad_norm {m['grad_norm']:.6e}, sft_loss {m['sft_loss']:.6f}, "
+          f"t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s (a fresh trainer's first "
+          f"step); {name}: {moved.item():.1%} moved; launches {got_s}")
+    for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+        expect(math.isfinite(m[key]), f"{key} is not finite on the shifted route: {m}")
+    expect(m["grad_norm"] > 0 and moved.item() > 0, "the shifted route's step moved nothing")
+    expect(got_s == per_step_s, f"shifted route launches {got_s}, expected {per_step_s}")
+    d = abs(m["reward"] - first_reward)
+    print(f"  first reward, shifted route against bounded: {m['reward']:.6f} against "
+          f"{first_reward:.6f} ({d:.2e}, bound 0.01)")
+    expect(d <= 0.01, f"the shifted route's first reward lies {d} from the bounded run's")
+    del trainer
+    torch.cuda.empty_cache()
+    return _add(_add(got, got8), got_s)
 
 
 def phase_probes(results):
@@ -1019,8 +1408,12 @@ def phase_probes(results):
 
 def print_ptxas(log: str) -> None:
     """Registers and spills of the kernel instances the slice launches."""
-    wanted = {"flash_fwd_bounded_kernelILb0": "K1",
-              "flash_fwd_bounded_kernelILb1": "K3",
+    wanted = {"flash_fwd_kernelILb0ELb0E": "K1",
+              "flash_fwd_kernelILb1ELb0E": "K3",
+              "flash_fwd_kernelILb0ELb1E": "K2",
+              "flash_fwd_kernelILb1ELb1E": "K3s",
+              "rope_kernelI13__nv_bfloat16E": "R bf16",
+              "rope_kernelIfE": "R fp32",
               "flash_bwd_dkv_kernelILb1": "K4",
               "flash_bwd_dkv_kernelILb0": "K5 dk/dv",
               "flash_bwd_dq_kernel": "K5 dq",
@@ -1077,12 +1470,16 @@ def main() -> int:
     results = {}
     print("phase 2: kernels against their plain versions at the 81-frame shapes")
     phase_kernels(results)
+    print("phase 2b: the shifted forward (K2, K3s) and the rope R against their plain versions")
+    phase_shifted_kernels(results)
     print("phase 3: whole-model check, card against CPU")
     phase_model()
     print("phase 4: serving through the CLI path")
     serve_launches = phase_serve()
     print("phase 5: backward kernels against their plain versions at the training shapes")
     route_launches = phase_bwd_kernels(results)
+    print("phase 5b: the key mask through K4 and K5")
+    phase_masked_bwd()
     print("phase 6: whole-model gradients, card against CPU")
     phase_grad_model()
     print("phase 7: PRFL training through the CLI path")
@@ -1091,14 +1488,16 @@ def main() -> int:
     # every kernel of the training path ran there; K5 is not on it (the JAX
     # rule routes every full-width call to K4): its launches are the
     # split-route gradient call of phase 5
-    expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k not in ("K5", "P1", "P2")),
+    expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k not in ("K5", "P1", "P2", "R")),
            f"a kernel of the training path never launched: {train_launches}")
     print(f"  serving launches {serve_launches}; training launches {train_launches}")
     print("phase 8: the int8 probes P1 and P2")
     probe_launches = phase_probes(results)
+    print("phase 9: the un-normed DiT (qk_norm off): R, K2 and K3s")
+    unnormed_launches = phase_unnormed()
 
-    launches = _add(_add(_add(dict(serve_launches), train_launches), route_launches),
-                    probe_launches)
+    launches = _add(_add(_add(_add(dict(serve_launches), train_launches), route_launches),
+                         probe_launches), unnormed_launches)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

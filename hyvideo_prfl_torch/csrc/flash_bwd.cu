@@ -19,7 +19,12 @@
 // with delta = rowsum(dO * o) computed by the caller from the bf16 o the
 // forward wrote. Keys past lk and q rows past lq contribute nothing: their
 // rows are zero-filled and their p is forced to 0 (the TPU zero-pads and
-// lets pad rows carry harmless values instead).
+// lets pad rows carry harmless values instead). An optional int32 [B*N]
+// valid length per (batch, head), the key mask of the shifted forward
+// (the TPU's "user" mask, _apply_mask in :389, :429, :483), lowers lk for
+// that head: p = 0 past it, so the gradients of masked keys are exactly 0,
+// a dk/dv block whose keys are all masked writes zeros and stops, and the
+// dq pass ends its key loop at the last valid tile.
 //
 // Bound on the H100: tensor-core math. At the 81-frame self-attention
 // shape (12 heads x 32,760 x 32,760 x 128) one call is ~16.5 TFLOP (five
@@ -85,6 +90,7 @@ struct BwdArgs {
   const __nv_bfloat16* dout;
   const float* lse;    // [B*N, Lq], natural units
   const float* delta;  // [B*N, Lq]
+  const int* valid;    // null, or [B*N] key counts
   float* dq;           // [B*N, Lq, 128] fp32 (K4: zeroed, accumulated)
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
@@ -181,6 +187,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(BwdArgs args
   const __nv_bfloat16* dop = args.dout + b * args.dos.b + h * args.dos.h;
   const float* lsep = args.lse + (long long)bh * Lq;
   const float* deltap = args.delta + (long long)bh * Lq;
+  const int lk = args.valid != nullptr ? min(args.valid[bh], Lk) : Lk;
+  if (n0 >= lk) {
+    // every key of this block is masked: its dk and dv are zero
+#pragma unroll
+    for (int i = 0; i < kKvBlockN * 16 / kThreads; ++i) {
+      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
+      if (n0 + r >= Lk) continue;
+      const long long key = n0 + r;
+      *reinterpret_cast<uint4*>(args.dk + b * args.dks.b + h * args.dks.h + key * args.dks.l +
+                                c * 8) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(args.dv + b * args.dvs.b + h * args.dvs.h + key * args.dvs.l +
+                                c * 8) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
 
   // k, v tiles of this block (rows past Lk zero-filled)
 #pragma unroll
@@ -269,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(BwdArgs args
       for (int e = 0; e < 4; ++e) {
         const int qc = t * 8 + (lane & 3) * 2 + (e & 1);
         float pv = exp2f(p[t][e] - sLse[qc]);
-        if (key_hi + 8 * (e >> 1) >= Lk) pv = 0.f;
+        if (key_hi + 8 * (e >> 1) >= lk) pv = 0.f;
         p[t][e] = pv;
       }
     }
@@ -435,7 +456,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdArgs args)
 #pragma unroll
   for (int t = 0; t < kD / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 
-  const int n_tiles = (Lk + kDqBlockN - 1) / kDqBlockN;
+  const int lk = args.valid != nullptr ? min(args.valid[bh], Lk) : Lk;
+  const int n_tiles = (lk + kDqBlockN - 1) / kDqBlockN;
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
     cp_async_wait<0>();
@@ -467,13 +489,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdArgs args)
       }
     }
     const int key0 = j * kDqBlockN + (lane & 3) * 2;
-    const bool tail = j * kDqBlockN + kDqBlockN > Lk;
+    const bool tail = j * kDqBlockN + kDqBlockN > lk;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float pv = exp2f(p[t][e] - lse2[e >> 1]);
-        if (tail && key0 + t * 8 + (e & 1) >= Lk) pv = 0.f;
+        if (tail && key0 + t * 8 + (e & 1) >= lk) pv = 0.f;
         p[t][e] = pv;
       }
     }
@@ -517,9 +539,11 @@ cudaError_t launch(K kernel, dim3 grid, int smem_bytes, cudaStream_t st, const B
 // 1, rows 16 B aligned). lse, delta [B*N, Lq] fp32. dq [B*N, Lq, 128] fp32:
 // merged != 0 (K4) accumulates into it (zero it first), merged == 0 (K5)
 // overwrites it. dk [B, N, Lk, 128] and dv [B, Lk, N, 128] bf16 by strides.
+// valid: null, or int32 [B*N] key counts (>= 1), the forward's key mask.
 extern "C" int hyv_flash_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, int B, int N, int Lq, int Lk,
+    const void* delta, void* dq, void* dk, void* dv, const void* valid,
+    int B, int N, int Lq, int Lk,
     long long q_sb, long long q_sh, long long q_sl,
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
@@ -531,7 +555,7 @@ extern "C" int hyv_flash_bwd(
   if (B * N == 0) return 0;
   BwdArgs args{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
                (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
-               (float*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N, Lq, Lk,
+               (const int*)valid, (float*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N, Lq, Lk,
                Strides{q_sb, q_sh, q_sl}, Strides{k_sb, k_sh, k_sl}, Strides{v_sb, v_sh, v_sl},
                Strides{do_sb, do_sh, do_sl}, Strides{dk_sb, dk_sh, dk_sl},
                Strides{dv_sb, dv_sh, dv_sl}, qscale, scale};

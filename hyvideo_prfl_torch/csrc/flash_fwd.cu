@@ -1,24 +1,43 @@
-// K1 and K3: fixed-max ("bounded") flash-attention forward, head_dim 128.
+// K1, K3, K2 and K3s: flash-attention forward, head_dim 128, in the
+// fixed-max ("bounded") and the online-softmax ("shifted") form.
 //
 // Replaces hyvideo_prfl_tpu/ops/flash_attention.py
-//   K1 _fwd_kernel_bounded  (pallas_call at flash_attention.py:619, via
-//      _flash_fwd_impl): the streaming forward of the DiT self-attention;
-//   K3 _fwd_kernel_single   (pallas_call at flash_attention.py:656, via
+//   K1 _fwd_kernel_bounded  (:250; pallas_call at :619, via _flash_fwd_impl):
+//      the streaming bounded forward of the qk-normed DiT self-attention;
+//   K3 _fwd_kernel_single   (:331; pallas_call at :656, via
 //      _flash_fwd_single) in its bounded form: the single-K-block forward
-//      of the text cross-attention (lk <= FULL_K_MAX = 3584).
-// Both compute, per (batch, head) and q row,
+//      of the text cross-attention (lk <= FULL_K_MAX = 3584);
+//   K2 _fwd_kernel          (:198; pallas_call at :619): the streaming
+//      shifted forward, taken without qk-norm, under a key mask, and
+//      everywhere under HYV_FLASH_BOUNDED=0;
+//   K3s _fwd_kernel_single with bounded=False (:351-356): K3's shifted form.
+// Per (batch, head) and q row, with q' = bf16(q * scale * log2(e)) and
+// s = q' . k, the bounded form computes
 //
-//   q' = bf16(q * scale * log2(e));  p = exp2(q' . k)   (no running max)
-//   l  = sum p;  o = (sum bf16(p) v) / l;  lse = ln(l)
+//   p = exp2(s)  (no running max);  l = sum p;  o = (sum bf16(p) v) / l;
+//   lse = ln(l)
 //
 // which is exact while the logits stay under ~70: the DiT's qk-RMSNorm
-// keeps them there (flash_attention.py:76-101). Keys past lk are masked
-// (p = 0) inside the last tile; the TPU instead padded K with zeros and
-// subtracted the pad count from l, which gives the same result.
+// keeps them there (flash_attention.py:76-101). The shifted form keeps a
+// running row max m over the key tiles:
+//
+//   m' = max(m, rowmax s);  corr = exp2(m - m');  l = l corr + sum p;
+//   acc = acc corr + bf16(p) v  with p = exp2(s - m');
+//   o = acc / l;  lse = (m + log2 l) ln 2
+//
+// Keys past lk are masked (p = 0) inside the last tile; the TPU instead
+// padded K with zeros and removed their mass from l at the end, which gives
+// the same result. The shifted form also takes an optional int32 [B*N]
+// valid length per (batch, head): keys at or past it are masked, and the
+// key loop ends at the last tile that holds a valid key, so fully masked
+// tiles cost nothing.
 //
 // Bound on the H100: tensor-core math. At the 81-frame slice shape
 // (24 heads x 32,760 x 32,760 x 128) one call is ~13 TFLOP against ~0.4 GB
-// of q/k/v/o traffic, far above the ~295 flop/byte line.
+// of q/k/v/o traffic, far above the ~295 flop/byte line. The shifted form
+// adds per 64-key tile a row max (two quad shuffles), one exp2 per row and
+// a rescale of the 64-float accumulator per thread: a few percent more
+// non-tensor-core instructions on top of the same two products.
 //
 // Design (FlashAttention-2 shape on mma.sync; TMA and wgmma wait for a
 // later revision):
@@ -36,12 +55,17 @@
 //   cross-lane reduction inside the loop: p = exp2(s) turns the score
 //   fragment straight into the bf16 A operand of the p v product, and the
 //   row sums reduce across the lane quad once at the end.
-// * q and k are read in [B, N, L, D] and v in [B, L, N, D] through strides;
-//   o is written in [B, L, N, D] and lse as [B*N, Lq] fp32.
+// * The shifted softmax keeps m per row in the four lanes (a quad) that
+//   hold the row's fragments; each tile's row max is two xor-shuffles
+//   inside the quad, so the rescale needs no shared memory either.
+// * q and k are read in [B, N, L, D] or [B, L, N, D] and v in [B, L, N, D]
+//   through strides; o is written in [B, L, N, D] and lse as [B*N, Lq] fp32.
 // K3 is the same loop: with no running max there is no per-block state to
 // drop, so the single-block case is this loop over at most 56 key tiles.
-// It is the kSingle = true instance, so profiles name K1 and K3 apart, and
-// its entry enforces the lk <= FULL_K_MAX contract.
+// The four forms are the <kSingle, kShifted> instances of one template, so
+// profiles name them apart; the kSingle entries enforce lk <= FULL_K_MAX.
+// The kShifted branches are compile-time, so the bounded instances carry
+// none of the shifted form's work or registers.
 #include "tensor_core.cuh"
 
 namespace {
@@ -70,14 +94,12 @@ struct Strides {  // element strides of (batch, head, row); the feature stride i
   long long b, h, l;
 };
 
-template <bool kSingle>
+template <bool kSingle, bool kShifted>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_bounded_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                         int N, int Lq, int Lk, Strides qs, Strides ks, Strides vs,
-                         Strides os, float qscale) {
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, const int* __restrict__ kvalid, int N, int Lq, int Lk,
+                 Strides qs, Strides ks, Strides vs, Strides os, float qscale) {
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sQ = (uint32_t)__cvta_generic_to_shared(smem);
   const uint32_t sK0 = sQ + kBlockM * kRowBytes;
@@ -102,7 +124,13 @@ flash_fwd_bounded_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  const int n_tiles = (Lk + kBlockN - 1) / kBlockN;
+  // keys at or past lk are masked; the key loop ends at the tile holding
+  // the last valid key
+  int lk = Lk;
+  if constexpr (kShifted) {
+    if (kvalid != nullptr) lk = min(kvalid[bh], Lk);
+  }
+  const int n_tiles = (lk + kBlockN - 1) / kBlockN;
   load_kv(0, 0);
   cp_async_commit();
 
@@ -133,6 +161,8 @@ flash_fwd_bounded_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int t = 0; t < kD / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
   float lsum[2] = {0.f, 0.f};
+  const float neg_inf = __int_as_float(0xff800000);
+  float m_run[2] = {neg_inf, neg_inf};  // shifted form: running row max
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
@@ -158,17 +188,55 @@ flash_fwd_bounded_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // p = exp2(s); keys past Lk (only in the last tile) get p = 0
     const int key0 = j * kBlockN + (lane & 3) * 2;
-    const bool tail = j * kBlockN + kBlockN > Lk;
+    const bool tail = j * kBlockN + kBlockN > lk;
+    if constexpr (kShifted) {
+      // masked keys -> -inf; the tile's row max over the quad's 64 keys
+      float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int t = 0; t < kBlockN / 8; ++t) {
+      for (int t = 0; t < kBlockN / 8; ++t) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[t][e]);
-        if (tail && key0 + t * 8 + (e & 1) >= Lk) p = 0.f;
-        s[t][e] = p;
-        lsum[e >> 1] += p;
+        for (int e = 0; e < 4; ++e) {
+          if (tail && key0 + t * 8 + (e & 1) >= lk) s[t][e] = neg_inf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+        mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+        // rescale what the earlier tiles summed to the new max (0 on the
+        // first tile, where m_run is -inf)
+        const float corr = exp2f(m_run[half] - mx[half]);
+        m_run[half] = mx[half];
+        lsum[half] *= corr;
+#pragma unroll
+        for (int t = 0; t < kD / 8; ++t) {
+          acc[t][2 * half] *= corr;
+          acc[t][2 * half + 1] *= corr;
+        }
+      }
+      // p = exp2(s - m); masked keys give exp2(-inf) = 0
+#pragma unroll
+      for (int t = 0; t < kBlockN / 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[t][e] - m_run[e >> 1]);
+          s[t][e] = p;
+          lsum[e >> 1] += p;
+        }
+      }
+    } else {
+      // p = exp2(s); keys past Lk (only in the last tile) get p = 0
+#pragma unroll
+      for (int t = 0; t < kBlockN / 8; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[t][e]);
+          if (tail && key0 + t * 8 + (e & 1) >= lk) p = 0.f;
+          s[t][e] = p;
+          lsum[e >> 1] += p;
+        }
       }
     }
 
@@ -207,35 +275,42 @@ flash_fwd_bounded_kernel(const __nv_bfloat16* __restrict__ q,
     for (int t = 0; t < kD / 8; ++t)
       *reinterpret_cast<uint32_t*>(orow + t * 8) =
           pack_bf16x2(acc[t][2 * half] / l_safe, acc[t][2 * half + 1] / l_safe);
-    if ((lane & 3) == 0) lse[(long long)bh * Lq + row] = log2f(fmaxf(l, 1e-30f)) * kLn2;
+    if ((lane & 3) == 0) {
+      const float log2l = log2f(fmaxf(l, 1e-30f));
+      lse[(long long)bh * Lq + row] = (kShifted ? m_run[half] + log2l : log2l) * kLn2;
+    }
   }
 }
 
 }  // namespace
 
 // q [B, N, Lq, 128], k [B, N, Lk, 128], v [B, Lk, N, 128] bf16 addressed by
-// element strides (feature stride 1, rows 16 B aligned); o [B, Lq, N, 128]
-// bf16 by strides; lse [B*N, Lq] fp32. qscale = fp32(scale * log2(e)).
-// single != 0 is the K3 entry: lk must be <= FULL_K_MAX.
-extern "C" int hyv_flash_fwd_bounded(
-    const void* q, const void* k, const void* v, void* o, void* lse,
+// element strides (feature stride 1, rows 16 B aligned; q and k may be
+// token-major views); o [B, Lq, N, 128] bf16 by strides; lse [B*N, Lq]
+// fp32. qscale = fp32(scale * log2(e)). single != 0 is the K3 entry: lk
+// must be <= FULL_K_MAX. shifted != 0 takes the online-softmax form (K2,
+// K3s), which alone takes valid: null, or int32 [B*N] key counts (>= 1).
+extern "C" int hyv_flash_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* valid,
     int B, int N, int Lq, int Lk,
     long long q_sb, long long q_sh, long long q_sl,
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
-    float qscale, int single, void* stream) {
+    float qscale, int single, int shifted, void* stream) {
   if (Lk <= 0 || (single && Lk > kFullKMax)) return (int)cudaErrorInvalidValue;
+  if (valid != nullptr && !shifted) return (int)cudaErrorInvalidValue;
   if (B * N == 0 || Lq == 0) return 0;
-  auto kernel = single ? flash_fwd_bounded_kernel<true> : flash_fwd_bounded_kernel<false>;
+  auto kernel = shifted ? (single ? flash_fwd_kernel<true, true> : flash_fwd_kernel<false, true>)
+                        : (single ? flash_fwd_kernel<true, false> : flash_fwd_kernel<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + kBlockM - 1) / kBlockM, B * N);
   kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, (float*)lse, N, Lq, Lk, Strides{q_sb, q_sh, q_sl},
-      Strides{k_sb, k_sh, k_sl}, Strides{v_sb, v_sh, v_sl}, Strides{o_sb, o_sh, o_sl},
-      qscale);
+      (__nv_bfloat16*)o, (float*)lse, (const int*)valid, N, Lq, Lk,
+      Strides{q_sb, q_sh, q_sl}, Strides{k_sb, k_sh, k_sl}, Strides{v_sb, v_sh, v_sl},
+      Strides{o_sb, o_sh, o_sl}, qscale);
   return (int)cudaGetLastError();
 }

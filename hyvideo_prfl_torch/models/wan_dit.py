@@ -15,8 +15,16 @@ The hot ops go through the ported kernels, each differentiable:
 ``ln_scale_shift`` (K8 forward, K9 backward; three per block and one at
 the head), ``rmsnorm_rope``/``rmsnorm_only`` (K6/K7, four per block) and
 ``dot_product_attention`` (K1 for self-attention, K3 for the text
-cross-attention; K4/K5 backward). q and k live in the JAX "half" rope
-layout; utils/checkpoint.py permutes reference weights into it at load time.
+cross-attention, or K2/K3s under HYV_FLASH_BOUNDED=0; K4/K5 backward). q
+and k live in the JAX "half" rope layout; utils/checkpoint.py permutes
+reference weights into it at load time.
+
+The un-normed DiT (``qk_norm=False``, the JAX package's option) has no q/k
+RMSNorm gains: its self-attention rotates token-major q and k with the
+standalone rope ``rope_rotate`` (kernel R, forward and backward) and both
+attentions take the shifted softmax (K2 and K3s), as the JAX package
+passes ``bounded_logits=cfg.qk_norm``. ``cross_attn_norm=False`` drops the
+affine norm3 before the cross-attention (no K8 there).
 
 Training features: per-block activation checkpointing (``cfg.remat``,
 policies "full" and "attn") and the feature taps the reward model reads
@@ -48,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import dot_product_attention
 from ..ops.qknorm_rope import rmsnorm_only, rmsnorm_rope
 from ..ops.quant import int8_dense, quantize_weight
+from ..ops.rope import rope_rotate
 from ..ops.stream import ln_scale_shift
 from .rope import rope_tables_rolled_np
 
@@ -67,6 +76,11 @@ class WanConfig:
     out_dim: int = 16
     num_heads: int = 16
     num_layers: int = 32
+    # RMSNorm gains on q and k over the model dim (the released Wan2.1
+    # models); without them the attention takes the shifted softmax
+    qk_norm: bool = True
+    # the affine LayerNorm (norm3) before the cross-attention
+    cross_attn_norm: bool = True
     eps: float = 1e-6
     compute_dtype: torch.dtype = torch.bfloat16
     # activation checkpointing per block while gradients are on: "full"
@@ -79,7 +93,8 @@ class WanConfig:
     # int8 rollout; QuantLinear)
     quant_dense: Optional[str] = None
     # "int8": the self-attention's q k^T runs on the int8 path (K10) where
-    # its keys stream; the cross-attention stays bf16
+    # its keys stream; the cross-attention stays bf16. Needs qk_norm (the
+    # bounded logits), as in the JAX package; ignored without it
     quant_attn: Optional[str] = None
 
     @property
@@ -190,7 +205,8 @@ def _param(*shape, device):
 
 
 class _Attention(nn.Module):
-    """q/k/v/o projections (stored in param_dtype) and fp32 qk-norm gains."""
+    """q/k/v/o projections (stored in param_dtype) and, under cfg.qk_norm,
+    fp32 qk-norm gains."""
 
     def __init__(self, cfg: WanConfig, device=None, param_dtype=None):
         super().__init__()
@@ -200,11 +216,16 @@ class _Attention(nn.Module):
         self.k = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
         self.v = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
         self.o = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
-        self.norm_q = _param(cfg.dim, device=device)
-        self.norm_k = _param(cfg.dim, device=device)
+        if cfg.qk_norm:
+            self.norm_q = _param(cfg.dim, device=device)
+            self.norm_k = _param(cfg.dim, device=device)
 
-    def attend(self, q, k, v):
-        return dot_product_attention(q, k, v, qk_layout="bnld", bounded_logits=True)
+    def attend(self, q, k, v, qk_int8=False):
+        # qk-normed q/k are head-major (the K6 output), un-normed token-major;
+        # qk_int8 applies only to bounded logits, so only under qk_norm
+        qk_norm = self.cfg.qk_norm
+        return dot_product_attention(q, k, v, qk_layout="bnld" if qk_norm else "blnd",
+                                     bounded_logits=qk_norm, qk_int8=qk_int8)
 
     def out(self, o):
         """[B, L, N, D] attention output -> o projection, compute dtype."""
@@ -217,34 +238,43 @@ class SelfAttention(_Attention):
     and out in turn, so remat can split around the attention)."""
 
     def qkv(self, x, c_tab, s_tab):
-        """-> q, k head-major [B, N, L, D] and v [B, L, N, D]."""
+        """-> q, k (head-major [B, N, L, D] under qk_norm, else token-major
+        [B, L, N, D]) and v [B, L, N, D]."""
         cfg = self.cfg
         cd = cfg.compute_dtype
         b, l, _ = x.shape
         n, d = cfg.num_heads, cfg.head_dim
         x = x.to(cd)
-        q = rmsnorm_rope(_dense(self.q, x, cd), self.norm_q, c_tab, s_tab, n, cfg.eps)
-        k = rmsnorm_rope(_dense(self.k, x, cd), self.norm_k, c_tab, s_tab, n, cfg.eps)
+        if cfg.qk_norm:
+            q = rmsnorm_rope(_dense(self.q, x, cd), self.norm_q, c_tab, s_tab, n, cfg.eps)
+            k = rmsnorm_rope(_dense(self.k, x, cd), self.norm_k, c_tab, s_tab, n, cfg.eps)
+        else:
+            q = rope_rotate(_dense(self.q, x, cd).view(b, l, n, d), c_tab, s_tab)
+            k = rope_rotate(_dense(self.k, x, cd).view(b, l, n, d), c_tab, s_tab)
         return q, k, _dense(self.v, x, cd).view(b, l, n, d)
 
     def attend(self, q, k, v):
-        return dot_product_attention(q, k, v, qk_layout="bnld", bounded_logits=True,
-                                     qk_int8=self.cfg.quant_attn == "int8")
+        return super().attend(q, k, v, qk_int8=self.cfg.quant_attn == "int8")
 
 
 class CrossAttention(_Attention):
-    """Text cross-attention with qk-RMSNorm."""
+    """Text cross-attention, with qk-RMSNorm under cfg.qk_norm."""
 
     def qkv(self, x, context):
-        """-> q [B, N, L, D], k [B, N, Lk, D] head-major and v [B, Lk, N, D]."""
+        """-> q [B, N, L, D], k [B, N, Lk, D] head-major under qk_norm (else
+        token-major [B, L, N, D], [B, Lk, N, D]) and v [B, Lk, N, D]."""
         cfg = self.cfg
         cd = cfg.compute_dtype
-        b = x.shape[0]
+        b, l, _ = x.shape
         n, d = cfg.num_heads, cfg.head_dim
         x = x.to(cd)
         context = context.to(cd)
-        q = rmsnorm_only(_dense(self.q, x, cd), self.norm_q, n, cfg.eps)
-        k = rmsnorm_only(_dense(self.k, context, cd), self.norm_k, n, cfg.eps)
+        q, k = _dense(self.q, x, cd), _dense(self.k, context, cd)
+        if cfg.qk_norm:
+            q = rmsnorm_only(q, self.norm_q, n, cfg.eps)
+            k = rmsnorm_only(k, self.norm_k, n, cfg.eps)
+        else:
+            q, k = q.view(b, l, n, d), k.view(b, -1, n, d)
         return q, k, _dense(self.v, context, cd).view(b, -1, n, d)
 
 
@@ -263,8 +293,9 @@ class WanBlock(nn.Module):
         pd = param_dtype or cfg.compute_dtype
         self.modulation = _param(1, 6, cfg.dim, device=device)
         self.self_attn = SelfAttention(cfg, device, param_dtype)
-        self.norm3_scale = _param(cfg.dim, device=device)
-        self.norm3_bias = _param(cfg.dim, device=device)
+        if cfg.cross_attn_norm:
+            self.norm3_scale = _param(cfg.dim, device=device)
+            self.norm3_bias = _param(cfg.dim, device=device)
         self.cross_attn = CrossAttention(cfg, device, param_dtype)
         self.ffn_0 = _block_linear(cfg, cfg.dim, cfg.ffn_dim, device, pd)
         self.ffn_2 = _block_linear(cfg, cfg.ffn_dim, cfg.dim, device, pd)
@@ -275,8 +306,9 @@ class WanBlock(nn.Module):
 
     def _mid(self, x, o, e6, context):
         x = x + self.self_attn.out(o).float() * e6[:, 2:3]
-        h = ln_scale_shift(x, self.norm3_scale, self.norm3_bias,
-                           out_dtype=self.cfg.compute_dtype)
+        h = (ln_scale_shift(x, self.norm3_scale, self.norm3_bias,
+                            out_dtype=self.cfg.compute_dtype)
+             if self.cfg.cross_attn_norm else x)
         return (x, *self.cross_attn.qkv(h, context))
 
     def _post(self, x, o, e6):
@@ -308,9 +340,11 @@ def _call(fn, *args):
 def _ckpt(fn, *args):
     # Launch counts under remat: the backward re-runs a checkpointed
     # segment's forward up to its last op that saved a tensor (early stop).
-    # Under "attn" that re-runs, per block, the three K8 and the self q/k
-    # and cross q K6 launches, plus the cross k K6 when the context needs a
-    # gradient; never K1/K3. Under "full" it re-runs the whole block.
+    # Under "attn" that re-runs, per block, the K8 launches (three, two
+    # without norm3) and the self q/k and cross q K6 launches, plus the
+    # cross k K6 when the context needs a gradient (un-normed: the two R
+    # launches of the self q/k); never the attention forward. Under "full"
+    # it re-runs the whole block.
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 

@@ -38,15 +38,14 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "hyv_ln_scale_shift": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "hyv_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "hyv_flash_fwd_bounded": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
-                              _LL, _LL, _LL, _F, _I, _P],
+    "hyv_flash_fwd": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_F, _I, _I, _P],
     "hyv_ln_scale_shift_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "hyv_rmsnorm_rope_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "hyv_flash_bwd": [_P] * 9 + [_I] * 4 + [_LL] * 18 + [_F, _F, _I, _P],
+    "hyv_flash_bwd": [_P] * 10 + [_I] * 4 + [_LL] * 18 + [_F, _F, _I, _P],
     "hyv_flash_fwd_qk8": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_P],
     "hyv_probe_rate": [_P, _P, _P] + [_I] * 7 + [_P],
     "hyv_probe_chain": [_P, _P, _P] + [_I] * 6 + [_P],
+    "hyv_rope": [_P] * 4 + [_LL, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,39 +1,51 @@
-"""Fixed-max ("bounded") flash attention, forward and backward
-(hyvideo_prfl_tpu/ops/flash_attention.py).
+"""Flash attention, forward and backward (hyvideo_prfl_tpu/ops/flash_attention.py).
 
-Layout contract, as the JAX package's ``flash_attention(...,
-qk_layout="bnld")``: q [B, N, Lq, D] and k [B, N, Lk, D] head-major (the
-qknorm_rope output), v [B, Lk, N, D]; returns o [B, Lq, N, D].
+Layout contract, as the JAX package's ``flash_attention``: v [B, Lk, N, D];
+q [B, Lq, N, D] and k [B, Lk, N, D] token-major (``qk_layout="blnd"``, the
+default), or head-major [B, N, L, D] (``"bnld"``, the qknorm_rope output);
+returns o [B, Lq, N, D]. The kernels read every layout through strides.
 
-The softmax is the bounded form the DiT's qk-normed attention opts into:
+Two softmax forms, as in the JAX package. The bounded form, which a caller
+with qk-normed logits opts into (``bounded_logits=True``):
 
     q' = bf16(q * scale * log2(e));  p = exp2(q' k^T);  o = bf16(p) v / sum p
 
 with no running max, exact while the logits stay under ~70 (the JAX
-package's FLASH_BOUNDED note). The op is a ``torch.autograd.Function``
-(the JAX ``custom_vjp``) that saves (q, k, v, o, lse), lse [B*N, Lq] fp32,
-and recomputes p from lse in its backward. On a CUDA tensor the forward
-runs K1 (streaming, lk > FULL_K_MAX after padding to 128) or K3
-(single-K-block), both csrc/flash_fwd.cu, and the backward runs K4
-(merged) or K5 (split), both csrc/flash_bwd.cu, routed by the JAX rule
-(``uses_merged_bwd``). A CPU tensor runs the plain versions below.
+package's FLASH_BOUNDED note). The shifted (online-softmax) form, taken
+by every other call, by any call with a key mask ``k_valid_len``, and by
+every call when ``HYV_FLASH_BOUNDED=0``:
+
+    s = q' k^T (keys past k_valid_len at -inf);  m = rowmax s
+    p = exp2(s - m);  o = bf16(p) v / sum p;  lse = (m + log2 sum p) ln 2
+
+The op is a ``torch.autograd.Function`` (the JAX ``custom_vjp``) that saves
+(q, k, v, o, lse), lse [B*N, Lq] fp32, and recomputes p from lse in its
+backward, which is therefore the same for both forms. On a CUDA tensor the
+forward runs, from csrc/flash_fwd.cu, K1 (bounded, streaming: lk padded to
+128 exceeds FULL_K_MAX) or K3 (bounded, single-K-block), K2 (shifted,
+streaming) or K3s (K3's shifted form); the backward runs K4 (merged) or K5
+(split), both csrc/flash_bwd.cu, routed by the JAX rule
+(``uses_merged_bwd``), both masking keys past k_valid_len. A CPU tensor
+runs the plain versions below.
 
 ``qk_int8=True`` (WanConfig.quant_attn) takes the JAX package's int8
-serving forward wherever the keys stream in several blocks (not
-``uses_single_block``; FULL_K_MAX is read at call time): q and k are
-quantized to int8 with one symmetric scale per (batch, head), and
+serving forward wherever the bounded form applies and the keys stream in
+several blocks (not ``uses_single_block``; FULL_K_MAX is read at call
+time): q and k are quantized to int8 with one symmetric scale per
+(batch, head), and
 
     s32 = q8 k8^T;  p = exp2(s32 c);  o = bf16(p) v / sum p
 
 with c = fp32(sq sk) fp32(scale log2(e)). A CUDA tensor runs K10
 (csrc/flash_fwd_qk8.cu). It has no backward, as in the JAX package, and
-refuses a call that could need one. The shifted online-softmax form (K2)
-is not ported yet.
+refuses a call that could need one. Elsewhere qk_int8 falls back to the
+bf16 route, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -45,6 +57,11 @@ FULL_K_MAX = 3584
 DEFAULT_BLOCK_Q = 512
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
+NEG_INF = -1e30
+# Kill switch for the bounded (fixed-max) forward, read as the JAX package
+# reads it: "0" sends every call, bounded_logits or not, to the shifted
+# form, for a checkpoint whose logits could pass ~70 (attn_logit_bound).
+FLASH_BOUNDED = os.environ.get("HYV_FLASH_BOUNDED", "1") == "1"
 
 
 def _qscale(d: int) -> float:
@@ -99,35 +116,92 @@ def uses_merged_bwd(lq: int, lk: int) -> bool:
     return lq_p // _divisor_block(lq_p, 512) >= 4
 
 
-def _bounded_fwd_plain(scores, v, b, n, lq, q_chunk):
-    """The bounded softmax and p v over chunks of q rows, given the log2-domain
+def attn_logit_bound(state, head_dim: int = 128):
+    """(typical, worst_case) attention-logit bounds from a checkpoint's
+    qk-RMSNorm gains (the JAX package's ``attn_logit_bound``), given a
+    WanModel state dict or module: with gq = max|norm_q|, gk = max|norm_k|
+    (norm_k_img included) over all blocks and D their length,
+
+        typical = gq gk sqrt(head_dim),  worst = gq gk D / sqrt(head_dim).
+
+    The bounded forward is exact while the realized logits stay below
+    ~70; past that, set HYV_FLASH_BOUNDED=0. (0.0, 0.0) when the state has
+    no qk-norm gains: unknown, not safe."""
+    if hasattr(state, "state_dict"):
+        state = state.state_dict()
+    gq = gk = 0.0
+    dim = 0
+    for name, leaf in state.items():
+        leaf_name = name.rsplit(".", 1)[-1]
+        if "norm_q" in leaf_name:
+            gq = max(gq, float(leaf.detach().abs().max()))
+            dim = max(dim, int(leaf.shape[-1]))
+        elif "norm_k" in leaf_name:
+            gk = max(gk, float(leaf.detach().abs().max()))
+    if not (gq and gk and dim):
+        return 0.0, 0.0
+    return gq * gk * head_dim ** 0.5, gq * gk * dim / head_dim ** 0.5
+
+
+def _key_mask(kvalid, b, n, lk, device):
+    """[B*N] valid lengths -> a [B, N, 1, Lk] bool mask of the kept keys."""
+    if kvalid is None:
+        return None
+    keys = torch.arange(lk, device=device)
+    return keys < kvalid.to(device).reshape(b, n, 1, 1)
+
+
+def _softmax_pv_plain(scores, v, b, n, lq, q_chunk, shifted=False):
+    """The softmax and p v over chunks of q rows, given the log2-domain
     scores of rows i0:i1 as scores(i0, i1) -> [B, N, i1 - i0, Lk] fp32, so the
-    score block is [B, N, q_chunk, Lk] rather than the whole [B, N, Lq, Lk]."""
+    score block is [B, N, q_chunk, Lk] rather than the whole [B, N, Lq, Lk].
+    Bounded: p = exp2(s); shifted: p = exp2(s - rowmax s)."""
     d = v.shape[-1]
     vf = v.movedim(2, 1).float()  # [B, N, Lk, D]
     o = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=v.device)
     for i0 in range(0, lq, q_chunk):
         i1 = min(i0 + q_chunk, lq)
-        p = torch.exp2(scores(i0, i1))
+        s = scores(i0, i1)
+        m = s.amax(dim=-1, keepdim=True) if shifted else None
+        p = torch.exp2(s - m if shifted else s)
         l = p.sum(dim=-1, keepdim=True)
         acc = p.to(v.dtype).float() @ vf
         l_safe = torch.where(l <= 0.0, torch.ones_like(l), l)
         o[:, i0:i1] = (acc / l_safe).to(v.dtype).movedim(1, 2)
-        lse[:, :, i0:i1] = torch.log2(l.clamp_min(1e-30))[..., 0] * LN2
+        log2l = torch.log2(l.clamp_min(1e-30))
+        lse[:, :, i0:i1] = ((m + log2l) if shifted else log2l)[..., 0] * LN2
     return o, lse.reshape(b * n, lq)
+
+
+def _scores_plain(q, k, kvalid=None):
+    """scores(i0, i1) of q' k^T for q, k head-major [B, N, L, D] (views
+    allowed), masked keys at NEG_INF."""
+    b, n, _, d = q.shape
+    qscale = _qscale(d)
+    kt = k.float().transpose(-1, -2)
+    keep = _key_mask(kvalid, b, n, k.shape[2], q.device)
+
+    def scores(i0, i1):
+        s = (q[:, :, i0:i1].float() * qscale).to(q.dtype).float() @ kt
+        return s if keep is None else s.masked_fill(~keep, NEG_INF)
+
+    return scores
 
 
 def flash_attention_plain(q, k, v, q_chunk: int = 512):
     """Plain bounded forward -> (o [B, Lq, N, D], lse [B*N, Lq] fp32)."""
-    b, n, lq, d = q.shape
-    qscale = _qscale(d)
-    kt = k.float().transpose(-1, -2)
+    b, n, lq, _ = q.shape
+    return _softmax_pv_plain(_scores_plain(q, k), v, b, n, lq, q_chunk)
 
-    def scores(i0, i1):
-        return (q[:, :, i0:i1].float() * qscale).to(q.dtype).float() @ kt
 
-    return _bounded_fwd_plain(scores, v, b, n, lq, q_chunk)
+def flash_attention_shifted_plain(q, k, v, kvalid=None, q_chunk: int = 512):
+    """Plain shifted forward -> (o [B, Lq, N, D], lse [B*N, Lq] fp32), what
+    the JAX package's shifted forward computes; kvalid [B*N] int32 masks
+    keys at and past each (batch, head)'s valid length (each >= 1)."""
+    b, n, lq, _ = q.shape
+    return _softmax_pv_plain(_scores_plain(q, k, kvalid), v, b, n, lq, q_chunk,
+                             shifted=True)
 
 
 def quantize_bn(x):
@@ -159,10 +233,10 @@ def flash_attention_qk8_plain(q8, k8, v, c, q_chunk: int = 512):
     def scores(i0, i1):
         return (q8[:, :, i0:i1].float() @ kt) * cf
 
-    return _bounded_fwd_plain(scores, v, b, n, lq, q_chunk)
+    return _softmax_pv_plain(scores, v, b, n, lq, q_chunk)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, q_chunk: int = 512):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, kvalid=None, q_chunk: int = 512):
     """The backward written out, over chunks of q rows -> (dq [B, N, Lq, D],
     dk [B, N, Lk, D], dv [B, Lk, N, D]) in the inputs' dtypes:
 
@@ -170,7 +244,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, q_chunk: int = 512):
         dv = bf16(p)^T dO,  dp = dO v^T,  ds = p (dp - delta)
         dk = bf16(ds)^T bf16(q scale),  dq = bf16(ds) bf16(k scale)
 
-    with delta = rowsum(dO o) over the bf16 o the forward wrote."""
+    with delta = rowsum(dO o) over the bf16 o the forward wrote, and p = 0
+    for keys past kvalid [B*N] (so their dk and dv are exactly 0). Both
+    forward forms share it: lse carries the shift."""
     b, n, lq, d = q.shape
     qscale, sc = _qscale(d), _f32(1.0 / math.sqrt(d))
     kf = k.float()
@@ -179,6 +255,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, q_chunk: int = 512):
     dof = do.movedim(2, 1).float()            # [B, N, Lq, D]
     delta = (dof * o.movedim(2, 1).float()).sum(dim=-1)  # [B, N, Lq]
     lse2 = lse.reshape(b, n, lq) * _f32(LOG2E)
+    keep = _key_mask(kvalid, b, n, k.shape[2], q.device)
     dq = torch.empty((b, n, lq, d), dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
@@ -188,6 +265,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, q_chunk: int = 512):
         qp = (qf * qscale).to(q.dtype).float()
         qs = (qf * sc).to(q.dtype).float()
         p = torch.exp2(qp @ kf.transpose(-1, -2) - lse2[..., i0:i1, None])
+        if keep is not None:
+            p = p.masked_fill(~keep, 0.0)
         dc = dof[:, :, i0:i1]
         dv += p.to(do.dtype).float().transpose(-1, -2) @ dc
         ds = p * (dc @ vf.transpose(-1, -2) - delta[..., i0:i1, None])
@@ -203,32 +282,52 @@ def _check_rows(x, name):
                    f"{name}: feature dim must be contiguous with 16-byte aligned rows")
 
 
-def flash_fwd_kernel(q, k, v, single: bool):
-    """Launch K3 (single=True) or K1 on CUDA tensors -> (o, lse)."""
+def _check_valid(kvalid, b, n, device):
+    """kvalid: None, or contiguous int32 [B*N] on the device."""
+    if kvalid is None:
+        return 0
+    _build.require(kvalid.shape == (b * n,) and kvalid.dtype == torch.int32
+                   and kvalid.is_contiguous() and kvalid.device == device,
+                   f"k_valid_len must be contiguous int32 [{b * n}] on {device}")
+    return kvalid.data_ptr()
+
+
+# (single, shifted) -> the kernel's name in the launch counters
+FWD_NAMES = {(False, False): "K1", (True, False): "K3", (False, True): "K2",
+             (True, True): "K3s"}
+
+
+def flash_fwd_kernel(q, k, v, single: bool, shifted: bool = False, kvalid=None):
+    """Launch K1 or K3 (bounded), K2 or K3s (shifted; single=True for the
+    K3 forms) on CUDA tensors -> (o, lse); kvalid [B*N] int32 masks keys
+    of the shifted forms."""
     b, n, lq, d = q.shape
     lk = k.shape[2]
+    name = FWD_NAMES[bool(single), bool(shifted)]
     _build.require(d == 128, f"the kernel takes head_dim 128, got {d}")
     _build.require(k.shape == (b, n, lk, d) and v.shape == (b, lk, n, d),
                    f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
                    " do not match the BNLD/BNLD/BLND contract")
     _build.require(q.device.type == "cuda" and k.device == q.device and v.device == q.device,
                    "q, k, v must be on one CUDA device")
-    _build.require(not single or lk <= FULL_K_MAX, f"K3 takes lk <= {FULL_K_MAX}")
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_rows(x, name)
+    _build.require(not single or lk <= FULL_K_MAX, f"{name} takes lk <= {FULL_K_MAX}")
+    _build.require(shifted or kvalid is None, "a key mask needs the shifted form")
+    for x, x_name in ((q, "q"), (k, "k"), (v, "v")):
+        _check_rows(x, x_name)
+    valid_ptr = _check_valid(kvalid, b, n, q.device)
     o = torch.empty((b, lq, n, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b * n, lq), dtype=torch.float32, device=q.device)
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     os_ = o.stride()
-    err = _build.lib().hyv_flash_fwd_bounded(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+    err = _build.lib().hyv_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), valid_ptr,
         b, n, lq, lk,
         qs[0], qs[1], qs[2],
         ks[0], ks[1], ks[2],
         vs[0], vs[2], vs[1],          # v is [B, L, N, D]: (batch, head, row)
         os_[0], os_[2], os_[1],       # o likewise
-        _qscale(d), int(single), _build.stream_ptr(q.device))
-    _build.check(err, "K3" if single else "K1")
+        _qscale(d), int(single), int(shifted), _build.stream_ptr(q.device))
+    _build.check(err, name)
     return o, lse
 
 
@@ -266,9 +365,9 @@ def flash_qk8_kernel(q8, k8, v, c):
     return o, lse
 
 
-def bwd_kernel(q, k, v, o, lse, do, merged: bool):
+def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None):
     """Launch K4 (merged) or K5 on CUDA tensors -> (dq, dk, dv) as
-    flash_attention_bwd_plain."""
+    flash_attention_bwd_plain, keys past kvalid [B*N] int32 masked."""
     b, n, lq, d = q.shape
     lk = k.shape[2]
     _build.require(d == 128, f"the kernel takes head_dim 128, got {d}")
@@ -281,6 +380,7 @@ def bwd_kernel(q, k, v, o, lse, do, merged: bool):
                    and q.device.type == "cuda", "q, k, v, o, lse, dO must be on one CUDA device")
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "dO")):
         _check_rows(x, name)
+    valid_ptr = _check_valid(kvalid, b, n, q.device)
     # delta = rowsum(dO o) over the bf16 o, as the JAX package computes it
     # outside its kernels
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).reshape(b * n, lq)
@@ -293,7 +393,8 @@ def bwd_kernel(q, k, v, o, lse, do, merged: bool):
                                  dk.stride(), dv.stride())
     err = _build.lib().hyv_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, lq, lk,
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), valid_ptr,
+        b, n, lq, lk,
         qs[0], qs[1], qs[2],
         ks[0], ks[1], ks[2],
         vs[0], vs[2], vs[1],          # v, dO, dv are [B, L, N, D]: (batch, head, row)
@@ -307,22 +408,25 @@ def bwd_kernel(q, k, v, o, lse, do, merged: bool):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, kvalid, shifted):
         if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v)
+            o, lse = (flash_attention_shifted_plain(q, k, v, kvalid) if shifted
+                      else flash_attention_plain(q, k, v))
         else:
-            o, lse = flash_fwd_kernel(q, k, v, single=uses_single_block(k.shape[2]))
-        ctx.save_for_backward(q, k, v, o, lse)
+            o, lse = flash_fwd_kernel(q, k, v, uses_single_block(k.shape[2]), shifted, kvalid)
+        ctx.save_for_backward(q, k, v, o, lse, kvalid)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, kvalid = ctx.saved_tensors
         if q.device.type == "cpu":
-            return flash_attention_bwd_plain(q, k, v, o, lse, do)
-        return bwd_kernel(q, k, v, o, lse, do.contiguous(),
-                          merged=uses_merged_bwd(q.shape[2], k.shape[2]))
+            grads = flash_attention_bwd_plain(q, k, v, o, lse, do, kvalid)
+        else:
+            grads = bwd_kernel(q, k, v, o, lse, do.contiguous(),
+                               uses_merged_bwd(q.shape[2], k.shape[2]), kvalid)
+        return (*grads, None, None)
 
 
 def flash_attention_qk8(q, k, v):
@@ -342,18 +446,30 @@ def flash_attention_qk8(q, k, v):
     return flash_qk8_kernel(q8, k8, v, c)
 
 
-def flash_attention(q, k, v, qk_layout: str = "bnld", bounded_logits: bool = True,
-                    return_lse: bool = False, qk_int8: bool = False):
-    """Bounded flash attention, differentiable in q, k, v; returns
-    o [B, Lq, N, D] (and lse). ``qk_int8`` takes the int8 score forward
-    (no backward) where the keys stream in several blocks, and keeps the
-    bf16 one otherwise, by the JAX package's rule."""
-    if qk_layout != "bnld" or not bounded_logits:
-        raise NotImplementedError(
-            "only the bounded, head-major q/k attention is ported "
-            f"(qk_layout={qk_layout!r}, bounded_logits={bounded_logits})")
-    if qk_int8 and not uses_single_block(k.shape[2]):
+def flash_attention(q, k, v, k_valid_len=None, qk_layout: str = "blnd",
+                    bounded_logits: bool = False, return_lse: bool = False,
+                    qk_int8: bool = False):
+    """Flash attention, differentiable in q, k, v; returns o [B, Lq, N, D]
+    (and lse [B*N, Lq]). The JAX package's signature and defaults: q/k
+    token-major unless qk_layout="bnld", the shifted softmax unless the
+    caller asserts bounded logits (and HYV_FLASH_BOUNDED allows it).
+
+    k_valid_len: optional [B] integers, each >= 1; keys at positions
+    >= k_valid_len[b] are masked (always the shifted form). ``qk_int8``
+    takes the int8 score forward (no backward) where the bounded form
+    applies, no mask is given and the keys stream in several blocks, and
+    the bf16 route otherwise, by the JAX package's rule."""
+    if qk_layout not in ("blnd", "bnld"):
+        raise ValueError(f"qk_layout must be 'blnd' or 'bnld', got {qk_layout!r}")
+    if qk_layout == "blnd":  # head-major views; the kernels read strides
+        q, k = q.movedim(1, 2), k.movedim(1, 2)
+    kvalid = None
+    if k_valid_len is not None:
+        kvalid = torch.as_tensor(k_valid_len, device=q.device).to(torch.int32)
+        kvalid = kvalid.reshape(q.shape[0]).repeat_interleave(q.shape[1]).contiguous()
+    bounded = bounded_logits and FLASH_BOUNDED and kvalid is None
+    if qk_int8 and bounded and not uses_single_block(k.shape[2]):
         o, lse = flash_attention_qk8(q, k, v)
     else:
-        o, lse = _FlashAttention.apply(q, k, v)
+        o, lse = _FlashAttention.apply(q, k, v, kvalid, not bounded)
     return (o, lse) if return_lse else o

@@ -15,7 +15,10 @@ Two sources:
   half layout, and the Conv3d patch kernel [dim, C, pt, ph, pw] becomes
   the patch-embedding matmul over (pt, ph, pw, C).
 
-Both return fp32 CPU tensors keyed like ``WanModel.state_dict()``;
+Both return fp32 CPU tensors keyed like ``WanModel.state_dict()``, with
+no q/k norm gains when ``cfg.qk_norm`` is off and no norm3 when
+``cfg.cross_attn_norm`` is off (the trees and state dicts of such models
+have none);
 ``load_state_dict`` casts to the model's dtypes and device.
 ``from_jax_params`` also takes the JAX int8 tree (``quantize_params``'s
 ``kernel_q`` [D, F] int8, ``kernel_scale`` [F], ``bias``), which goes to the
@@ -50,6 +53,10 @@ def rope_perm_full(dim: int, head_dim: int) -> np.ndarray:
     return np.concatenate([per_head + h * head_dim for h in range(dim // head_dim)])
 
 
+def _norm_names(cfg: WanConfig):
+    return ("norm_q", "norm_k") if cfg.qk_norm else ()
+
+
 def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
                     ) -> Dict[str, torch.Tensor]:
     """JAX flax tree (numpy leaves, stacked blocks) -> port state dict of
@@ -79,10 +86,11 @@ def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
         for attn in ("self_attn", "cross_attn"):
             for name in _ATTN_DENSE:
                 dense(f"{pre}.{attn}.{name}", blk[attn][name], i)
-            for name in ("norm_q", "norm_k"):
+            for name in _norm_names(cfg):
                 state[f"{pre}.{attn}.{name}"] = _t(np.asarray(blk[attn][name])[i])
-        state[pre + ".norm3_scale"] = _t(np.asarray(blk["norm3_scale"])[i])
-        state[pre + ".norm3_bias"] = _t(np.asarray(blk["norm3_bias"])[i])
+        if cfg.cross_attn_norm:
+            state[pre + ".norm3_scale"] = _t(np.asarray(blk["norm3_scale"])[i])
+            state[pre + ".norm3_bias"] = _t(np.asarray(blk["norm3_bias"])[i])
         dense(pre + ".ffn_0", blk["ffn_0"], i)
         dense(pre + ".ffn_2", blk["ffn_2"], i)
     if with_head:
@@ -162,8 +170,14 @@ def seeded_jax_tree(cfg: WanConfig, seed: int) -> Dict:
 
     def attn():
         tree = {k: dense(dim, dim, (n_layers,)) for k in _ATTN_DENSE}
-        return {**tree, "norm_q": gains(), "norm_k": gains()}
+        return {**tree, **{name: gains() for name in _norm_names(cfg)}}
 
+    def norm3():
+        if not cfg.cross_attn_norm:
+            return {}
+        return {"norm3_scale": gains(), "norm3_bias": normal((n_layers, dim), 0.02)}
+
+    # the draws run in the order the dict literals are written
     cells = int(np.prod(cfg.patch_size))
     return {"params": {
         "patch_embedding": dense(cells * cfg.in_dim, dim),
@@ -172,8 +186,7 @@ def seeded_jax_tree(cfg: WanConfig, seed: int) -> Dict:
         "time_proj": dense(dim, 6 * dim),
         "blocks": {
             "modulation": normal((n_layers, 1, 6, dim), 1.0 / np.sqrt(dim)),
-            "self_attn": attn(), "cross_attn": attn(),
-            "norm3_scale": gains(), "norm3_bias": normal((n_layers, dim), 0.02),
+            "self_attn": attn(), "cross_attn": attn(), **norm3(),
             "ffn_0": dense(dim, cfg.ffn_dim, (n_layers,)),
             "ffn_2": dense(cfg.ffn_dim, dim, (n_layers,)),
         },
@@ -211,10 +224,11 @@ def from_reference_state(state: Dict[str, np.ndarray], cfg: WanConfig) -> Dict[s
                     wk, bk = wk[rows], bk[rows]
                 out[f"{pre}.{attn}.{name}.weight"] = _t(wk)
                 out[f"{pre}.{attn}.{name}.bias"] = _t(bk)
-            for name in ("norm_q", "norm_k"):
+            for name in _norm_names(cfg):
                 out[f"{pre}.{attn}.{name}"] = _t(arr(f"{pre}.{attn}.{name}.weight")[rows])
-        out[pre + ".norm3_scale"] = _t(arr(pre + ".norm3.weight"))
-        out[pre + ".norm3_bias"] = _t(arr(pre + ".norm3.bias"))
+        if cfg.cross_attn_norm:
+            out[pre + ".norm3_scale"] = _t(arr(pre + ".norm3.weight"))
+            out[pre + ".norm3_bias"] = _t(arr(pre + ".norm3.bias"))
         for dst, src in (("ffn_0", "ffn.0"), ("ffn_2", "ffn.2")):
             out[f"{pre}.{dst}.weight"] = _t(arr(f"{pre}.{src}.weight"))
             out[f"{pre}.{dst}.bias"] = _t(arr(f"{pre}.{src}.bias"))

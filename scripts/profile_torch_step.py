@@ -21,8 +21,9 @@ forward and backward of the policy and of the LRM, and the optimizer;
 ``--rollout_quant int8`` runs the rollout through the int8 model.
 
 Each run prints one JSON line with both wall times, the device time by
-group (K1, K3, K4, K5, K6, K7, K8, K9, K10, GEMM, other) from the traced run,
-and the idle share: 1 - device busy time / untraced wall time. Needs a
+group (K1, K2, K3, K3s, K4, K5, K6, K7, K8, K9, K10, R, GEMM, other) from
+the traced run, and the idle share: 1 - device busy time / untraced wall
+time. ``HYV_FLASH_BOUNDED=0`` profiles the shifted route (K2, K3s). Needs a
 CUDA device.
 """
 
@@ -46,8 +47,11 @@ from hyvideo_prfl_torch.pipelines.pipeline import latent_size_for  # noqa: E402
 from hyvideo_prfl_torch.utils.checkpoint import quantize_model  # noqa: E402
 
 # kernel-name fragment -> group; first match wins
-GROUPS = (("flash_fwd_bounded_kernel<false>", "K1"),
-          ("flash_fwd_bounded_kernel<true>", "K3"),
+GROUPS = (("flash_fwd_kernel<false, false>", "K1"),
+          ("flash_fwd_kernel<true, false>", "K3"),
+          ("flash_fwd_kernel<false, true>", "K2"),
+          ("flash_fwd_kernel<true, true>", "K3s"),
+          ("::rope_kernel<", "R"),
           ("flash_fwd_qk8_kernel", "K10"),
           ("flash_bwd_dkv_kernel<true>", "K4"),
           ("flash_bwd_dkv_kernel<false>", "K5"),

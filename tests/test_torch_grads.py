@@ -141,7 +141,7 @@ def test_flash_bwd_matches_jax(dtype, lq, lk, block):
         _jt(q, jd), _jt(k, jd), _jt(v, jd))
     want = vjp(_jt(g, jd))
     tq, tk, tv = (_tt(a, td, grad=True) for a in (q, k, v))
-    o = tfa.flash_attention(tq, tk, tv)
+    o = tfa.flash_attention(tq, tk, tv, qk_layout="bnld", bounded_logits=True)
     got = torch.autograd.grad(o, (tq, tk, tv), _tt(g, td))
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == td and a.shape == w.shape, name
@@ -185,10 +185,19 @@ def _ops():
         "rmsnorm_only": (lambda x, w: tqr.rmsnorm_only(x, w, 2),
                          lambda x, w: tqr.rmsnorm_rope_plain(x, w, None, None, 2, do_rope=False),
                          [rng.randn(1, 36, 256), rng.rand(256) + 0.5]),
-        "dot_product_attention": (tattn.dot_product_attention,
+        "dot_product_attention": (lambda q, k, v: tattn.dot_product_attention(
+                                      q, k, v, qk_layout="bnld", bounded_logits=True),
                                   lambda q, k, v: _attention_plain(q, k, v),
                                   [rng.randn(1, 2, 40, 128), rng.randn(1, 2, 21, 128),
                                    rng.randn(1, 21, 2, 128)]),
+        # the shifted form with a key mask, token-major q/k (the defaults)
+        "shifted_attention": (lambda q, k, v: tattn.dot_product_attention(
+                                  q, k, v, k_valid_len=torch.tensor([13, 21])),
+                              lambda q, k, v: tfa.flash_attention_shifted_plain(
+                                  q.movedim(1, 2), k.movedim(1, 2), v,
+                                  torch.tensor([13, 13, 21, 21], dtype=torch.int32))[0],
+                              [rng.randn(2, 40, 2, 128), rng.randn(2, 21, 2, 128),
+                               rng.randn(2, 21, 2, 128)]),
     }
 
 
@@ -197,7 +206,7 @@ def _attention_plain(q, k, v):
 
 
 @pytest.mark.parametrize("name", ["ln_scale_shift", "rmsnorm_rope", "rmsnorm_only",
-                                  "dot_product_attention"])
+                                  "dot_product_attention", "shifted_attention"])
 def test_op_grads_are_the_function_backward(name):
     fn, plain, arrays = _ops()[name]
     inputs = [_tt(a, grad=True) for a in arrays]

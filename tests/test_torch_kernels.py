@@ -20,9 +20,12 @@ from hyvideo_prfl_torch.ops import flash_attention as tfa
 from hyvideo_prfl_torch.ops import int8_probe
 from hyvideo_prfl_torch.ops import qknorm_rope as tqr
 from hyvideo_prfl_torch.ops import quant as tquant
+from hyvideo_prfl_torch.ops import rope as trope
 from hyvideo_prfl_torch.ops import stream as tstream
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp at the top binade, relative to max|ref|
+# head-major q/k with bounded logits, as the qk-normed DiT calls attention
+BNLD_BOUNDED = dict(qk_layout="bnld", bounded_logits=True)
 
 
 @pytest.fixture
@@ -79,7 +82,7 @@ def test_flash_matches_plain(cuda, lq, lk):
     v = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16()
     name = "K3" if tfa.uses_single_block(lk) else "K1"
     before = _build.LAUNCHES[name]
-    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **BNLD_BOUNDED)
     assert _build.LAUNCHES[name] == before + 1
     po, plse = tfa.flash_attention_plain(q, k, v)
     # exp2 within 2 ulp of torch.exp2 can flip bf16(p); o rounds to bf16
@@ -95,7 +98,7 @@ def test_flash_reads_strided_v_and_q(cuda):
     qkv = torch.randn(1, 300, 3, 4, 128, device=cuda, generator=g).bfloat16()
     q, k = qkv[:, :, 0].movedim(2, 1), qkv[:, :, 1].movedim(2, 1)
     v = qkv[:, :, 2]
-    o = tfa.flash_attention(q, k, v)
+    o = tfa.flash_attention(q, k, v, **BNLD_BOUNDED)
     _close(o, tfa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())[0], 2)
 
 
@@ -109,10 +112,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tqr.rmsnorm_only(torch.randn(1, 8, 256, device=cuda), torch.ones(256, device=cuda), 2)
     q = torch.randn(1, 2, 8, 64, device=cuda).bfloat16()
     with pytest.raises(ValueError, match="head_dim 128"):
-        tfa.flash_attention(q, q, q.movedim(1, 2))
+        tfa.flash_attention(q, q, q.movedim(1, 2), **BNLD_BOUNDED)
     q = torch.randn(1, 2, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
-        tfa.flash_attention(q, q, q.movedim(1, 2))
+        tfa.flash_attention(q, q, q.movedim(1, 2), **BNLD_BOUNDED)
     x = torch.randn(1, 8 * 1536 + 2, device=cuda)[:, 2:].reshape(1, 8, 1536)  # 8 B off
     with pytest.raises(ValueError, match="aligned"):
         tstream.ln_scale_shift(x, torch.ones(1536, device=cuda), torch.zeros(1536, device=cuda))
@@ -125,7 +128,7 @@ def test_flash_bwd_matches_plain(cuda, lq, lk):
     q = torch.randn(1, 12, lq, 128, device=cuda, generator=g).bfloat16().requires_grad_()
     k = torch.randn(1, 12, lk, 128, device=cuda, generator=g).bfloat16().requires_grad_()
     v = torch.randn(1, lk, 12, 128, device=cuda, generator=g).bfloat16().requires_grad_()
-    o, lse = tfa.flash_attention(q, k, v, return_lse=True)
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, **BNLD_BOUNDED)
     assert o.grad_fn is not None  # the kernel's output stays in the graph
     do = torch.randn(o.shape, device=cuda, generator=g).bfloat16()
     name = "K4" if tfa.uses_merged_bwd(lq, lk) else "K5"
@@ -206,7 +209,7 @@ def test_k10_matches_plain(cuda, lq, lk):
     v = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16()
     before = _build.LAUNCHES["K10"]
     with torch.no_grad():
-        o, lse = tfa.flash_attention(q, k, v, qk_int8=True, return_lse=True)
+        o, lse = tfa.flash_attention(q, k, v, qk_int8=True, return_lse=True, **BNLD_BOUNDED)
     assert _build.LAUNCHES["K10"] == before + 1
     q8, sq = tfa.quantize_bn(q)
     k8, sk = tfa.quantize_bn(k)
@@ -221,7 +224,7 @@ def test_k10_matches_plain(cuda, lq, lk):
 def test_k10_has_no_backward_and_checks_its_inputs(cuda):
     q = torch.randn(1, 2, 4000, 128, device=cuda).bfloat16().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
-        tfa.flash_attention(q, q, q.movedim(1, 2), qk_int8=True)
+        tfa.flash_attention(q, q, q.movedim(1, 2), qk_int8=True, **BNLD_BOUNDED)
     q8 = torch.zeros(1, 2, 4000, 128, device=cuda, dtype=torch.int8)
     v = torch.zeros(1, 4000, 2, 128, device=cuda).bfloat16()
     c = torch.ones(2, device=cuda)
@@ -263,3 +266,90 @@ def test_probes_match_plain(cuda, dtype, chain):
     assert got.dtype == (torch.int32 if dtype == torch.int8 else torch.float32)
     # integer partial sums far below 2^24: exact in any order, fp32 too
     assert torch.equal(got.double(), int8_probe.probe_plain(a8, b8, nblocks, reps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk,valid", [(100, 77, None), (4680, 512, [512, 300]),
+                                         (300, 4000, None), (4680, 4680, None),
+                                         (4680, 4680, [4680, 1001]), (1000, 9360, [64, 9300])])
+def test_shifted_flash_matches_plain(cuda, lq, lk, valid):
+    # K2 (streaming) and K3s (one K block): no mask, a ragged key tail, and a
+    # user mask (lengths on a tile edge and inside one); token-major q/k
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(2, lq, 12, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16()
+    name = "K3s" if tfa.uses_single_block(lk) else "K2"
+    tvalid = None if valid is None else torch.tensor(valid, device=cuda)
+    before = _build.LAUNCHES[name]
+    o, lse = tfa.flash_attention(q, k, v, tvalid, return_lse=True)
+    assert _build.LAUNCHES[name] == before + 1
+    kvalid = None if valid is None else tvalid.int().repeat_interleave(12)
+    po, plse = tfa.flash_attention_shifted_plain(q.movedim(1, 2), k.movedim(1, 2), v, kvalid)
+    # bf16(p) is rounded at the running max rather than the row max, so it
+    # may round the other way on any key (the errors average over the keys),
+    # and o rounds to bf16: two bf16 ulps
+    _close(o, po, 2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_shifted_flash_is_finite_where_the_bounded_one_overflows(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    # logits of standard deviation 64: each row's largest is ~240
+    q = (8 * torch.randn(1, 9, 4680, 128, device=cuda, generator=g)).bfloat16()
+    k = (8 * torch.randn(1, 9, 4680, 128, device=cuda, generator=g)).bfloat16()
+    v = torch.randn(1, 4680, 9, 128, device=cuda, generator=g).bfloat16()
+    bounded = tfa.flash_attention(q, k, v, **BNLD_BOUNDED)
+    assert not torch.isfinite(bounded.float()).all()  # logits past ~88 overflow exp
+    o = tfa.flash_attention(q, k, v, qk_layout="bnld")
+    _close(o, tfa.flash_attention_shifted_plain(q, k, v)[0], 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk,merged", [(4680, 4680, True), (4680, 512, True),
+                                          (1024, 4680, False), (200, 77, False)])
+def test_masked_flash_bwd_matches_plain(cuda, lq, lk, merged):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(2, lq, 12, 128, device=cuda, generator=g).bfloat16().requires_grad_()
+    k = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16().requires_grad_()
+    v = torch.randn(2, lk, 12, 128, device=cuda, generator=g).bfloat16().requires_grad_()
+    valid = [lk, lk // 3 + 1]
+    assert tfa.uses_merged_bwd(lq, lk) == merged
+    tvalid = torch.tensor(valid, device=cuda)
+    o, lse = tfa.flash_attention(q, k, v, tvalid, return_lse=True)
+    do = torch.randn(o.shape, device=cuda, generator=g).bfloat16()
+    name = "K4" if merged else "K5"
+    before = _build.LAUNCHES[name]
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert _build.LAUNCHES[name] == before + 1
+    kvalid = tvalid.int().repeat_interleave(12)
+    qh, kh = q.detach().movedim(1, 2), k.detach().movedim(1, 2)
+    ref = tfa.flash_attention_bwd_plain(qh, kh, v.detach(), o.detach(), lse, do, kvalid)
+    ref = (ref[0].movedim(1, 2), ref[1].movedim(1, 2), ref[2])
+    # as the unmasked backward: two bf16 ulps; the masked keys' gradients
+    # are exactly 0
+    for a, b in zip(got, ref):
+        _close(a, b, 2)
+    for grad in got[1:]:
+        assert not grad[1, valid[1]:].any()
+        assert grad[1, :valid[1]].abs().sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grid", [(3, 30, 52), (1, 3, 7)])
+def test_rope_matches_plain(cuda, dtype, grid):
+    g = torch.Generator(device=cuda).manual_seed(14)
+    c, s = (torch.from_numpy(a).to(cuda) for a in rope_tables_rolled_np(grid, 128))
+    l = grid[0] * grid[1] * grid[2]
+    x = torch.randn(2, l, 12, 128, device=cuda, generator=g).to(dtype).requires_grad_()
+    before = _build.LAUNCHES["R"]
+    y = trope.rope_rotate(x, c, s)
+    assert _build.LAUNCHES["R"] == before + 1 and y.grad_fn is not None
+    gy = torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+    (dx,) = torch.autograd.grad(y, x, gy)
+    assert _build.LAUNCHES["R"] == before + 2
+    # the same unfused fp32 products and sum, then one rounding: bit for bit
+    assert torch.equal(y, trope.rope_rotate_plain(x.detach(), c, s))
+    assert torch.equal(dx, trope.rope_rotate_plain(gy, c, torch.roll(s, 64, dims=-1)))

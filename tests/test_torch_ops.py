@@ -26,6 +26,8 @@ from hyvideo_prfl_torch.ops import stream as tstream
 torch.set_num_threads(2)
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp at the top binade, relative to max|ref|
+# head-major q/k with bounded logits, as the qk-normed DiT calls attention
+BNLD_BOUNDED = dict(qk_layout="bnld", bounded_logits=True)
 
 
 @pytest.fixture(autouse=True)
@@ -120,7 +122,8 @@ def test_flash_matches_jax(dtype, lq, lk, block):
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     want = _np(jfa.flash_attention(_jt(q, jd), _jt(k, jd), _jt(v, jd), block_q=block,
                                    block_k=block, qk_layout="bnld", bounded_logits=True))
-    got, lse = tfa.flash_attention(_tt(q, td), _tt(k, td), _tt(v, td), return_lse=True)
+    got, lse = tfa.flash_attention(_tt(q, td), _tt(k, td), _tt(v, td), return_lse=True,
+                                   **BNLD_BOUNDED)
     got = got.float().numpy()
     assert got.shape == (b, lq, n, d) and lse.shape == (b * n, lq)
     # fp32: the same fixed-max softmax; JAX's padded keys add exp2(0) = 1
@@ -149,8 +152,11 @@ def test_dot_product_attention_is_flash_attention():
     rng = np.random.RandomState(3)
     q, k = _tt(rng.randn(1, 2, 20, 128)), _tt(rng.randn(1, 2, 9, 128))
     v = _tt(rng.randn(1, 9, 2, 128))
-    torch.testing.assert_close(tattn.dot_product_attention(q, k, v),
-                               tfa.flash_attention(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(tattn.dot_product_attention(q, k, v, **BNLD_BOUNDED),
+                               tfa.flash_attention(q, k, v, **BNLD_BOUNDED), rtol=0, atol=0)
+    torch.testing.assert_close(tattn.dot_product_attention(q.movedim(1, 2), k.movedim(1, 2), v),
+                               tfa.flash_attention(q.movedim(1, 2), k.movedim(1, 2), v),
+                               rtol=0, atol=0)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -165,6 +171,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
     q = torch.empty(1, 2, 8, 128, device="meta", dtype=torch.bfloat16)
     v = torch.empty(1, 8, 2, 128, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_attention(q, q, v)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, v, bounded_logits=False)
+        tfa.flash_attention(q, q, v, **BNLD_BOUNDED)
+    # the shifted form is ported too: it refuses the device the same way
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, q, v, qk_layout="bnld")
+    with pytest.raises(ValueError, match="qk_layout"):
+        tfa.flash_attention(q, q, v, qk_layout="lbnd")

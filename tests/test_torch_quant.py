@@ -50,6 +50,8 @@ INT8 = dict(quant_dense="int8", quant_attn="int8")
 SHAPE = (1, 3, 16, 16, 16)  # 192 tokens: two 128-key blocks once shrunk
 TEXT_LEN = 16
 BF16_ULP = 2.0 ** -7
+# head-major q/k with bounded logits, as the qk-normed DiT calls attention
+BNLD_BOUNDED = dict(qk_layout="bnld", bounded_logits=True)
 
 
 @pytest.fixture
@@ -147,7 +149,8 @@ def test_qk8_attention_matches_jax(streaming, l):
                                    qk_layout="bnld", bounded_logits=True, qk_int8=True))
     tb = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
     with torch.no_grad():
-        got, lse = tfa.flash_attention(tb(q), tb(k), tb(v), qk_int8=True, return_lse=True)
+        got, lse = tfa.flash_attention(tb(q), tb(k), tb(v), qk_int8=True, return_lse=True,
+                                       **BNLD_BOUNDED)
     assert got.shape == (2, l, 2, 128) and lse.shape == (4, l)
     # q8, k8 and the integer scores are the same on both sides; exp2 may
     # differ in its last ulp, so bf16(p) can round the other way on a few
@@ -155,7 +158,7 @@ def test_qk8_attention_matches_jax(streaming, l):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=2 * BF16_ULP * np.abs(want).max())
     # the int8 quantization error itself stays small against the bf16 forward
-    ref = tfa.flash_attention(tb(q), tb(k), tb(v)).float().numpy()
+    ref = tfa.flash_attention(tb(q), tb(k), tb(v), **BNLD_BOUNDED).float().numpy()
     assert np.abs(got.float().numpy() - ref).max() < 5e-3
 
 
@@ -167,18 +170,18 @@ def test_qk8_attention_routes_by_the_jax_rule(streaming, monkeypatch):
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(200, 200))
     _, kt, vt = (torch.from_numpy(a).bfloat16() for a in _qkv(200, 100))
     with torch.no_grad():
-        tfa.flash_attention(q, k, v, qk_int8=True)    # 256 padded keys > 128: K10
-        tfa.flash_attention(q, kt, vt, qk_int8=True)  # 128: one block, stays on K3
-        tfa.flash_attention(q, k, v)                  # not asked for
+        tfa.flash_attention(q, k, v, qk_int8=True, **BNLD_BOUNDED)    # 256 padded keys: K10
+        tfa.flash_attention(q, kt, vt, qk_int8=True, **BNLD_BOUNDED)  # 128: one block, K3
+        tfa.flash_attention(q, k, v, **BNLD_BOUNDED)                  # not asked for
     assert len(calls) == 1
     monkeypatch.setattr(tfa, "FULL_K_MAX", 3584)      # read at call time
     with torch.no_grad():
-        tfa.flash_attention(q, k, v, qk_int8=True)
+        tfa.flash_attention(q, k, v, qk_int8=True, **BNLD_BOUNDED)
     assert len(calls) == 1
     monkeypatch.setattr(tfa, "FULL_K_MAX", 128)
     # no backward: a call that could need one is refused, never silent zeros
     with pytest.raises(RuntimeError, match="no backward"):
-        tfa.flash_attention(q.requires_grad_(), k, v, qk_int8=True)
+        tfa.flash_attention(q.requires_grad_(), k, v, qk_int8=True, **BNLD_BOUNDED)
 
 
 def test_qk8_scale_matches_jax():

@@ -316,18 +316,24 @@ def test_reward_heads_match_jax(pool):
                                float(jrw.siamese_prob(0.3, -0.2)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("remat_policy,rollout_quant", [
-    pytest.param("attn", None, id="attn"), pytest.param("full", None, id="full"),
-    pytest.param("attn", "int8", id="attn-int8-rollout")])
-def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy, rollout_quant):
+@pytest.mark.parametrize("remat_policy,rollout_quant,shifted", [
+    pytest.param("attn", None, False, id="attn"), pytest.param("full", None, False, id="full"),
+    pytest.param("attn", "int8", False, id="attn-int8-rollout"),
+    pytest.param("attn", None, True, id="attn-shifted"),
+    pytest.param("full", None, True, id="full-shifted")])
+def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy, rollout_quant,
+                                            shifted):
     # chip_smoke.py checks the card's launch counters against this
     # derivation; on the CPU the same Functions call the plain versions,
     # so counting those calls checks the derivation itself. With the int8
     # rollout, FULL_K_MAX shrinks so the 48 self-attention tokens stream
-    # and its forwards take K10, as the card's 9,360 and 32,760 do
+    # and its forwards take K10, as the card's 9,360 and 32,760 do. The
+    # shifted route (HYV_FLASH_BOUNDED=0) takes K2 and K3s instead of K1/K3
     smoke = _load_script("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     if rollout_quant:
         monkeypatch.setattr(tfa, "FULL_K_MAX", 64)
+    if shifted:
+        monkeypatch.setattr(tfa, "FLASH_BOUNDED", False)
     counts = {}
 
     def counted(mod, name, key_fn):
@@ -346,6 +352,8 @@ def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy, ro
     counted(tqr, "rmsnorm_rope_bwd_plain", lambda *a: "K7")
     counted(tfa, "flash_attention_plain",
             lambda q, k, v: "K3" if k.shape[2] == TEXT_LEN else "K1")
+    counted(tfa, "flash_attention_shifted_plain",
+            lambda q, k, v, kvalid: "K3s" if k.shape[2] == TEXT_LEN else "K2")
     counted(tfa, "flash_attention_bwd_plain", lambda *a: "K4")
     counted(tfa, "flash_attention_qk8_plain", lambda *a: "K10")
     tx = tcommon.make_optimizer(learning_rate=LR)
@@ -353,8 +361,10 @@ def test_launch_derivation_counts_the_calls(setup, monkeypatch, remat_policy, ro
     state, _ = tprfl.make_refl_step(model, tx)(state, _tbatch(setup))
     tprfl.make_sft_step(model, tx, tfm.train_schedule(1000))(
         state, _tbatch(setup), generator=torch.Generator().manual_seed(0))
-    assert counts == smoke.expected_train_launches(2, 2, MID, remat_policy, rollout_quant)
+    assert counts == smoke.expected_train_launches(2, 2, MID, remat_policy, rollout_quant,
+                                                   shifted)
     assert ("K10" in counts) == (rollout_quant == "int8")
+    assert ("K2" in counts) == shifted and ("K1" in counts) != shifted
 
 
 def _smoke_config(tmp_path):
