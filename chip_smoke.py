@@ -7,16 +7,22 @@ Phases, each of which raises on failure:
 
 1. Print the card's name and power limit; build the Hopper kernels from
    hyvideo_prfl_torch/csrc (one nvcc per source, all at once) and print the
-   build time and each slice kernel's registers and spills.
+   build time, each slice kernel's registers and spills, and K3's shared
+   memory.
 2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
    streaming and K3 single-block flash forward, K10 int8-score flash
    forward) against its plain PyTorch version at the t2v-1.3B 832*480
    81-frame CFG-2 shapes, with a stated bound, K10 also against K1, and
    time each with CUDA events, in turns with its plain version and, where
-   one PyTorch call computes the same function, that call.
+   one PyTorch call computes the same function, that call. K3 (the
+   TMA/wgmma kernel of flash_fwd_single.cu) is timed over 20 calls a turn,
+   in turns also with the mma.sync streaming form at the same 512 keys,
+   the loop the old K3 ran (mma_sync_ms), and printed as TFLOP/s and as
+   its share of the bound.
    2b. The same for the shifted forward K2 (also against K1, with a user
    key mask, and at logits near 300, where K1 overflows), its single-block
-   form K3s at the cross-attention shape, and the rope R forward and
+   form K3s at the cross-attention shape (timed as K3, in turns with K3,
+   SDPA and the mma.sync shifted form), and the rope R forward and
    backward (bit for bit).
 3. Whole-model check: WanModel at t2v-1.3B width with 2 blocks on the
    9-frame grid (4,680 tokens), seeded weights with a non-zero head, loaded
@@ -98,11 +104,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
            "hyvideo_prfl_tpu/ops/qknorm_rope.py:85"),
     "K1": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:250"),
-    "K3": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
+    "K3": ("hyvideo_prfl_torch/csrc/flash_fwd_single.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:331"),
     "K2": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:198"),
-    "K3s": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
+    "K3s": ("hyvideo_prfl_torch/csrc/flash_fwd_single.cu",
             "hyvideo_prfl_tpu/ops/flash_attention.py:351"),
     "K4": ("hyvideo_prfl_torch/csrc/flash_bwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:453"),
@@ -350,15 +356,25 @@ def phase_kernels(results):
             keep = {"k": k, "v": v, "o": o, "po": po}
         del o, lse, po, plse
         vt = v.movedim(1, 2).contiguous()  # SDPA's [B, N, L, D]
-        t = timed_turns({"plain": lambda: fa.flash_attention_plain(q, k, v),
-                         "kernel": lambda: fa.flash_fwd_kernel(q, k, v, single),
-                         "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=2)
+        fns = {"plain": lambda: fa.flash_attention_plain(q, k, v),
+               "kernel": lambda: fa.flash_fwd_kernel(q, k, v, single),
+               "library": lambda: sdpa_flash(q, k, vt)}
+        if single:
+            # the mma.sync streaming form at the same lk: the old K3's loop
+            fns["mma_sync"] = lambda: fa.flash_fwd_kernel(q, k, v, False)
+        # K3 runs in well under a millisecond: 20 calls a turn keep the
+        # wrapper's host time out of the events
+        t = timed_turns(fns, reps=5, calls=20) if single else timed_turns(fns, reps=3, calls=2)
         flop = 4 * b * n * lq * lk * d
-        print(f"  {name}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), "
+        bnd = bound(2 * b * n * (lq + lk) * d * 2, bf16=flop)
+        extra = {"mma_sync_ms": t["mma_sync"]} if single else {}
+        print(f"  {name}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel, "
+              f"{bnd['bound_ms'] / t['kernel']:.3f} of its bound), "
               f"{flop / (t['plain'] * 1e9):.1f} (plain), "
-              f"{flop / (t['library'] * 1e9):.1f} (SDPA flash)")
+              f"{flop / (t['library'] * 1e9):.1f} (SDPA flash)"
+              + (f", {flop / (t['mma_sync'] * 1e9):.1f} (mma.sync form)" if single else ""))
         report(name, err, rmax, fin, 2.0 ** -6 * rmax, t["kernel"], t["plain"], results,
-               **bound(2 * b * n * (lq + lk) * d * 2, bf16=flop), library_ms=t["library"])
+               **bnd, library_ms=t["library"], **extra)
         del vt
         if name == "K3":
             del k, v
@@ -507,17 +523,22 @@ def phase_shifted_kernels(results):
     err3, rmax3 = check_fwd("K3s against its plain version", o3, lse3,
                             fa.flash_attention_shifted_plain(q, k, v))
     vt = v.movedim(1, 2).contiguous()
+    # 20 calls a turn, as K3's; the mma.sync shifted streaming form (K2's
+    # loop) at the same lk stands for the old K3s
     t = timed_turns({"plain": lambda: fa.flash_attention_shifted_plain(q, k, v),
                      "kernel": lambda: fa.flash_fwd_kernel(q, k, v, True, True),
                      "K3": lambda: fa.flash_fwd_kernel(q, k, v, True, False),
-                     "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=2)
+                     "mma_sync": lambda: fa.flash_fwd_kernel(q, k, v, False, True),
+                     "library": lambda: sdpa_flash(q, k, vt)}, reps=5, calls=20)
     flop = 4 * b * n * lq * TEXT_LEN * d
-    print(f"  K3s: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), K3 "
+    bnd = bound(2 * b * n * (lq + TEXT_LEN) * d * 2, bf16=flop)
+    print(f"  K3s: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel, "
+          f"{bnd['bound_ms'] / t['kernel']:.3f} of its bound), K3 "
           f"{flop / (t['K3'] * 1e9):.1f} in the same turns, {flop / (t['plain'] * 1e9):.1f} "
-          f"(plain), {flop / (t['library'] * 1e9):.1f} (SDPA flash)")
+          f"(plain), {flop / (t['library'] * 1e9):.1f} (SDPA flash), "
+          f"{flop / (t['mma_sync'] * 1e9):.1f} (mma.sync form)")
     report("K3s", err3, rmax3, True, ulp2 * rmax3, t["kernel"], t["plain"], results,
-           **bound(2 * b * n * (lq + TEXT_LEN) * d * 2, bf16=flop), library_ms=t["library"],
-           k3_ms=t["K3"])
+           **bnd, library_ms=t["library"], k3_ms=t["K3"], mma_sync_ms=t["mma_sync"])
     del q, k, v, vt, o3, lse3
 
     # R forward and backward at the self-attention q/k, [2, 32,760, 12, 128]
@@ -1406,12 +1427,14 @@ def phase_probes(results):
     return launches
 
 
-def print_ptxas(log: str) -> None:
-    """Registers and spills of the kernel instances the slice launches."""
-    wanted = {"flash_fwd_kernelILb0ELb0E": "K1",
-              "flash_fwd_kernelILb1ELb0E": "K3",
-              "flash_fwd_kernelILb0ELb1E": "K2",
-              "flash_fwd_kernelILb1ELb1E": "K3s",
+def print_ptxas(log: str, smem_k3: int) -> None:
+    """Registers and spills of the kernel instances the slice launches, any
+    ptxas warning about them (a serialised wgmma pipeline, an ignored
+    setmaxnreg), and K3's dynamic shared memory per block."""
+    wanted = {"flash_fwd_kernelILb0E": "K1",
+              "flash_fwd_single_kernelILb0E": "K3",
+              "flash_fwd_kernelILb1E": "K2",
+              "flash_fwd_single_kernelILb1E": "K3s",
               "rope_kernelI13__nv_bfloat16E": "R bf16",
               "rope_kernelIfE": "R fp32",
               "flash_bwd_dkv_kernelILb1": "K4",
@@ -1432,8 +1455,11 @@ def print_ptxas(log: str) -> None:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             current = next((v for k, v in wanted.items() if k in line), None)
+        elif "Performance Loss" in line or "arning" in line:
+            print(f"  ptxas: {line.split(':', 1)[-1].strip()}")
         elif current and ("registers" in line or "spill" in line):
             print(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
+    print(f"  K3/K3s: {smem_k3} bytes of dynamic shared memory per block")
 
 
 def main() -> int:
@@ -1465,7 +1491,7 @@ def main() -> int:
     _build.lib()
     print(f"  kernels built in {_build.build_seconds:.2f} s "
           f"(loaded in {time.perf_counter() - t0:.2f} s)")
-    print_ptxas(_build.build_log)
+    print_ptxas(_build.build_log, _build.lib().hyv_flash_fwd_single_smem())
 
     results = {}
     print("phase 2: kernels against their plain versions at the 81-frame shapes")

@@ -1,16 +1,15 @@
-// K1, K3, K2 and K3s: flash-attention forward, head_dim 128, in the
-// fixed-max ("bounded") and the online-softmax ("shifted") form.
+// K1 and K2: the streaming flash-attention forward, head_dim 128, in the
+// fixed-max ("bounded") and the online-softmax ("shifted") form. Their
+// single-K-block forms K3 and K3s live in flash_fwd_single.cu (TMA,
+// wgmma, warp specialisation); hyv_flash_fwd below is the entry point of
+// all four and hands single != 0 to it.
 //
 // Replaces hyvideo_prfl_tpu/ops/flash_attention.py
 //   K1 _fwd_kernel_bounded  (:250; pallas_call at :619, via _flash_fwd_impl):
 //      the streaming bounded forward of the qk-normed DiT self-attention;
-//   K3 _fwd_kernel_single   (:331; pallas_call at :656, via
-//      _flash_fwd_single) in its bounded form: the single-K-block forward
-//      of the text cross-attention (lk <= FULL_K_MAX = 3584);
 //   K2 _fwd_kernel          (:198; pallas_call at :619): the streaming
 //      shifted forward, taken without qk-norm, under a key mask, and
-//      everywhere under HYV_FLASH_BOUNDED=0;
-//   K3s _fwd_kernel_single with bounded=False (:351-356): K3's shifted form.
+//      everywhere under HYV_FLASH_BOUNDED=0.
 // Per (batch, head) and q row, with q' = bf16(q * scale * log2(e)) and
 // s = q' . k, the bounded form computes
 //
@@ -39,8 +38,8 @@
 // a rescale of the 64-float accumulator per thread: a few percent more
 // non-tensor-core instructions on top of the same two products.
 //
-// Design (FlashAttention-2 shape on mma.sync; TMA and wgmma wait for a
-// later revision):
+// Design (FlashAttention-2 shape on mma.sync; flash_fwd_single.cu has the
+// TMA / wgmma design these forms are queued to take over):
 // * A block of 8 warps owns 128 q rows of one (batch, head); each warp owns
 //   16 rows and keeps its pre-scaled q fragments in registers for the whole
 //   key loop. The grid's y axis walks batch * heads, so no two blocks share
@@ -60,12 +59,9 @@
 //   inside the quad, so the rescale needs no shared memory either.
 // * q and k are read in [B, N, L, D] or [B, L, N, D] and v in [B, L, N, D]
 //   through strides; o is written in [B, L, N, D] and lse as [B*N, Lq] fp32.
-// K3 is the same loop: with no running max there is no per-block state to
-// drop, so the single-block case is this loop over at most 56 key tiles.
-// The four forms are the <kSingle, kShifted> instances of one template, so
-// profiles name them apart; the kSingle entries enforce lk <= FULL_K_MAX.
-// The kShifted branches are compile-time, so the bounded instances carry
-// none of the shifted form's work or registers.
+// The two forms are the <kShifted> instances of one template, so profiles
+// name them apart. The kShifted branches are compile-time, so the bounded
+// instance carries none of the shifted form's work or registers.
 #include "tensor_core.cuh"
 
 namespace {
@@ -78,7 +74,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowBytes = kD * 2;
 constexpr int kTileBytes = kBlockN * kRowBytes;
 constexpr int kSmemBytes = kBlockM * kRowBytes + 4 * kTileBytes;  // Q + 2x(K, V)
-constexpr int kFullKMax = 3584;
 constexpr float kLn2 = 0.6931471805599453f;
 
 using hyv::cp_async16;
@@ -94,7 +89,7 @@ struct Strides {  // element strides of (batch, head, row); the feature stride i
   long long b, h, l;
 };
 
-template <bool kSingle, bool kShifted>
+template <bool kShifted>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -284,11 +279,21 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
 }  // namespace
 
+namespace hyv {
+int flash_fwd_single(const void* q, const void* k, const void* v, void* o, void* lse,
+                     const void* valid, int B, int N, int Lq, int Lk, long long q_sb,
+                     long long q_sh, long long q_sl, long long k_sb, long long k_sh,
+                     long long k_sl, long long v_sb, long long v_sh, long long v_sl,
+                     long long o_sb, long long o_sh, long long o_sl, float qscale, int shifted,
+                     void* stream);  // flash_fwd_single.cu
+}  // namespace hyv
+
 // q [B, N, Lq, 128], k [B, N, Lk, 128], v [B, Lk, N, 128] bf16 addressed by
 // element strides (feature stride 1, rows 16 B aligned; q and k may be
 // token-major views); o [B, Lq, N, 128] bf16 by strides; lse [B*N, Lq]
-// fp32. qscale = fp32(scale * log2(e)). single != 0 is the K3 entry: lk
-// must be <= FULL_K_MAX. shifted != 0 takes the online-softmax form (K2,
+// fp32. qscale = fp32(scale * log2(e)). single != 0 is the K3 entry
+// (flash_fwd_single.cu): lk must be <= FULL_K_MAX, and every stride a
+// multiple of 8 elements. shifted != 0 takes the online-softmax form (K2,
 // K3s), which alone takes valid: null, or int32 [B*N] key counts (>= 1).
 extern "C" int hyv_flash_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* valid,
@@ -298,11 +303,14 @@ extern "C" int hyv_flash_fwd(
     long long v_sb, long long v_sh, long long v_sl,
     long long o_sb, long long o_sh, long long o_sl,
     float qscale, int single, int shifted, void* stream) {
-  if (Lk <= 0 || (single && Lk > kFullKMax)) return (int)cudaErrorInvalidValue;
+  if (Lk <= 0) return (int)cudaErrorInvalidValue;
   if (valid != nullptr && !shifted) return (int)cudaErrorInvalidValue;
+  if (single)
+    return hyv::flash_fwd_single(q, k, v, o, lse, valid, B, N, Lq, Lk, q_sb, q_sh, q_sl, k_sb,
+                                 k_sh, k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, qscale, shifted,
+                                 stream);
   if (B * N == 0 || Lq == 0) return 0;
-  auto kernel = shifted ? (single ? flash_fwd_kernel<true, true> : flash_fwd_kernel<false, true>)
-                        : (single ? flash_fwd_kernel<true, false> : flash_fwd_kernel<false, false>);
+  auto kernel = shifted ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;

@@ -21,9 +21,11 @@ every call when ``HYV_FLASH_BOUNDED=0``:
 The op is a ``torch.autograd.Function`` (the JAX ``custom_vjp``) that saves
 (q, k, v, o, lse), lse [B*N, Lq] fp32, and recomputes p from lse in its
 backward, which is therefore the same for both forms. On a CUDA tensor the
-forward runs, from csrc/flash_fwd.cu, K1 (bounded, streaming: lk padded to
-128 exceeds FULL_K_MAX) or K3 (bounded, single-K-block), K2 (shifted,
-streaming) or K3s (K3's shifted form); the backward runs K4 (merged) or K5
+forward runs K1 (bounded, streaming: lk padded to 128 exceeds FULL_K_MAX)
+or K2 (shifted, streaming), both csrc/flash_fwd.cu, or K3 (bounded,
+single-K-block) or K3s (K3's shifted form), both csrc/flash_fwd_single.cu
+(TMA and wgmma on a persistent warp-specialised grid, so q, k, v need
+16-byte aligned bases and strides); the backward runs K4 (merged) or K5
 (split), both csrc/flash_bwd.cu, routed by the JAX rule
 (``uses_merged_bwd``), both masking keys past k_valid_len. A CPU tensor
 runs the plain versions below.

@@ -47,10 +47,10 @@ from hyvideo_prfl_torch.pipelines.pipeline import latent_size_for  # noqa: E402
 from hyvideo_prfl_torch.utils.checkpoint import quantize_model  # noqa: E402
 
 # kernel-name fragment -> group; first match wins
-GROUPS = (("flash_fwd_kernel<false, false>", "K1"),
-          ("flash_fwd_kernel<true, false>", "K3"),
-          ("flash_fwd_kernel<false, true>", "K2"),
-          ("flash_fwd_kernel<true, true>", "K3s"),
+GROUPS = (("flash_fwd_kernel<false>", "K1"),
+          ("flash_fwd_single_kernel<false>", "K3"),
+          ("flash_fwd_kernel<true>", "K2"),
+          ("flash_fwd_single_kernel<true>", "K3s"),
           ("::rope_kernel<", "R"),
           ("flash_fwd_qk8_kernel", "K10"),
           ("flash_bwd_dkv_kernel<true>", "K4"),

@@ -72,9 +72,14 @@ def test_k6_matches_plain(cuda, l, rope):
     _close(got, tqr.rmsnorm_rope_plain(x, w, c, s, 12, do_rope=rope), 2)
 
 
+# (lq, lk) at K3's tile and schedule edges: 128 q rows and 128 keys per tile,
+# one tile per block up to the SM count, then several per block
+FLASH_EDGES = [(1, 1), (129, 127), (4680, 128), (4680, 129), (300, 769), (200, 3584)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("lq,lk", [(100, 77), (4680, 512), (4680, 4680), (9360, 9360),
-                                   (300, 4000)])
+                                   (300, 4000), *FLASH_EDGES])
 def test_flash_matches_plain(cuda, lq, lk):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(2, 12, lq, 128, device=cuda, generator=g).bfloat16()
@@ -91,15 +96,38 @@ def test_flash_matches_plain(cuda, lq, lk):
 
 
 @pytest.mark.gpu
-def test_flash_reads_strided_v_and_q(cuda):
+@pytest.mark.parametrize("lq", [64, 300])
+def test_flash_single_tile_grid(cuda, lq):
+    # B 1, N 1: one q tile (lq 64) or three, each block of the persistent
+    # grid owning one; K3 and K3s
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(1, 1, lq, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(1, 1, 300, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(1, 300, 1, 128, device=cuda, generator=g).bfloat16()
+    for shifted, plain in ((False, tfa.flash_attention_plain),
+                           (True, tfa.flash_attention_shifted_plain)):
+        o, lse = tfa.flash_fwd_kernel(q, k, v, True, shifted)
+        po, plse = plain(q, k, v)
+        _close(o, po, 2)
+        torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bounded", [True, False])
+def test_flash_reads_strided_v_and_q(cuda, bounded):
     # q/k as views of a wider [B, L, N, D] buffer (no copy), v as the
-    # natural [B, L, N, D] slice of a packed qkv projection
+    # natural [B, L, N, D] slice of a packed qkv projection; lk 300 takes
+    # K3 (bounded) or K3s
     g = torch.Generator(device=cuda).manual_seed(3)
     qkv = torch.randn(1, 300, 3, 4, 128, device=cuda, generator=g).bfloat16()
     q, k = qkv[:, :, 0].movedim(2, 1), qkv[:, :, 1].movedim(2, 1)
     v = qkv[:, :, 2]
-    o = tfa.flash_attention(q, k, v, **BNLD_BOUNDED)
-    _close(o, tfa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())[0], 2)
+    name = "K3" if bounded else "K3s"
+    before = _build.LAUNCHES[name]
+    o = tfa.flash_attention(q, k, v, qk_layout="bnld", bounded_logits=bounded)
+    assert _build.LAUNCHES[name] == before + 1
+    plain = tfa.flash_attention_plain if bounded else tfa.flash_attention_shifted_plain
+    _close(o, plain(q.contiguous(), k.contiguous(), v.contiguous())[0], 2)
 
 
 @pytest.mark.gpu
@@ -119,6 +147,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn(1, 8 * 1536 + 2, device=cuda)[:, 2:].reshape(1, 8, 1536)  # 8 B off
     with pytest.raises(ValueError, match="aligned"):
         tstream.ln_scale_shift(x, torch.ones(1536, device=cuda), torch.zeros(1536, device=cuda))
+    # q 8 bytes off a 16-byte boundary: the tensor maps of K3 need 16
+    q = torch.randn(2 * 128 * 128 + 4, device=cuda).bfloat16()[4:].reshape(1, 2, 128, 128)
+    k = torch.randn(1, 2, 77, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(q, k, k.movedim(1, 2), **BNLD_BOUNDED)
 
 
 @pytest.mark.gpu
@@ -271,7 +304,9 @@ def test_probes_match_plain(cuda, dtype, chain):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lq,lk,valid", [(100, 77, None), (4680, 512, [512, 300]),
                                          (300, 4000, None), (4680, 4680, None),
-                                         (4680, 4680, [4680, 1001]), (1000, 9360, [64, 9300])])
+                                         (4680, 4680, [4680, 1001]), (1000, 9360, [64, 9300]),
+                                         *((lq, lk, None) for lq, lk in FLASH_EDGES),
+                                         (300, 769, [1, 128]), (4680, 512, [200, 129])])
 def test_shifted_flash_matches_plain(cuda, lq, lk, valid):
     # K2 (streaming) and K3s (one K block): no mask, a ragged key tail, and a
     # user mask (lengths on a tile edge and inside one); token-major q/k

@@ -111,6 +111,9 @@ def test_rmsnorm_rope_matches_jax(dtype, rope, l):
 @pytest.mark.parametrize("dtype,lq,lk,block", [
     ("bfloat16", 200, 77, None),      # single K block (K3), padded to 128
     ("float32", 200, 77, None),
+    # K3's key-tile edges: one full 128-key tile, one key past it, and the
+    # i2v text + CLIP length (six tiles, the last holding one key)
+    *((dtype, 200, lk, None) for lk in (128, 129, 769) for dtype in ("bfloat16", "float32")),
     ("bfloat16", 2000, 2000, 512),    # streaming (K1): 4 k blocks, 48 padded keys
     ("float32", 2000, 2000, 512)])
 def test_flash_matches_jax(dtype, lq, lk, block):

@@ -90,6 +90,7 @@ def _blnd(lq, lk, seed, b=2, n=2, scale=1.0):
 FWD_CASES = {
     "single": (200, 77, None, False),
     "single-mask": (200, 77, [40, 77], False),
+    "single-mask-tile-edge": (200, 129, [128, 129], False),
     "stream": (300, 200, None, True),
     "stream-mask": (300, 200, [113, 200], True),
     "stream-mask-one-block": (130, 300, [128, 250], True),
