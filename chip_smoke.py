@@ -7,8 +7,10 @@ Phases, each of which raises on failure:
 
 1. Print the card's name and power limit; build the Hopper kernels from
    hyvideo_prfl_torch/csrc (one nvcc per source, all at once) and print the
-   build time, each slice kernel's registers and spills, and K3's shared
-   memory.
+   build time, each slice kernel's registers and spills (K4 and the norm
+   kernels' wide instances must have none), K3's and K4's shared memory,
+   and the HGMMA and UTMALDG instructions in K4's disassembly (both must
+   be there).
 2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
    streaming and K3 single-block flash forward, K10 int8-score flash
    forward) against its plain PyTorch version at the t2v-1.3B 832*480
@@ -42,12 +44,15 @@ Phases, each of which raises on failure:
    qk-norm+rope backward, K9 LayerNorm+modulate backward) against its
    plain PyTorch version at the training shapes (81 frames, batch 1), with
    a stated bound, and time each with its plain version and, for K4/K5,
-   the flash backward of PyTorch's scaled_dot_product_attention.
+   the flash backward of PyTorch's scaled_dot_product_attention; K4 at
+   the self-attention (also in turns with K5, the mma.sync design, as
+   mma_sync_ms) and at the text cross-attention (lk 512: cross_*).
    5b. K4 and K5 with a key mask: within their bound, masked keys'
    gradients exactly 0.
 6. Whole-model gradient check: the 2-block full-width WanModel (fp32
-   masters, remat "attn") on the 9-frame grid, loss = sum(out * r), every
-   parameter's and the input's gradient on the card against the CPU's
+   masters, remat "attn") on the 9-frame grid, loss = sum(out * r), the
+   output (phase 3's bound) and every parameter's and the input's
+   gradient on the card against the CPU's
    (a CPU run at fp32 compute measures each gradient's bf16 noise), with
    each backward kernel's launch count equal to its derivation.
 7. Train through the CLI path (scripts/train_prfl_torch.py) on a seeded
@@ -68,6 +73,14 @@ Phases, each of which raises on failure:
    gradient, as phases 3 and 6; then 30 blocks at 81 frames, one
    batched-CFG forward through the pipeline, latents finite and the R,
    K2 and K3s launches as derived.
+10. The 14B width: K6-K9 against their plain versions at [1, 75,600, 5120]
+   with 40 heads (t2v-14B at 720*1280, 81 frames; the norm kernels' wide
+   row layout) and at [1, 3,120, 1280] with 10 heads (bench.py's shape),
+   timed beside their byte bounds; a 2-block t2v-14B model, output and
+   every gradient card against CPU at one latent frame of 832*480 (1,560
+   tokens), as phases 3 and 6; the same blocks forward and backward at
+   720*1280 and 81 frames on the card, gradients finite and launches as
+   derived, with seconds and peak memory.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
@@ -135,7 +148,7 @@ def _add(total, counts, times=1):
 
 
 def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn", qk8=False,
-                 shifted=False, qk_norm=True, cross_attn_norm=True):
+                 shifted=False, qk_norm=True, cross_attn_norm=True, self_single=False):
     """Kernel launches of one DiT forward, and of its backward.
 
     A forward launches, per block, three K8 (two adaLN norms and norm3; two
@@ -145,7 +158,10 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
     forward, plus one K8 at the head. The attention forwards are K1 and K3,
     or K10 and K3 under quant_attn "int8" (qk8, at the slice's streaming
     lengths), or K2 and K3s on the shifted route (HYV_FLASH_BOUNDED=0,
-    shifted, or no qk_norm). The int8 forward has no backward. The backward
+    shifted, or no qk_norm). With ``self_single`` (a token count whose keys
+    fit one block, uses_single_block) the self-attention takes the
+    single-block form too: K3, or K3s on the shifted route; the int8
+    forward only takes streaming keys. The int8 forward has no backward. The backward
     launches, per block, one K9 per K8, one K4 per attention call (every
     call at the slice's lengths takes the merged route) and one K7 per
     qk-norm whose input needs a gradient: four, or three when the text
@@ -164,6 +180,8 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
         attn = {"K2": 1, "K3s": 1}
     else:
         attn = {"K1": 1, "K3": 1}
+    if self_single:
+        attn = {"K3s": 2} if shifted or not qk_norm else {"K3": 2}
     fwd_block = {"K8": k8, **norms, **attn}
     total = _add({"K8": 1} if head else {}, fwd_block, n_layers)
     if backward:
@@ -830,21 +848,26 @@ def phase_bwd_kernels(results):
             got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-        timed = (name == "K4" and lk_ == lq) or "directly" in label
-        timing, extra = None, {}
+        timed = name == "K4" or "directly" in label
+        timing, extra, cross = None, {}, name == "K4" and lk_ != lq
         if timed:
             del got, ref
             # the library yardstick: SDPA's flash backward on the same
-            # tensors in its [B, N, L, D] layout, one op per call
+            # tensors in its [B, N, L, D] layout, one op per call; at the
+            # self-attention shape also K5, the mma.sync backward, as K4's
+            # yardstick of the old design in the same turns
             qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
             vs = v.movedim(1, 2).contiguous().requires_grad_()
             out = sdpa_flash(qs, ks, vs)
             dot = do.movedim(1, 2).contiguous()
-            t = timed_turns({
-                "plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, merged),
-                "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
-                                                       retain_graph=True)}, reps=3, calls=1)
+            fns = {"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                   "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, merged),
+                   "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                          retain_graph=True)}
+            if name == "K4" and not cross:
+                fns["mma_sync"] = lambda: fa.bwd_kernel(q, k, v, o, lse, do, False)
+            # the cross call is short: 20 calls a turn
+            t = timed_turns(fns, reps=5 if cross else 3, calls=20 if cross else 1)
             del qs, ks, vs, out, dot
             timing = (t["kernel"], t["plain"])
             got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
@@ -852,14 +875,29 @@ def phase_bwd_kernels(results):
             flop = 10 * n * lq_ * lk_ * d  # five products of 2 flop per multiply-add
             print(f"  {name} {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), "
                   f"{flop / (t['plain'] * 1e9):.1f} (plain), {flop / (t['library'] * 1e9):.1f} "
-                  f"(SDPA flash backward), counting the five products of the "
-                  f"algorithm{' (K5 runs seven)' if name == 'K5' else ''}")
+                  f"(SDPA flash backward)"
+                  + (f", {flop / (t['mma_sync'] * 1e9):.1f} (K5, mma.sync, "
+                     f"{t['mma_sync']:.4f} ms)" if "mma_sync" in t else "")
+                  + f", counting the five products of the algorithm"
+                  f"{' (K5 runs seven)' if name == 'K5' else ''}")
             # q, k, v, dO in; dq, dk, dv out (bf16); lse and delta fp32
             extra = {**bound(n * d * 2 * (3 * lq_ + 4 * lk_) + 8 * n * lq_, bf16=flop),
                      "library_ms": t["library"]}
-        report_many(name, label, [(o_, a, b, 2.0 ** -6)
-                                  for o_, a, b in zip(("dq", "dk", "dv"), got, ref)],
-                    results, timing, **extra)
+            if "mma_sync" in t:
+                extra["mma_sync_ms"] = t["mma_sync"]
+            if name == "K4":
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                splits = fa.q_splits(n * -(-lk_ // 128), -(-lq_ // 64), sms)
+                print(f"  {name} {label}: {extra['bound_ms'] / t['kernel']:.3f} of the bound, "
+                      f"q sweep split over {splits} block(s) per key tile")
+        checks = [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)]
+        if cross:
+            # recorded beside the self-attention call's numbers, as cross_*
+            part = {}
+            report_many(name, label, checks, part, timing, **extra)
+            results[name].update({f"cross_{key}": val for key, val in part[name].items()})
+        else:
+            report_many(name, label, checks, results, timing, **extra)
         del q, k, v, o, lse, do, got, ref
         torch.cuda.empty_cache()
 
@@ -954,22 +992,25 @@ def phase_masked_bwd():
         torch.cuda.empty_cache()
 
 
-def phase_grad_model():
-    """Phase 6: gradients of the 2-block full-width model, card against CPU."""
+def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
+    """Phase 6: the output (at phase 3's bound) and the gradients of the
+    2-block full-width model (t2v-1.3B unless ``cfg`` says otherwise) on a
+    token grid, card against CPU. Returns the seeded state."""
     import torch
 
     from hyvideo_prfl_torch.models import wan_dit
     from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
     from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
 
-    cfg = wan_dit.t2v_1_3b(num_layers=2, remat_policy="attn")
-    state = from_jax_params(seeded_jax_tree(cfg, seed=17), cfg)
-    rng = np.random.default_rng(18)
-    f, hh, ww = GRID_9[0], GRID_9[1] * 2, GRID_9[2] * 2
+    cfg = cfg or wan_dit.t2v_1_3b(num_layers=2, remat_policy="attn")
+    state = from_jax_params(seeded_jax_tree(cfg, seed=seed), cfg)
+    rng = np.random.default_rng(seed + 1)
+    f, hh, ww = grid[0], grid[1] * 2, grid[2] * 2
     x = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
     ctx = rng.standard_normal((1, TEXT_LEN, cfg.text_dim), dtype=np.float32)
     r = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
-    grads, launches = {}, {}
+    outs, grads, launches = {}, {}, {}
     # the card and the CPU at bf16 compute, and the CPU at fp32 compute,
     # which measures how far bf16 rounding alone moves each gradient
     for key, dev, cd in (("card", "cuda", torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
@@ -985,13 +1026,20 @@ def phase_grad_model():
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-        print(f"  forward + backward, {key}: {time.perf_counter() - t0:.2f} s")
+        print(f"  {label}forward + backward, {key}: {time.perf_counter() - t0:.2f} s")
+        outs[key] = out.detach().cpu()
         grads[key] = {"input latent": xi.grad.cpu(),
                       **{name: p.grad.cpu() for name, p in model.named_parameters()}}
         del model, out, xi
 
     def rel(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    # phase 3's bound: 3e-2 max|cpu| (bf16 roundings in another order)
+    err, rmax, fin = max_err(outs["card"], outs["cpu"])
+    print(f"  {label}2-block output: max_abs_err {err:.3e} (bound {3e-2 * rmax:.3e}, "
+          f"max|cpu| {rmax:.3e})")
+    expect(fin and rmax > 0 and err <= 3e-2 * rmax, f"{label}output: error {err}")
 
     # Bound: bf16 matmuls and activations round at other points on the card
     # (and K4's dq adds in a run-dependent order), so a gradient may differ
@@ -1024,9 +1072,119 @@ def phase_grad_model():
           f"2e-2 of the CPU bf16 run's, relative to their norms; the largest:")
     for err, name in worst[:5]:
         print(f"    {name}: {err:.3e}")
+    want = dit_launches(cfg.num_layers, True,
+                        self_single=fa.uses_single_block(math.prod(grid)))
+    print(f"  {label}launches {launches}, derived {want}")
+    expect(launches == want, f"{label}launches {launches}, expected {want}")
+    torch.cuda.empty_cache()
+    return state
+
+
+GRID_14B_81 = (21, 45, 80)  # token grid of an 81-frame 720*1280 request (75,600)
+GRID_14B_1 = (1, 30, 52)    # one latent frame at 832*480 (1,560 tokens)
+GRID_BENCH = (8, 15, 26)    # bench.py's token grid (3,120)
+
+
+def phase_wide(results):
+    """Phase 10: the 14B width. K6-K9 against their plain versions at
+    [1, 75,600, 5120] with 40 heads (t2v-14B at 720*1280, 81 frames) and
+    at [1, 3,120, 1280] with 10 heads (bench.py's shape), timed beside
+    their byte bounds; a 2-block t2v-14B model's output and gradients,
+    card against CPU, at one latent frame of 832*480; the same blocks
+    forward and backward at 720*1280 and 81 frames on the card, gradients
+    finite and launches as derived."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import qknorm_rope as qr
+    from hyvideo_prfl_torch.ops import stream
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9876)
+    # Bounds, as at width 1536 (phases 2 and 5): K8 one bf16 ulp of max|out|;
+    # K9 1e-5 of each output's max; K6 and K7's dx two bf16 ulps, K7's dw
+    # one. Byte bounds: each input read once, each output written once.
+    for tag, n, grid in (("d5120", 40, GRID_14B_81), ("d1280", 10, GRID_BENCH)):
+        l, dim = math.prod(grid), n * 128
+        x32 = torch.randn(1, l, dim, device=dev, generator=g)
+        s_ = 1.0 + 0.1 * torch.randn(1, dim, device=dev, generator=g)
+        t_ = 0.1 * torch.randn(1, dim, device=dev, generator=g)
+        g32 = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
+        xb = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
+        w = 1.0 + 0.1 * torch.randn(dim, device=dev, generator=g)
+        c_tab, s_tab = (torch.from_numpy(a).to(dev) for a in rope_tables_rolled_np(grid, 128))
+        gh = torch.randn(1, n, l, 128, device=dev, generator=g).bfloat16()
+        tables = 2 * l * 128 * 4
+        cases = {
+            "K8": (lambda: stream._kernel(x32, s_, t_, 1e-6, torch.bfloat16),
+                   lambda: stream.ln_scale_shift_plain(x32, s_, t_, 1e-6, torch.bfloat16),
+                   (("out", 2.0 ** -7),), l * dim * (4 + 2)),
+            "K9": (lambda: stream.bwd_kernel(x32, s_, g32, 1e-6),
+                   lambda: stream.ln_scale_shift_bwd_plain(x32, s_, g32, 1e-6),
+                   (("dx", 1e-5), ("ds", 1e-5), ("dt", 1e-5)), l * dim * (4 + 2 + 4)),
+            "K6": (lambda: qr._kernel(xb, w, c_tab, s_tab, n, 1e-6, True),
+                   lambda: qr.rmsnorm_rope_plain(xb, w, c_tab, s_tab, n, 1e-6, True),
+                   (("out", 2.0 ** -6),), l * dim * (2 + 2) + tables),
+            "K7": (lambda: qr.bwd_kernel(xb, w, c_tab, s_tab, gh, n, 1e-6, True),
+                   lambda: qr.rmsnorm_rope_bwd_plain(xb, w, c_tab, s_tab, gh, n, 1e-6, True),
+                   (("dx", 2.0 ** -6), ("dw", 2.0 ** -7)), l * dim * 3 * 2 + tables),
+        }
+        for name, (kern, plain, outs, nbytes) in cases.items():
+            got, ref = kern(), plain()
+            got, ref = ((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))
+            worst = 0.0
+            for (out_name, rel_bound), a, b in zip(outs, got, ref):
+                err, rmax, fin = max_err(a, b)
+                print(f"  {name} [1, {l:,}, {dim}] {out_name}: max_abs_err {err:.3e} "
+                      f"(bound {rel_bound * rmax:.3e}, max|ref| {rmax:.3e})")
+                expect(fin and err <= rel_bound * rmax,
+                       f"{name} at [1, {l}, {dim}]: {out_name} error {err}")
+                worst = max(worst, err)
+            del got, ref
+            ms, pms = timed_pair(kern, plain)
+            bd = bound(nbytes)["bound_ms"]
+            print(f"  {name} [1, {l:,}, {dim}]: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bd:.4f} ms (bytes), {bd / ms:.3f} of the bound")
+            results[name].update({f"{tag}_ms": ms, f"{tag}_plain_ms": pms,
+                                  f"{tag}_bound_ms": bd, f"{tag}_max_abs_err": worst})
+        del x32, g32, xb, gh, cases
+        torch.cuda.empty_cache()
+
+    # 2 blocks of t2v-14B (dim 5120, 40 heads, ffn 13,824), remat "attn" as
+    # the training path runs them: output and gradients, card against CPU
+    cfg = wan_dit.t2v_14b(num_layers=2, remat_policy="attn")
+    state = phase_grad_model(cfg, GRID_14B_1, seed=41, label="t2v-14B 2 blocks, 1,560 tokens: ")
+
+    # the same blocks at 720*1280, 81 frames (75,600 tokens), on the card
+    model = wan_dit.WanModel(cfg, device=dev, param_dtype=torch.float32)
+    model.load_state_dict(state)
+    del state
+    f, hh, ww = GRID_14B_81[0], GRID_14B_81[1] * 2, GRID_14B_81[2] * 2
+    x = torch.randn(1, f, hh, ww, 16, device=dev, generator=g).requires_grad_()
+    ctx = torch.randn(1, TEXT_LEN, cfg.text_dim, device=dev, generator=g)
+    r = torch.randn(1, f, hh, ww, 16, device=dev, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = model(x, torch.tensor([700.0], device=dev), ctx)
+    (out * r).sum().backward()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [name for name, p in model.named_parameters() if not bool(torch.isfinite(p.grad).all())]
+    print(f"  t2v-14B 2 blocks, 720*1280, 81 frames ({math.prod(GRID_14B_81):,} tokens): "
+          f"forward + backward {dt:.3f} s, peak {peak:.2f} GiB, launches {launches}")
+    expect(tuple(out.shape) == (1, f, hh, ww, 16), f"t2v-14B output {tuple(out.shape)}")
+    expect(bool(torch.isfinite(out).all()), "t2v-14B output is not finite")
+    expect(not bad and bool(torch.isfinite(x.grad).all()),
+           f"t2v-14B gradients not finite: {bad[:5]}")
     want = dit_launches(cfg.num_layers, True)
-    print(f"  launches {launches}, derived {want}")
-    expect(launches == want, f"launches {launches}, expected {want}")
+    expect(launches == want, f"t2v-14B launches {launches}, expected {want}")
+    del model, out, x, ctx, r
     torch.cuda.empty_cache()
 
 
@@ -1427,27 +1585,44 @@ def phase_probes(results):
     return launches
 
 
-def print_ptxas(log: str, smem_k3: int) -> None:
+def print_ptxas(log: str, smem_k3: int, smem_k4: int) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
-    setmaxnreg), and K3's dynamic shared memory per block."""
+    setmaxnreg), and K3's and K4's dynamic shared memory per block. The
+    norm kernels' instances: narrow rows (a warp each) under a ceiling of
+    12 (K8/K9) or 6 (K6/K7) chunks a lane, filled exactly at D 1536 / 12
+    heads (a compile-time count) and not at D 1280 / 10 heads, and wide
+    rows (a block each) at D 5120 / 40 heads."""
     wanted = {"flash_fwd_kernelILb0E": "K1",
               "flash_fwd_single_kernelILb0E": "K3",
               "flash_fwd_kernelILb1E": "K2",
               "flash_fwd_single_kernelILb1E": "K3s",
               "rope_kernelI13__nv_bfloat16E": "R bf16",
               "rope_kernelIfE": "R fp32",
-              "flash_bwd_dkv_kernelILb1": "K4",
-              "flash_bwd_dkv_kernelILb0": "K5 dk/dv",
+              "flash_bwd_merged_kernel": "K4",
+              "flash_bwd_prologue_kernel": "K4 prologue",
+              "flash_bwd_dkv_kernel": "K5 dk/dv",
               "flash_bwd_dq_kernel": "K5 dq",
-              "rmsnorm_rope_bwd_kernelILi6ELb1": "K7 12x128 rope",
-              "rmsnorm_rope_bwd_kernelILi6ELb0": "K7 12x128 norm-only",
-              "ln_scale_shift_bwd_kernelILi12E13__nv_bfloat16": "K9 D=1536 bf16-g",
-              "ln_scale_shift_bwd_kernelILi12Ef": "K9 D=1536 fp32-g",
-              "ln_scale_shift_kernelILi12E13__nv_bfloat16": "K8 D=1536 bf16-out",
-              "ln_scale_shift_kernelILi12Ef": "K8 D=1536 fp32-out",
-              "rmsnorm_rope_kernelILi6ELb1": "K6 12x128 rope",
-              "rmsnorm_rope_kernelILi6ELb0": "K6 12x128 norm-only",
+              "rmsnorm_rope_bwd_kernelILi1ELi6ELb1ELb1": "K7 narrow 12 heads rope",
+              "rmsnorm_rope_bwd_kernelILi1ELi6ELb1ELb0": "K7 narrow 12 heads norm-only",
+              "rmsnorm_rope_bwd_kernelILi1ELi6ELb0ELb1": "K7 narrow 10 heads rope",
+              "rmsnorm_rope_bwd_kernelILi8ELi4ELb0ELb1": "K7 wide rope",
+              "rmsnorm_rope_bwd_kernelILi8ELi4ELb0ELb0": "K7 wide norm-only",
+              "ln_scale_shift_bwd_kernelILi1ELi12ELb1E13__nv_bfloat16": "K9 narrow D=1536 bf16-g",
+              "ln_scale_shift_bwd_kernelILi1ELi12ELb1Ef": "K9 narrow D=1536 fp32-g",
+              "ln_scale_shift_bwd_kernelILi1ELi12ELb0E13__nv_bfloat16": "K9 narrow D=1280 bf16-g",
+              "ln_scale_shift_bwd_kernelILi8ELi8ELb0E13__nv_bfloat16": "K9 wide bf16-g",
+              "ln_scale_shift_bwd_kernelILi8ELi8ELb0Ef": "K9 wide fp32-g",
+              "ln_scale_shift_kernelILi1ELi12ELb1E13__nv_bfloat16": "K8 narrow D=1536 bf16-out",
+              "ln_scale_shift_kernelILi1ELi12ELb1Ef": "K8 narrow D=1536 fp32-out",
+              "ln_scale_shift_kernelILi1ELi12ELb0E13__nv_bfloat16": "K8 narrow D=1280 bf16-out",
+              "ln_scale_shift_kernelILi8ELi8ELb0E13__nv_bfloat16": "K8 wide bf16-out",
+              "ln_scale_shift_kernelILi8ELi8ELb0Ef": "K8 wide fp32-out",
+              "rmsnorm_rope_kernelILi1ELi6ELb1ELb1": "K6 narrow 12 heads rope",
+              "rmsnorm_rope_kernelILi1ELi6ELb1ELb0": "K6 narrow 12 heads norm-only",
+              "rmsnorm_rope_kernelILi1ELi6ELb0ELb1": "K6 narrow 10 heads rope",
+              "rmsnorm_rope_kernelILi8ELi4ELb0ELb1": "K6 wide rope",
+              "rmsnorm_rope_kernelILi8ELi4ELb0ELb0": "K6 wide norm-only",
               "flash_fwd_qk8_kernel": "K10",
               "probe_kernelILb1E": "P1/P2 int8",
               "probe_kernelILb0E": "P1/P2 bf16"}
@@ -1459,7 +1634,33 @@ def print_ptxas(log: str, smem_k3: int) -> None:
             print(f"  ptxas: {line.split(':', 1)[-1].strip()}")
         elif current and ("registers" in line or "spill" in line):
             print(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
-    print(f"  K3/K3s: {smem_k3} bytes of dynamic shared memory per block")
+            # K4 and the norm kernels' wide row layout must not spill
+            if current.startswith("K4") or "wide" in current:
+                expect("spill" not in line or " 0 bytes spill stores" in line,
+                       f"ptxas: {current} spills: {line.strip()}")
+    print(f"  K3/K3s: {smem_k3} bytes of dynamic shared memory per block; K4: {smem_k4}")
+
+
+def check_k4_sass(lib_path) -> None:
+    """K4's main kernel, disassembled from the built library, must load by
+    TMA (UTMALDG) and multiply on wgmma (HGMMA); its dq adds are TMA
+    reductions (UTMAREDG)."""
+    from hyvideo_prfl_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "flash_bwd_merged_kernel" in line
+        elif inside:
+            for op in ("HGMMA", "UTMALDG", "UTMAREDG", "ATOM", "RED."):
+                if op in line:
+                    counts[op] = counts.get(op, 0) + 1
+    print(f"  K4 SASS instruction counts: {counts}")
+    expect(counts.get("HGMMA", 0) > 0 and counts.get("UTMALDG", 0) > 0,
+           f"K4's kernel lacks HGMMA or UTMALDG: {counts}")
 
 
 def main() -> int:
@@ -1491,7 +1692,9 @@ def main() -> int:
     _build.lib()
     print(f"  kernels built in {_build.build_seconds:.2f} s "
           f"(loaded in {time.perf_counter() - t0:.2f} s)")
-    print_ptxas(_build.build_log, _build.lib().hyv_flash_fwd_single_smem())
+    print_ptxas(_build.build_log, _build.lib().hyv_flash_fwd_single_smem(),
+                _build.lib().hyv_flash_bwd_merged_smem())
+    check_k4_sass(_build.build())
 
     results = {}
     print("phase 2: kernels against their plain versions at the 81-frame shapes")
@@ -1521,6 +1724,8 @@ def main() -> int:
     probe_launches = phase_probes(results)
     print("phase 9: the un-normed DiT (qk_norm off): R, K2 and K3s")
     unnormed_launches = phase_unnormed()
+    print("phase 10: the 14B width (dim 5120, 40 heads) and bench.py's (1280, 10)")
+    phase_wide(results)
 
     launches = _add(_add(_add(_add(dict(serve_launches), train_launches), route_launches),
                          probe_launches), unnormed_launches)

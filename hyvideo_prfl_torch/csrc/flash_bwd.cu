@@ -1,16 +1,14 @@
-// K4 and K5: bounded flash-attention backward, head_dim 128.
+// K5: the split flash-attention backward, head_dim 128.
 //
-// Replaces hyvideo_prfl_tpu/ops/flash_attention.py
-//   K4 _dqkv_kernel (:453; pallas_call at :890 in _flash_bwd_merged :849):
-//      the merged backward, five products per (q tile, k tile) cell;
-//   K5 _dq_kernel (:371; pallas_call at :775) and _dkv_kernel (:407;
-//      pallas_call at :798), both from _flash_bwd (:752): the split
-//      backward, a dq pass and a dk/dv pass.
-// The route between them is the JAX rule (flash_attention.py:763), taken
-// by the Python wrapper: K4 when the padded q range holds at least four of
-// JAX's backward q blocks, K5 otherwise. Per (batch, head), both compute
-// from the saved lse (the backward always recomputes, so the bounded and
-// the shifted forward share it):
+// Replaces hyvideo_prfl_tpu/ops/flash_attention.py _dq_kernel (:371;
+// pallas_call at :775) and _dkv_kernel (:407; pallas_call at :798), both
+// from _flash_bwd (:752): the split backward, a dq pass and a dk/dv pass.
+// The route between it and the merged backward K4 (flash_bwd_merged.cu) is
+// the JAX rule (flash_attention.py:763), taken by the Python wrapper: K4
+// when the padded q range holds at least four of JAX's backward q blocks,
+// K5 otherwise. Per (batch, head), both compute from the saved lse (the
+// backward always recomputes, so the bounded and the shifted forward share
+// it):
 //
 //   q' = bf16(q * scale * log2e),  s = q' k^T (fp32),  p = exp2(s - lse * log2e)
 //   dv += bf16(p)^T dO,   dp = dO v^T,   ds = p * (dp - delta)
@@ -26,33 +24,21 @@
 // a dk/dv block whose keys are all masked writes zeros and stops, and the
 // dq pass ends its key loop at the last valid tile.
 //
-// Bound on the H100: tensor-core math. At the 81-frame self-attention
-// shape (12 heads x 32,760 x 32,760 x 128) one call is ~16.5 TFLOP (five
-// products) against well under 1 GB of q/k/v/dO/dq/dk/dv traffic, far above
-// the ~295 flop/byte line. K4's dq accumulation adds 2 x 12 x 32,760 x 128 x
-// (32,760 / 128) fp32 reductions into L2 (~13 G atomics, ~51 GB of L2
-// read-modify-write): the second bound, which a larger key tile would cut.
-// With lk = 512 (text cross-attention) only lk / 128 = 4 blocks per head
-// exist, 48 blocks on 132 SMs: that call is bounded by occupancy.
+// Bound on the H100: tensor-core math (seven products: the dq pass
+// recomputes s and dp).
 //
 // Design (FlashAttention-2's backward on mma.sync m16n8k16, bf16 in, fp32
-// accumulate; TMA, wgmma and warp specialisation wait for a later revision):
-// * dk/dv pass (K4, and K5's second kernel): a block of 8 warps owns 128
-//   keys of one (batch, head) and keeps their dk and dv in registers (each
-//   warp 16 keys x 128 features of each) while it loops over all q tiles
-//   of 64 rows. It computes the transposed products s^T = k q'^T and
-//   dp^T = v dO^T, so the fp32 accumulator fragments of p^T and ds^T are the
-//   A operands of dv and dk directly, with no trip through shared memory.
-// * dq on Hopper: the TPU adds dq into one aliased fp32 buffer, race-free
-//   only because its grid runs in order. Here the blocks of a head run at
-//   once, so K4 writes bf16(ds) to shared memory, forms each q tile's
-//   contribution bf16(ds) k_s with the 8 warps split over (16 q rows, 64
-//   features), and adds it with fp32 atomics into a zeroed [BN, Lq, 128]
-//   buffer that the wrapper casts at the end. The order of those adds
-//   changes from run to run: K4's dq is not bitwise deterministic.
-// * K5's dq kernel: a block of 8 warps owns 128 q rows (16 per warp, q'
-//   fragments in registers) and loops over key tiles of 64, recomputing s
-//   and dp; it writes dq once, so K5 is deterministic.
+// accumulate; it keeps its first form, and the JAX rule sends no full-width
+// call here):
+// * dk/dv pass: a block of 8 warps owns 128 keys of one (batch, head) and
+//   keeps their dk and dv in registers (each warp 16 keys x 128 features of
+//   each) while it loops over all q tiles of 64 rows. It computes the
+//   transposed products s^T = k q'^T and dp^T = v dO^T, so the fp32
+//   accumulator fragments of p^T and ds^T are the A operands of dv and dk
+//   directly, with no trip through shared memory.
+// * dq pass: a block of 8 warps owns 128 q rows (16 per warp, q' fragments
+//   in registers) and loops over key tiles of 64, recomputing s and dp; it
+//   writes dq once, so K5 is deterministic.
 // * q and k are read head-major [B, N, L, 128], v, dO token-major
 //   [B, L, N, 128], all through strides with no transposes; q' and the two
 //   scaled copies bf16(q * scale), bf16(k * scale) are formed in shared
@@ -71,7 +57,6 @@ using hyv::ldsm_x4_t;
 using hyv::mma;
 using hyv::pack_bf16x2;
 using hyv::swz;
-using hyv::swz128;
 
 constexpr int kD = 128;
 constexpr int kRowBytes = kD * 2;
@@ -91,7 +76,7 @@ struct BwdArgs {
   const float* lse;    // [B*N, Lq], natural units
   const float* delta;  // [B*N, Lq]
   const int* valid;    // null, or [B*N] key counts
-  float* dq;           // [B*N, Lq, 128] fp32 (K4: zeroed, accumulated)
+  float* dq;           // [B*N, Lq, 128] fp32
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   int N, Lq, Lk;
@@ -106,8 +91,7 @@ constexpr int kKvBlockN = 128;  // keys per block
 constexpr int kKvBlockM = 64;   // q rows per iteration
 constexpr int kKTile = kKvBlockN * kRowBytes;  // 32 KB
 constexpr int kQTile = kKvBlockM * kRowBytes;  // 16 KB
-// smem: K, V, Q', Qs, 2 x raw Q, 2 x dO, lse2/delta [64] each; merged adds
-// Ks (bf16(k * scale)) and the dS^T tile [128 keys x 64 q] of 128 B rows
+// smem: K, V, Q', Qs, 2 x raw Q, 2 x dO, lse2/delta [64] each
 constexpr int kOffK = 0;
 constexpr int kOffV = kOffK + kKTile;
 constexpr int kOffQ = kOffV + kKTile;
@@ -116,10 +100,7 @@ constexpr int kOffQraw = kOffQs + kQTile;
 constexpr int kOffDO = kOffQraw + 2 * kQTile;
 constexpr int kOffLse = kOffDO + 2 * kQTile;
 constexpr int kOffDelta = kOffLse + kKvBlockM * 4;
-constexpr int kSmemSplit = kOffDelta + kKvBlockM * 4;
-constexpr int kOffKs = kSmemSplit;
-constexpr int kOffDS = kOffKs + kKTile;
-constexpr int kSmemMerged = kOffDS + kKvBlockN * 128;
+constexpr int kSmemDkv = kOffDelta + kKvBlockM * 4;
 
 // acc[16 rows x 64 cols] (8 n-tiles) += A rows [16 x 128] . B rows [64 x 128]^T,
 // both operands row-major tiles of 256 B rows in shared memory
@@ -168,12 +149,10 @@ __device__ __forceinline__ void scale_chunk(const uint8_t* src, uint8_t* dst, fl
   *reinterpret_cast<uint4*>(dst) = hyv::pack8(f);
 }
 
-template <bool kMerged>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(BwdArgs args) {
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
   const uint32_t sK = base + kOffK, sV = base + kOffV, sQ = base + kOffQ, sQs = base + kOffQs;
-  const uint32_t sKs = base + kOffKs, sDS = base + kOffDS;
   float* sLse = reinterpret_cast<float*>(smem + kOffLse);
   float* sDelta = reinterpret_cast<float*>(smem + kOffDelta);
 
@@ -252,13 +231,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(BwdArgs args
     const int st = qt & 1;
     cp_async_wait<0>();
     __syncthreads();  // this tile landed; every warp is done with the last one
-    if (kMerged && qt == 0) {
-#pragma unroll
-      for (int i = 0; i < kKvBlockN * 16 / kThreads; ++i) {
-        const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-        scale_chunk(smem + kOffK + swz(r, c), smem + kOffKs + swz(r, c), args.scale);
-      }
-    }
 #pragma unroll
     for (int i = 0; i < kKvBlockM * 16 / kThreads; ++i) {
       const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
@@ -311,53 +283,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(BwdArgs args
     }
     // dk += bf16(ds)^T bf16(q * scale)
     gemm_frag_nn(ds, sQs, lane, dk);
-
-    if constexpr (kMerged) {
-      // bf16(ds^T) -> shared [128 keys][64 q]; then dq += bf16(ds) bf16(k * scale)
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = kr0 + (lane >> 2) + 8 * half;
-          *reinterpret_cast<uint32_t*>(smem + kOffDS + swz128(row, t) + (lane & 3) * 4) =
-              pack_bf16x2(ds[t][2 * half], ds[t][2 * half + 1]);
-        }
-      }
-      __syncthreads();
-      const int qr0 = (warp & 3) * 16, dc0 = (warp >> 2) * 64;
-      float acc[8][4];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKvBlockN / 16; ++kk) {
-        // A = ds [q][key], read transposed out of the [key][q] tile
-        const int mi = lane >> 3;
-        uint32_t a[4];
-        ldsm_x4_t(sDS + swz128(kk * 16 + (mi >> 1) * 8 + (lane & 7), qr0 / 8 + (mi & 1)),
-                  a[0], a[1], a[2], a[3]);
-#pragma unroll
-        for (int dd = 0; dd < 4; ++dd) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_t(sKs + swz(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                              dc0 / 8 + dd * 2 + (lane >> 4)),
-                    b0, b1, b2, b3);
-          mma(acc[2 * dd], a, b0, b1);
-          mma(acc[2 * dd + 1], a, b2, b3);
-        }
-      }
-      const int m0 = qt * kKvBlockM;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + qr0 + (lane >> 2) + 8 * half;
-        if (row >= Lq) continue;
-        float* dst = args.dq + ((long long)bh * Lq + row) * kD + dc0 + (lane & 3) * 2;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          atomicAdd(dst + t * 8, acc[t][2 * half]);
-          atomicAdd(dst + t * 8 + 1, acc[t][2 * half + 1]);
-        }
-      }
-    }
   }
 
   // epilogue: dk head-major, dv token-major, bf16; rows past Lk are dropped
@@ -536,9 +461,8 @@ cudaError_t launch(K kernel, dim3 grid, int smem_bytes, cudaStream_t st, const B
 
 // q [B, N, Lq, 128], k [B, N, Lk, 128] head-major; v [B, Lk, N, 128], dO
 // [B, Lq, N, 128] token-major; all bf16 by element strides (feature stride
-// 1, rows 16 B aligned). lse, delta [B*N, Lq] fp32. dq [B*N, Lq, 128] fp32:
-// merged != 0 (K4) accumulates into it (zero it first), merged == 0 (K5)
-// overwrites it. dk [B, N, Lk, 128] and dv [B, Lk, N, 128] bf16 by strides.
+// 1, rows 16 B aligned). lse, delta [B*N, Lq] fp32. dq [B*N, Lq, 128] fp32,
+// written. dk [B, N, Lk, 128] and dv [B, Lk, N, 128] bf16 by strides.
 // valid: null, or int32 [B*N] key counts (>= 1), the forward's key mask.
 extern "C" int hyv_flash_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -550,7 +474,7 @@ extern "C" int hyv_flash_bwd(
     long long do_sb, long long do_sh, long long do_sl,
     long long dk_sb, long long dk_sh, long long dk_sl,
     long long dv_sb, long long dv_sh, long long dv_sl,
-    float qscale, float scale, int merged, void* stream) {
+    float qscale, float scale, void* stream) {
   if (Lk <= 0 || Lq <= 0) return (int)cudaErrorInvalidValue;
   if (B * N == 0) return 0;
   BwdArgs args{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
@@ -561,8 +485,7 @@ extern "C" int hyv_flash_bwd(
                Strides{dv_sb, dv_sh, dv_sl}, qscale, scale};
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid_kv((Lk + kKvBlockN - 1) / kKvBlockN, B * N);
-  if (merged) return (int)launch(flash_bwd_dkv_kernel<true>, grid_kv, kSmemMerged, st, args);
-  cudaError_t err = launch(flash_bwd_dkv_kernel<false>, grid_kv, kSmemSplit, st, args);
+  cudaError_t err = launch(flash_bwd_dkv_kernel, grid_kv, kSmemDkv, st, args);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((Lq + kDqBlockM - 1) / kDqBlockM, B * N);
   return (int)launch(flash_bwd_dq_kernel, grid_q, kSmemDq, st, args);

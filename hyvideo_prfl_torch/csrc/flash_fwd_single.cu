@@ -367,15 +367,6 @@ flash_fwd_single_kernel(const __grid_constant__ CUtensorMap qmap,
   if (wt == 0) bulk_wait();
 }
 
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
-}
-
 }  // namespace
 
 namespace hyv {
@@ -403,7 +394,7 @@ int flash_fwd_single(const void* q, const void* k, const void* v, void* o, void*
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (Lq + kBlockM - 1) / kBlockM;
   const int n_tiles = n_qt * B * N;
-  const int sms = sm_count();
+  const int sms = sm90::sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const int grid = n_tiles < sms ? n_tiles : sms;
   kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_fwd_single.cu): mbarriers, TMA tensor loads and stores, wgmma
-// with the A operand in registers, register reallocation between
+// (flash_fwd_single.cu, flash_bwd_merged.cu): mbarriers, TMA tensor loads,
+// stores and reduce-adds, bulk copies, wgmma with the A operand in
+// registers or in shared memory, register reallocation between
 // warpgroups, and the host-side tensor-map encode.
 //
 // Shared-memory tiles that TMA fills or drains use the 128-byte swizzle:
@@ -70,6 +71,27 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: shared memory fp32 tile added element by element into the box at
+// (c0, c1, c2, c3) of an fp32 map; elements out of bounds are not written
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends 16 B
+// aligned) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -186,14 +208,39 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(kTransB));
 }
 
-// cuTensorMapEncodeTiled for a bf16 tensor addressed as rank 4 (features,
-// rows, heads, batch): 128 contiguous features, the other three by element
-// strides in any order; boxes of 64 features (128 B) x box_rows rows with the
-// 128-byte swizzle. The encode function is looked up through the CUDA
-// runtime, so the library links no libcuda.
-inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, int rows, int heads,
-                                    int batch, long long s_row, long long s_head,
-                                    long long s_batch, int box_rows) {
+// d (64 x 64 fp32, the m64n64 accumulator fragment) (+)= a (64 x 16) * b
+// (16 x 64), both bf16 in shared memory through descriptors. kTransA = 0
+// when a's 16-deep reduction dimension is contiguous, 1 when its 64 rows
+// are; kTransB likewise for b's reduction dimension and its 64 columns.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// cuTensorMapEncodeTiled for a tensor addressed as rank 4 (features, rows,
+// heads, batch): 128 contiguous features, the other three by element
+// strides in any order; boxes of box_inner features (128 B) x box_rows rows
+// with the 128-byte swizzle. The encode function is looked up through the
+// CUDA runtime, so the library links no libcuda.
+inline cudaError_t encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                               const void* base, int rows, int heads, int batch, long long s_row,
+                               long long s_head, long long s_batch, int box_inner,
+                               int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -214,15 +261,42 @@ inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, int rows
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[4] = {128, (cuuint64_t)rows, (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2,
-                                 (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s_row * elem_bytes),
+                                 (cuuint64_t)(s_head * elem_bytes),
+                                 (cuuint64_t)(s_batch * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  const CUresult res = encode(map, type, 4, const_cast<void*>(base),
                               dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16 rows: boxes of 64 features
+inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, int rows, int heads,
+                                    int batch, long long s_row, long long s_head,
+                                    long long s_batch, int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, heads, batch, s_row,
+                     s_head, s_batch, 64, box_rows);
+}
+
+// fp32 rows: boxes of 32 features
+inline cudaError_t encode_f32_rows(CUtensorMap* map, const void* base, int rows, int heads,
+                                   int batch, long long s_row, long long s_head,
+                                   long long s_batch, int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, heads, batch, s_row,
+                     s_head, s_batch, 32, box_rows);
+}
+
+// streaming multiprocessors of the current device (cached per device)
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
 }
 
 }  // namespace hyv::sm90

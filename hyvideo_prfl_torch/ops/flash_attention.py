@@ -25,8 +25,10 @@ forward runs K1 (bounded, streaming: lk padded to 128 exceeds FULL_K_MAX)
 or K2 (shifted, streaming), both csrc/flash_fwd.cu, or K3 (bounded,
 single-K-block) or K3s (K3's shifted form), both csrc/flash_fwd_single.cu
 (TMA and wgmma on a persistent warp-specialised grid, so q, k, v need
-16-byte aligned bases and strides); the backward runs K4 (merged) or K5
-(split), both csrc/flash_bwd.cu, routed by the JAX rule
+16-byte aligned bases and strides); the backward runs K4 (merged;
+csrc/flash_bwd_merged.cu, TMA and wgmma, the q sweep split over several
+blocks when the key tiles alone leave SMs idle: ``q_splits``) or K5
+(split; csrc/flash_bwd.cu, mma.sync), routed by the JAX rule
 (``uses_merged_bwd``), both masking keys past k_valid_len. A CPU tensor
 runs the plain versions below.
 
@@ -367,6 +369,64 @@ def flash_qk8_kernel(q8, k8, v, c):
     return o, lse
 
 
+# K4's q-range splits: at most this many blocks share one key tile's q sweep
+MAX_Q_SPLITS = 16
+
+
+def q_splits(key_blocks: int, n_qt: int, sms: int) -> int:
+    """How many blocks K4 gives each key tile's sweep over the q tiles.
+
+    One while the key tiles alone (``key_blocks`` = batch * heads * key
+    tiles of 128) fill the card's ``sms`` SMs, as at self-attention. Fewer
+    key tiles (the text cross-attention: 4 a head) leave SMs idle, so the
+    sweep is split: the count (up to n_qt q tiles of 64 and MAX_Q_SPLITS)
+    whose waves of one block per SM finish first, the smallest on a tie."""
+    if key_blocks >= sms:
+        return 1
+    return min(range(1, min(MAX_Q_SPLITS, n_qt) + 1),
+               key=lambda s: (-(-key_blocks * s // sms) / s, s))
+
+
+def _merged_kernel(q, k, v, o, lse, do, kvalid):
+    """Launch K4 -> (dq, dk, dv); see bwd_kernel."""
+    b, n, lq, d = q.shape
+    lk = k.shape[2]
+    dev = q.device
+    _check_rows(o, "o")
+    n_qt, n_kt = -(-lq // 64), -(-lk // 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = q_splits(b * n * n_kt, n_qt, sms)
+    dq = torch.zeros((b * n, lq, d), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, n, lk, d), dtype=torch.bfloat16, device=dev)
+    dv = torch.empty((b, lk, n, d), dtype=torch.bfloat16, device=dev)
+    # scratch: q' and bf16(q * scale); per 64-row q tile, lse * log2e and delta
+    qp = torch.empty((2, b * n, lq, d), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((b * n, n_qt, 2, 64), dtype=torch.float32, device=dev)
+    part = (torch.empty((2, splits, b * n, lk, d), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    qs, ks, vs, os_, dos, dks, dvs = (q.stride(), k.stride(), v.stride(), o.stride(),
+                                      do.stride(), dk.stride(), dv.stride())
+    err = _build.lib().hyv_flash_bwd_merged(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        _check_valid(kvalid, b, n, dev), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        qp.data_ptr(), stats.data_ptr(), None if part is None else part.data_ptr(),
+        b, n, lq, lk, splits,
+        qs[0], qs[1], qs[2],
+        ks[0], ks[1], ks[2],
+        vs[0], vs[2], vs[1],          # v, o, dO, dv are [B, L, N, D]: (batch, head, row)
+        os_[0], os_[2], os_[1],
+        dos[0], dos[2], dos[1],
+        dks[0], dks[1], dks[2],
+        dvs[0], dvs[2], dvs[1],
+        _qscale(d), _f32(1.0 / math.sqrt(d)), _build.stream_ptr(dev))
+    _build.check(err, "K4")
+    if part is not None:
+        # the second pass over the q-split partials, in a fixed order
+        dk.copy_(part[0].sum(dim=0).view(b, n, lk, d))
+        dv.copy_(part[1].sum(dim=0).view(b, n, lk, d).movedim(1, 2))
+    return dq.view(b, n, lq, d).to(q.dtype), dk, dv
+
+
 def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None):
     """Launch K4 (merged) or K5 on CUDA tensors -> (dq, dk, dv) as
     flash_attention_bwd_plain, keys past kvalid [B*N] int32 masked."""
@@ -382,13 +442,14 @@ def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None):
                    and q.device.type == "cuda", "q, k, v, o, lse, dO must be on one CUDA device")
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "dO")):
         _check_rows(x, name)
+    if merged:
+        return _merged_kernel(q, k, v, o, lse, do, kvalid)
     valid_ptr = _check_valid(kvalid, b, n, q.device)
     # delta = rowsum(dO o) over the bf16 o, as the JAX package computes it
     # outside its kernels
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).reshape(b * n, lq)
     delta = delta.contiguous()
-    dq = (torch.zeros if merged else torch.empty)((b * n, lq, d), dtype=torch.float32,
-                                                  device=q.device)
+    dq = torch.empty((b * n, lq, d), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, n, lk, d), dtype=torch.bfloat16, device=q.device)
     dv = torch.empty((b, lk, n, d), dtype=torch.bfloat16, device=q.device)
     qs, ks, vs, dos, dks, dvs = (q.stride(), k.stride(), v.stride(), do.stride(),
@@ -403,8 +464,8 @@ def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None):
         dos[0], dos[2], dos[1],
         dks[0], dks[1], dks[2],
         dvs[0], dvs[2], dvs[1],
-        _qscale(d), _f32(1.0 / math.sqrt(d)), int(merged), _build.stream_ptr(q.device))
-    _build.check(err, "K4" if merged else "K5")
+        _qscale(d), _f32(1.0 / math.sqrt(d)), _build.stream_ptr(q.device))
+    _build.check(err, "K5")
     return dq.view(b, n, lq, d).to(q.dtype), dk, dv
 
 

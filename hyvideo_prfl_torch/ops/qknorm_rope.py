@@ -20,6 +20,10 @@ import torch
 
 from . import _build
 
+# K6 and K7 take head_dim 128 and every head count up to this one (the JAX
+# kernels take any); narrow rows are a warp's, wide ones a block's
+MAX_HEADS = 64
+
 
 def rmsnorm_rope_plain(x, w, c_tab, s_tab, num_heads: int, eps: float = 1e-6,
                        do_rope: bool = True):
@@ -74,8 +78,7 @@ def _kernel(x, w, c_tab, s_tab, num_heads, eps, do_rope):
     n = num_heads
     d = m // n
     _build.require(x.dtype == torch.bfloat16, f"K6 takes bf16 x, got {x.dtype}")
-    _build.require(d == 128 and n in (2, 4, 8, 12, 16, 40),
-                   f"K6 has no instance for {n} heads of {d}")
+    _build.require(d == 128 and 1 <= n <= MAX_HEADS, f"K6 has no instance for {n} heads of {d}")
     w = w.float().contiguous()
     _build.require(x.is_contiguous() and _build.aligned16(x, w),
                    "K6 takes contiguous, 16-byte aligned x and w")
@@ -110,8 +113,7 @@ def bwd_kernel(x, w, c_tab, s_tab, g, num_heads, eps, do_rope):
     d = m // n
     _build.require(x.dtype == torch.bfloat16 and g.dtype == torch.bfloat16,
                    f"K7 takes bf16 x and g, got {x.dtype} and {g.dtype}")
-    _build.require(d == 128 and n in (2, 4, 8, 12, 16),
-                   f"K7 has no instance for {n} heads of {d}")
+    _build.require(d == 128 and 1 <= n <= MAX_HEADS, f"K7 has no instance for {n} heads of {d}")
     _build.require(g.shape == (b, n, l, d), f"K7: g must be [{b}, {n}, {l}, {d}]")
     w = w.float().contiguous()
     _build.require(w.numel() == m and w.device == x.device, "K7: w must be [N*D] on x's device")

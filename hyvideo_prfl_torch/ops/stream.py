@@ -17,8 +17,13 @@ import torch
 
 from . import _build
 
-_K8_DIMS = (128, 256, 512, 1024, 1536, 2048, 5120)
-_K9_DIMS = (128, 256, 512, 1024, 1536, 2048)
+# K8 and K9 take every multiple of 128 up to this width (the JAX kernels
+# take every multiple of 128); narrow rows are a warp's, wide ones a block's
+MAX_DIM = 8192
+
+
+def _has_instance(d: int) -> bool:
+    return d % 128 == 0 and 0 < d <= MAX_DIM
 
 
 def ln_scale_shift_plain(x, s, t, eps: float = 1e-6, out_dtype=torch.bfloat16):
@@ -64,7 +69,7 @@ def _kernel(x, s, t, eps, out_dtype):
     _check_rows(x, s, "K8")
     _build.require(out_dtype in (torch.bfloat16, torch.float32),
                    f"K8 writes bf16 or fp32, got {out_dtype}")
-    _build.require(d in _K8_DIMS, f"K8 has no instance for D={d}")
+    _build.require(_has_instance(d), f"K8 has no instance for D={d}")
     _build.require(t.shape == s.shape and t.dtype == torch.float32 and t.is_contiguous()
                    and _build.aligned16(t), "K8: t must be contiguous fp32 like s")
     out = torch.empty((b, l, d), dtype=out_dtype, device=x.device)
@@ -80,7 +85,7 @@ def bwd_kernel(x, s, g, eps):
     """Launch K9 on CUDA tensors -> (dx, ds, dt) as ln_scale_shift_bwd_plain."""
     b, l, d = x.shape
     _check_rows(x, s, "K9")
-    _build.require(d in _K9_DIMS, f"K9 has no instance for D={d}")
+    _build.require(_has_instance(d), f"K9 has no instance for D={d}")
     _build.require(g.shape == x.shape and g.dtype in (torch.bfloat16, torch.float32),
                    f"K9: g must be bf16 or fp32 {tuple(x.shape)}")
     _build.require(g.device == x.device and g.is_contiguous() and _build.aligned16(g),

@@ -53,8 +53,9 @@ GROUPS = (("flash_fwd_kernel<false>", "K1"),
           ("flash_fwd_single_kernel<true>", "K3s"),
           ("::rope_kernel<", "R"),
           ("flash_fwd_qk8_kernel", "K10"),
-          ("flash_bwd_dkv_kernel<true>", "K4"),
-          ("flash_bwd_dkv_kernel<false>", "K5"),
+          ("flash_bwd_merged_kernel", "K4"),
+          ("flash_bwd_prologue_kernel", "K4"),
+          ("flash_bwd_dkv_kernel", "K5"),
           ("flash_bwd_dq_kernel", "K5"),
           ("rmsnorm_rope_kernel", "K6"),
           ("rmsnorm_rope_bwd_kernel", "K7"),

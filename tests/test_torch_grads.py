@@ -301,3 +301,48 @@ def test_dots_remat_policies_are_not_ported():
     for policy in ("dots", "dots_all"):
         with pytest.raises(NotImplementedError, match=policy):
             tdit.WanModel(dataclasses.replace(tdit.tiny_test(), remat_policy=policy))
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_launch_derivation_with_single_block_self_attention(monkeypatch, shifted):
+    # chip_smoke.py holds the 14B check at 1,560 tokens to dit_launches with
+    # self_single: there the self-attention's keys fit one block, so it
+    # takes K3 (K3s on the shifted route) like the cross-attention. On the
+    # CPU the same Functions call the plain versions; count them by the
+    # kernel the card would launch for each key length
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if shifted:
+        monkeypatch.setattr(tfa, "FLASH_BOUNDED", False)
+    counts = {}
+
+    def counted(mod, name, key_fn):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kw):
+            key = key_fn(*args)
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(mod, name, wrapper)
+
+    counted(tstream, "ln_scale_shift_plain", lambda *a: "K8")
+    counted(tstream, "ln_scale_shift_bwd_plain", lambda *a: "K9")
+    counted(tqr, "rmsnorm_rope_plain", lambda *a: "K6")
+    counted(tqr, "rmsnorm_rope_bwd_plain", lambda *a: "K7")
+    counted(tfa, "flash_attention_plain",
+            lambda q, k, v: "K3" if tfa.uses_single_block(k.shape[2]) else "K1")
+    counted(tfa, "flash_attention_shifted_plain",
+            lambda q, k, v, kvalid: "K3s" if tfa.uses_single_block(k.shape[2]) else "K2")
+    counted(tfa, "flash_attention_bwd_plain", lambda *a: "K4")
+    x, t, ctx = _inputs(4)
+    model = _tiny_model(param_dtype=torch.float32, remat_policy="attn")
+    model(x.requires_grad_(), t, ctx).square().mean().backward()
+    assert tfa.uses_single_block(48)  # the tiny grid's 48 tokens
+    assert counts == smoke.dit_launches(2, True, shifted=shifted, self_single=True)

@@ -189,6 +189,11 @@ def test_flash_bwd_routes_are_interchangeable(cuda, merged):
     got = tfa.bwd_kernel(q, k, v, o, lse, do, merged)
     for a, b in zip(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, do)):
         _close(a, b, 2)
+    # and the two kernels against each other: each within two ulps of the
+    # plain backward, so within four of one another
+    other = tfa.bwd_kernel(q, k, v, o, lse, do, not merged)
+    for a, b in zip(got, other):
+        _close(a, b, 4)
 
 
 @pytest.mark.gpu
@@ -388,3 +393,112 @@ def test_rope_matches_plain(cuda, dtype, grid):
     # the same unfused fp32 products and sum, then one rounding: bit for bit
     assert torch.equal(y, trope.rope_rotate_plain(x.detach(), c, s))
     assert torch.equal(dx, trope.rope_rotate_plain(gy, c, torch.roll(s, 64, dims=-1)))
+
+
+# K6-K9 at the widths of bench.py (dim 1280, 10 heads) and of the 14B
+# models (dim 5120, 40 heads: the wide row layout, a block per row), with
+# ragged row counts; the bounds are those of the 1536-wide tests above
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,l", [(1280, 37), (5120, 37), (5120, 4685), (1280, 3121)])
+def test_k8_k9_at_every_model_width(cuda, d, l):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(2, l, d, device=cuda, generator=g).requires_grad_()
+    s = (1 + 0.1 * torch.randn(2, d, device=cuda, generator=g)).requires_grad_()
+    t = (0.1 * torch.randn(2, d, device=cuda, generator=g)).requires_grad_()
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = _build.LAUNCHES["K8"], _build.LAUNCHES["K9"]
+        y = tstream.ln_scale_shift(x, s, t, out_dtype=out_dtype)
+        _close(y, tstream.ln_scale_shift_plain(x, s, t, out_dtype=out_dtype), 1)
+        gy = torch.randn(y.shape, device=cuda, generator=g).to(out_dtype)
+        got = torch.autograd.grad(y, (x, s, t), gy)
+        assert (_build.LAUNCHES["K8"], _build.LAUNCHES["K9"]) == (before[0] + 1, before[1] + 1)
+        ref = tstream.ln_scale_shift_bwd_plain(x.detach(), s.detach(), gy)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,l", [(10, 37), (40, 37), (40, 4685), (1, 33), (17, 5)])
+def test_k6_k7_at_every_head_count(cuda, n, l):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    m = n * 128
+    x = torch.randn(2, l, m, device=cuda, generator=g).bfloat16().requires_grad_()
+    w = (1 + 0.1 * torch.randn(m, device=cuda, generator=g)).requires_grad_()
+    c, s = (torch.from_numpy(a).to(cuda) for a in rope_tables_rolled_np((1, 1, l), 128))
+    for rope in (True, False):
+        before = _build.LAUNCHES["K6"], _build.LAUNCHES["K7"]
+        y = tqr.rmsnorm_rope(x, w, c, s, n) if rope else tqr.rmsnorm_only(x, w, n)
+        cc, ss = (c, s) if rope else (None, None)
+        _close(y, tqr.rmsnorm_rope_plain(x, w, cc, ss, n, do_rope=rope), 2)
+        gy = torch.randn(y.shape, device=cuda, generator=g).bfloat16()
+        dx, dw = torch.autograd.grad(y, (x, w), gy)
+        assert (_build.LAUNCHES["K6"], _build.LAUNCHES["K7"]) == (before[0] + 1, before[1] + 1)
+        rdx, rdw = tqr.rmsnorm_rope_bwd_plain(x.detach(), w.detach(), cc, ss, gy, n, do_rope=rope)
+        _close(dx, rdx, 2)
+        _close(dw, rdw, 1)
+
+
+def _k4_case(cuda, seed, b, n, lq, lk, valid=None, wide_rows=False):
+    """K4 called directly against the plain backward -> K4's gradients.
+    wide_rows: v and dO as strided views of wider token-major buffers."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, n, lq, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(b, n, lk, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(b, lk, n, 256 if wide_rows else 128, device=cuda, generator=g).bfloat16()
+    v = v[..., 64:192] if wide_rows else v
+    kvalid = None
+    if valid is not None:
+        kvalid = torch.tensor(valid, device=cuda, dtype=torch.int32).repeat_interleave(n)
+    o, lse = tfa.flash_fwd_kernel(q, k, v, tfa.uses_single_block(lk), valid is not None,
+                                  kvalid)
+    do = torch.randn(b, lq, n, 256 if wide_rows else 128, device=cuda, generator=g).bfloat16()
+    do = do[..., 128:] if wide_rows else do
+    before = _build.LAUNCHES["K4"]
+    got = tfa.bwd_kernel(q, k, v, o, lse, do, True, kvalid)
+    assert _build.LAUNCHES["K4"] == before + 1  # the prologue is part of the one launch
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, kvalid)
+    # bf16(p), bf16(ds) and the bf16 outputs may round the other way, and dq
+    # adds in a run-dependent order: two bf16 ulps
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == torch.bfloat16
+        _close(a, r, 2)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", [(1, 1), (129, 127), (4680, 512), (4680, 4680)])
+def test_k4_matches_plain_at_tile_edges(cuda, lq, lk):
+    # 64-row q tiles and 128-key tiles: one of each, one row or key past a
+    # tile, the cross-attention's 4 key tiles, the self-attention's ragged
+    # last ones
+    _k4_case(cuda, 23, 1, 12, lq, lk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,lq,lk", [(1, 12, 4680, 512), (2, 3, 1000, 300), (1, 1, 64, 100)])
+def test_k4_q_split_and_one_tile_grid(cuda, b, n, lq, lk):
+    # few key tiles: each key tile's q sweep splits over several blocks
+    # (fp32 dk/dv partials summed by the wrapper); B 1, N 1, lq 64, lk 100:
+    # a grid of one block with one q tile
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = tfa.q_splits(b * n * -(-lk // 128), -(-lq // 64), sms)
+    assert (splits > 1) == (lq > 64)
+    _k4_case(cuda, 24, b, n, lq, lk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk,valid", [(700, 600, [1, 128]), (700, 600, [129, 333]),
+                                         (4680, 4680, [4680, 2001]), (4680, 512, [512, 77])])
+def test_k4_masks_keys_exactly(cuda, lq, lk, valid):
+    # key masks at 1, 128 and 129 (tile edges) and inside a tile; masked
+    # keys' gradients are exactly 0, kept keys' are not
+    dq, dk, dv = _k4_case(cuda, 25, 2, 3, lq, lk, valid)
+    for bi, vl in enumerate(valid):
+        assert not dk[bi, :, vl:].any() and not dv[bi, vl:].any()
+        assert dk[bi, :, :vl].abs().sum() > 0 and dv[bi, :vl].abs().sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", [(1000, 1000), (4680, 512)])
+def test_k4_reads_strided_token_major_v_and_do(cuda, lq, lk):
+    _k4_case(cuda, 26, 1, 4, lq, lk, wide_rows=True)

@@ -7,6 +7,7 @@ chip_smoke.py then holds the Hopper kernels to, against the TPU kernels'
 math. Inputs are made by numpy from a seed and handed to both.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -59,18 +60,41 @@ def test_rope_tables_equal_jax(grid):
     np.testing.assert_array_equal(trope.rope_permutation(128), jrope.rope_permutation(128))
 
 
-@pytest.mark.parametrize("out_dtype,l,affine", [
-    ("bfloat16", 48, False), ("bfloat16", 36, True), ("float32", 36, False)])
-def test_ln_scale_shift_matches_jax(out_dtype, l, affine):
+def _bwd_close(got, want, rel, what):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * np.abs(want).max(), err_msg=what)
+
+
+# d 256 (the tiny DiT's width), then the bench.py width 1280 (10 heads) and
+# the 14B width 5120 (40 heads), where the kernels take a wide row layout
+@pytest.mark.parametrize("out_dtype,l,affine,d", [
+    pytest.param("bfloat16", 48, False, 256, id="bfloat16-48-False"),
+    pytest.param("bfloat16", 36, True, 256, id="bfloat16-36-True"),
+    pytest.param("float32", 36, False, 256, id="float32-36-False"),
+    ("bfloat16", 48, False, 1280), ("float32", 36, True, 1280),
+    ("bfloat16", 36, False, 5120), ("float32", 48, True, 5120)])
+def test_ln_scale_shift_matches_jax(out_dtype, l, affine, d):
     rng = np.random.RandomState(0)
-    b, d = 2, 256
+    b = 2
     x = rng.randn(b, l, d) * 0.5
     s = 1.0 + 0.1 * rng.randn(d if affine else b * d).reshape(-1, d)
     t = 0.1 * rng.randn(*s.shape)
-    want = _np(jstream.ln_scale_shift(_jt(x), _jt(s), _jt(t),
-                                      out_dtype=getattr(jnp, out_dtype)))
-    got = tstream.ln_scale_shift(_tt(x), _tt(s), _tt(t),
-                                 out_dtype=getattr(torch, out_dtype)).float().numpy()
+    jd, td = getattr(jnp, out_dtype), getattr(torch, out_dtype)
+
+    # the JAX custom_vjp through its single-device _local (what the public
+    # wrapper runs on one device), whose forward and backward are the
+    # Pallas kernels
+    def jfun(x_, s_, t_):
+        sb = jnp.broadcast_to(s_.reshape(-1, d), (b, d))
+        tb = jnp.broadcast_to(t_.reshape(-1, d), (b, d))
+        return jstream._local(x_, sb, tb, 1e-6, jd)
+
+    out, vjp = jax.vjp(jfun, _jt(x), _jt(s), _jt(t))
+    want = _np(out)
+    tx, ts, tt_ = (_tt(a).requires_grad_() for a in (x, s, t))
+    y = tstream.ln_scale_shift(tx, ts, tt_, out_dtype=td)
+    got = y.detach().float().numpy()
     # identical math; the mean/variance sums may run in another order, which
     # can move a value across a bf16 rounding boundary (one ulp) or change
     # fp32 in the last bits
@@ -79,25 +103,47 @@ def test_ln_scale_shift_matches_jax(out_dtype, l, affine):
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
+    # backward: the port's plain backward against the JAX kernel's
+    g = _np(_jt(rng.randn(b, l, d), jd))  # the cotangent, exact in out_dtype
+    grads = torch.autograd.grad(y, (tx, ts, tt_), _tt(g, td))
+    # fp32 formulas on both sides; the row and column sums run in another
+    # order (and JAX sums ds/dt by tile through a ones-row matmul)
+    for name, a, w in zip(("dx", "ds", "dt"), grads, vjp(_jt(g, jd))):
+        _bwd_close(a.numpy(), _np(w), 1e-5, name)
 
-@pytest.mark.parametrize("dtype,rope,l", [
-    ("bfloat16", True, 48), ("bfloat16", True, 36), ("bfloat16", False, 36),
-    ("float32", True, 36), ("float32", False, 48)])
-def test_rmsnorm_rope_matches_jax(dtype, rope, l):
-    n, d = 2, 128
+
+# n 2 (the tiny DiT), then 10 heads (bench.py) and 40 (the 14B width),
+# where the kernels take a wide row layout
+@pytest.mark.parametrize("dtype,rope,l,n", [
+    pytest.param("bfloat16", True, 48, 2, id="bfloat16-True-48"),
+    pytest.param("bfloat16", True, 36, 2, id="bfloat16-True-36"),
+    pytest.param("bfloat16", False, 36, 2, id="bfloat16-False-36"),
+    pytest.param("float32", True, 36, 2, id="float32-True-36"),
+    pytest.param("float32", False, 48, 2, id="float32-False-48"),
+    ("bfloat16", True, 48, 10), ("float32", False, 36, 10),
+    ("bfloat16", True, 36, 40), ("float32", False, 48, 40)])
+def test_rmsnorm_rope_matches_jax(dtype, rope, l, n):
+    d = 128
     grid = {48: (3, 4, 4), 36: (3, 4, 3)}[l]
     rng = np.random.RandomState(1)
     x = rng.randn(1, l, n * d)
     w = rng.rand(n * d) + 0.5
     c, s = trope.rope_tables_rolled_np(grid, d)
-    jx, tx = _jt(x, getattr(jnp, dtype)), _tt(x, getattr(torch, dtype))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    # the JAX custom_vjp through its single-device _local (what the public
+    # wrappers run on one device), whose forward and backward are the
+    # Pallas kernels; rmsnorm_only is its no-rope mode
+    cj, sj = (c, s) if rope else (np.zeros((l, d), np.float32),) * 2
+    out, vjp = jax.vjp(lambda x_, w_: jqr._local(x_, w_, jnp.asarray(cj), jnp.asarray(sj),
+                                                  1e-6, rope),
+                       _jt(x, jd), _jt(w).reshape(n, d))
+    want = _np(out)
+    tx, tw = _tt(x, td).requires_grad_(), _tt(w).requires_grad_()
     if rope:
-        want = _np(jqr.rmsnorm_rope(jx, _jt(w), jnp.asarray(c), jnp.asarray(s), n))
-        got = tqr.rmsnorm_rope(tx, _tt(w), torch.from_numpy(c), torch.from_numpy(s), n)
+        y = tqr.rmsnorm_rope(tx, tw, torch.from_numpy(c), torch.from_numpy(s), n)
     else:
-        want = _np(jqr.rmsnorm_only(jx, _jt(w), n))
-        got = tqr.rmsnorm_only(tx, _tt(w), n)
-    got = got.float().numpy()
+        y = tqr.rmsnorm_only(tx, tw, n)
+    got = y.detach().float().numpy()
     assert got.shape == (1, n, l, d)
     # identical math; the sum of squares may run in another order, so
     # bf16(x r) can round the other way, and the rope sum mixes two such
@@ -106,6 +152,21 @@ def test_rmsnorm_rope_matches_jax(dtype, rope, l):
         np.testing.assert_allclose(got, want, rtol=0, atol=2 * BF16_ULP * np.abs(want).max())
     else:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+    # backward: the port's plain backward against the JAX kernel's
+    g = _np(_jt(rng.randn(1, n, l, d), jd))
+    want_dx, want_dw = vjp(_jt(g, jd))
+    got_dx, got_dw = torch.autograd.grad(y, (tx, tw), _tt(g, td))
+    assert got_dx.dtype == td and got_dw.dtype == torch.float32
+    if dtype == "float32":
+        # the same fp32 formulas; sums of squares and dots in another order
+        _bwd_close(got_dx.numpy(), _np(want_dx), 1e-5, "dx")
+        _bwd_close(got_dw.numpy(), _np(want_dw).reshape(-1), 1e-5, "dw")
+    else:
+        # dx rounds to bf16 (one ulp either way); r differs in its last
+        # fp32 bits, so bf16(x r) in dw may round the other way: two ulps
+        _bwd_close(got_dx.float().numpy(), _np(want_dx), BF16_ULP, "dx")
+        _bwd_close(got_dw.numpy(), _np(want_dw).reshape(-1), 2 * BF16_ULP, "dw")
 
 
 @pytest.mark.parametrize("dtype,lq,lk,block", [

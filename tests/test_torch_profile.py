@@ -30,11 +30,17 @@ def profile():
      "K3"),
     ("void (anonymous namespace)::flash_fwd_single_kernel<true>(CUtensorMap_st, float*)",
      "K3s"),
-    ("void (anonymous namespace)::flash_bwd_dkv_kernel<true>(float*)", "K4"),
+    ("void (anonymous namespace)::flash_bwd_merged_kernel(CUtensorMap_st, MergedArgs)", "K4"),
+    ("void (anonymous namespace)::flash_bwd_prologue_kernel(PrologueArgs)", "K4"),
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<false>(float*)", "K5"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel(float*)", "K5"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel(BwdArgs)", "K5"),
     ("void (anonymous namespace)::rmsnorm_rope_kernel<6, true>(float*)", "K6"),
     ("void (anonymous namespace)::rmsnorm_rope_bwd_kernel<6, true>(float*)", "K7"),
+    ("void (anonymous namespace)::rmsnorm_rope_kernel<8, 4, false, true>(float*)", "K6"),
+    ("void (anonymous namespace)::rmsnorm_rope_bwd_kernel<1, 6, true, false>(float*)", "K7"),
+    ("void (anonymous namespace)::ln_scale_shift_kernel<8, 8, false, float>(float*)", "K8"),
+    ("void (anonymous namespace)::ln_scale_shift_bwd_kernel<1, 12, true, float>(float*)", "K9"),
     ("void (anonymous namespace)::ln_scale_shift_kernel<12, __nv_bfloat16>(float*)", "K8"),
     ("void (anonymous namespace)::ln_scale_shift_bwd_kernel<12, float>(float*)", "K9"),
     ("void (anonymous namespace)::flash_fwd_qk8_kernel(signed char const*)", "K10"),
