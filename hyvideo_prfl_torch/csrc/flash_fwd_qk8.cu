@@ -23,16 +23,17 @@
 // (1,979 TOPS peak) and 6.6e12 bf16 flop for p v (989 TFLOP/s peak), ~10 ms
 // together, against ~0.3 GB of q8/k8/v/o traffic.
 //
-// Design: K1's (flash_fwd.cu) with the score product on the int8 path.
+// Design: FlashAttention-2's on mma.sync, with the score product on the
+// int8 path.
 // * A block of 8 warps owns 128 q rows of one (batch, head); each warp keeps
 //   the int8 fragments of its 16 rows in registers for the whole key loop.
 // * q k^T is mma.sync m16n8k32 s8 x s8 -> s32. An int8 row of 128 features
 //   is 128 B, one swz128 row; the int8 A and B fragments have the byte
-//   layout of the bf16 m16n8k16 ones, so ldmatrix loads them as K1 loads
+//   layout of the bf16 m16n8k16 ones, so ldmatrix loads them as it loads
 //   bf16, and each key tile takes 4 products along the features, not 8.
 // * The s32 accumulator has the fp32 one's register layout: exp2(s32 * c)
 //   goes straight into acc_to_a as the bf16 A operand of p v, which stays
-//   mma.sync m16n8k16 bf16 -> fp32, v through ldmatrix.trans as in K1.
+//   mma.sync m16n8k16 bf16 -> fp32, v through ldmatrix.trans.
 // * Keys stream in 64-row tiles (8 KB of int8 K, 16 KB of bf16 V) through a
 //   two-stage cp.async ring; q (16 KB) lands once, beside tile 0.
 // * lse is written as [B*N, Lq] fp32; the TPU kernel's 128-lane lse layout

@@ -11,8 +11,8 @@
 // a [M, K] and b stored transposed, bt [nblocks * n_cols, K] (K contiguous
 // in both: the layout ldmatrix and the int8 mma want); P2 is nblocks = 1.
 // They time int8 on mma.sync m16n8k32 (s8 x s8 -> s32) against bf16 on
-// m16n8k16 (-> fp32): the instructions K10 and K1 use for q k^T, so the
-// pair says whether K10 can beat K1 on this card.
+// m16n8k16 (-> fp32): the instruction K10 uses for q k^T and its bf16
+// counterpart on the same path, so the pair says what int8 gains there.
 //
 // Bound on the H100: tensor-core math (1,979 int8 TOPS, 989 bf16 TFLOP/s);
 // the operands are a few MB and are reused reps times.

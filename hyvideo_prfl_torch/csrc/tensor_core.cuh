@@ -1,7 +1,7 @@
 // Tensor-core and async-copy helpers shared by the flash-attention kernels
-// (flash_fwd.cu, flash_fwd_qk8.cu, flash_bwd.cu) and the int8 probes
-// (int8_probe.cu): cp.async into shared memory, ldmatrix, mma.sync m16n8k16
-// bf16 -> fp32 and m16n8k32 int8 -> int32.
+// (flash_fwd_qk8.cu, flash_bwd.cu; flash_fwd.cu for its q' pass) and the
+// int8 probes (int8_probe.cu): cp.async into shared memory, ldmatrix,
+// mma.sync m16n8k16 bf16 -> fp32 and m16n8k32 int8 -> int32.
 //
 // Shared-memory tiles hold bf16 rows of 128 features (256 B) or 64 (128 B),
 // XOR-swizzled in 16 B chunks so that ldmatrix's eight row addresses of one

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "hyv_probe_rate": [_P, _P, _P] + [_I] * 7 + [_P],
     "hyv_probe_chain": [_P, _P, _P] + [_I] * 6 + [_P],
     "hyv_rope": [_P] * 4 + [_LL, _I, _I, _I, _P],
-    "hyv_flash_fwd_single_smem": [],
+    "hyv_flash_fwd_smem": [],
     "hyv_flash_bwd_merged_smem": [],
 }
 

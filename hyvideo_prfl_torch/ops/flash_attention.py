@@ -22,10 +22,10 @@ The op is a ``torch.autograd.Function`` (the JAX ``custom_vjp``) that saves
 (q, k, v, o, lse), lse [B*N, Lq] fp32, and recomputes p from lse in its
 backward, which is therefore the same for both forms. On a CUDA tensor the
 forward runs K1 (bounded, streaming: lk padded to 128 exceeds FULL_K_MAX)
-or K2 (shifted, streaming), both csrc/flash_fwd.cu, or K3 (bounded,
-single-K-block) or K3s (K3's shifted form), both csrc/flash_fwd_single.cu
-(TMA and wgmma on a persistent warp-specialised grid, so q, k, v need
-16-byte aligned bases and strides); the backward runs K4 (merged;
+or K2 (shifted, streaming), or K3 (bounded, single-K-block) or K3s (K3's
+shifted form): the four instances of one kernel in csrc/flash_fwd.cu (TMA
+and wgmma on a persistent warp-specialised grid, so q, k, v need 16-byte
+aligned bases and strides); the backward runs K4 (merged;
 csrc/flash_bwd_merged.cu, TMA and wgmma, the q sweep split over several
 blocks when the key tiles alone leave SMs idle: ``q_splits``) or K5
 (split; csrc/flash_bwd.cu, mma.sync), routed by the JAX rule

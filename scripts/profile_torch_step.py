@@ -47,10 +47,11 @@ from hyvideo_prfl_torch.pipelines.pipeline import latent_size_for  # noqa: E402
 from hyvideo_prfl_torch.utils.checkpoint import quantize_model  # noqa: E402
 
 # kernel-name fragment -> group; first match wins
-GROUPS = (("flash_fwd_kernel<false>", "K1"),
-          ("flash_fwd_single_kernel<false>", "K3"),
-          ("flash_fwd_kernel<true>", "K2"),
-          ("flash_fwd_single_kernel<true>", "K3s"),
+# (the forward's instances are flash_fwd_kernel<kShifted, kStreaming>)
+GROUPS = (("flash_fwd_kernel<false, true>", "K1"),
+          ("flash_fwd_kernel<false, false>", "K3"),
+          ("flash_fwd_kernel<true, true>", "K2"),
+          ("flash_fwd_kernel<true, false>", "K3s"),
           ("::rope_kernel<", "R"),
           ("flash_fwd_qk8_kernel", "K10"),
           ("flash_bwd_merged_kernel", "K4"),

@@ -72,14 +72,18 @@ def test_k6_matches_plain(cuda, l, rope):
     _close(got, tqr.rmsnorm_rope_plain(x, w, c, s, 12, do_rope=rope), 2)
 
 
-# (lq, lk) at K3's tile and schedule edges: 128 q rows and 128 keys per tile,
-# one tile per block up to the SM count, then several per block
+# (lq, lk) at the forward's tile and schedule edges: 128 q rows and 128 keys
+# per tile, one tile per block up to the SM count, then several per block
 FLASH_EDGES = [(1, 1), (129, 127), (4680, 128), (4680, 129), (300, 769), (200, 3584)]
+# streaming key ranges (past FULL_K_MAX) whose last tile holds 1, 80, 84,
+# 120 and 127 keys (the 14B shapes end on 80 and 84, the 81-frame 1.3B one
+# on 120), at lq under and over lk
+STREAM_TAILS = [(300, 3713), (5000, 3920), (777, 4052), (4680, 4216), (129, 4351)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lq,lk", [(100, 77), (4680, 512), (4680, 4680), (9360, 9360),
-                                   (300, 4000), *FLASH_EDGES])
+                                   (300, 4000), *FLASH_EDGES, *STREAM_TAILS])
 def test_flash_matches_plain(cuda, lq, lk):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(2, 12, lq, 128, device=cuda, generator=g).bfloat16()
@@ -96,17 +100,20 @@ def test_flash_matches_plain(cuda, lq, lk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lq", [64, 300])
-def test_flash_single_tile_grid(cuda, lq):
+@pytest.mark.parametrize("n,lq,lk", [(1, 64, 300), (1, 300, 300), (1, 64, 4000), (1, 300, 4000),
+                                     (5, 3715, 3713), (3, 5000, 4216)])
+def test_flash_single_tile_grid(cuda, n, lq, lk):
     # B 1, N 1: one q tile (lq 64) or three, each block of the persistent
-    # grid owning one; K3 and K3s
+    # grid owning one; K3 and K3s (lk 300), K1 and K2 (lk 4000). Then grids
+    # of 150 tiles (a full wave of 132 and a ragged one of 18) and of 120
+    # (one partial wave)
     g = torch.Generator(device=cuda).manual_seed(13)
-    q = torch.randn(1, 1, lq, 128, device=cuda, generator=g).bfloat16()
-    k = torch.randn(1, 1, 300, 128, device=cuda, generator=g).bfloat16()
-    v = torch.randn(1, 300, 1, 128, device=cuda, generator=g).bfloat16()
+    q = torch.randn(1, n, lq, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(1, n, lk, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(1, lk, n, 128, device=cuda, generator=g).bfloat16()
     for shifted, plain in ((False, tfa.flash_attention_plain),
                            (True, tfa.flash_attention_shifted_plain)):
-        o, lse = tfa.flash_fwd_kernel(q, k, v, True, shifted)
+        o, lse = tfa.flash_fwd_kernel(q, k, v, tfa.uses_single_block(lk), shifted)
         po, plse = plain(q, k, v)
         _close(o, po, 2)
         torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
@@ -114,15 +121,17 @@ def test_flash_single_tile_grid(cuda, lq):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bounded", [True, False])
-def test_flash_reads_strided_v_and_q(cuda, bounded):
+@pytest.mark.parametrize("l", [300, 3920])
+def test_flash_reads_strided_v_and_q(cuda, bounded, l):
     # q/k as views of a wider [B, L, N, D] buffer (no copy), v as the
-    # natural [B, L, N, D] slice of a packed qkv projection; lk 300 takes
-    # K3 (bounded) or K3s
+    # natural [B, L, N, D] slice of a packed qkv projection; l 300 takes
+    # K3 (bounded) or K3s, l 3920 K1 or K2
     g = torch.Generator(device=cuda).manual_seed(3)
-    qkv = torch.randn(1, 300, 3, 4, 128, device=cuda, generator=g).bfloat16()
+    qkv = torch.randn(1, l, 3, 4, 128, device=cuda, generator=g).bfloat16()
     q, k = qkv[:, :, 0].movedim(2, 1), qkv[:, :, 1].movedim(2, 1)
     v = qkv[:, :, 2]
-    name = "K3" if bounded else "K3s"
+    name = {(True, True): "K3", (True, False): "K3s", (False, True): "K1",
+            (False, False): "K2"}[tfa.uses_single_block(l), bounded]
     before = _build.LAUNCHES[name]
     o = tfa.flash_attention(q, k, v, qk_layout="bnld", bounded_logits=bounded)
     assert _build.LAUNCHES[name] == before + 1
@@ -311,7 +320,9 @@ def test_probes_match_plain(cuda, dtype, chain):
                                          (300, 4000, None), (4680, 4680, None),
                                          (4680, 4680, [4680, 1001]), (1000, 9360, [64, 9300]),
                                          *((lq, lk, None) for lq, lk in FLASH_EDGES),
-                                         (300, 769, [1, 128]), (4680, 512, [200, 129])])
+                                         (300, 769, [1, 128]), (4680, 512, [200, 129]),
+                                         *((lq, lk, None) for lq, lk in STREAM_TAILS),
+                                         (300, 4000, [1, 128]), (777, 4052, [129, 2345])])
 def test_shifted_flash_matches_plain(cuda, lq, lk, valid):
     # K2 (streaming) and K3s (one K block): no mask, a ragged key tail, and a
     # user mask (lengths on a tile edge and inside one); token-major q/k
@@ -334,11 +345,13 @@ def test_shifted_flash_matches_plain(cuda, lq, lk, valid):
 
 
 @pytest.mark.gpu
-def test_shifted_flash_is_finite_where_the_bounded_one_overflows(cuda):
+@pytest.mark.parametrize("scale", [8.0, 9.5])
+def test_shifted_flash_is_finite_where_the_bounded_one_overflows(cuda, scale):
     g = torch.Generator(device=cuda).manual_seed(12)
-    # logits of standard deviation 64: each row's largest is ~240
-    q = (8 * torch.randn(1, 9, 4680, 128, device=cuda, generator=g)).bfloat16()
-    k = (8 * torch.randn(1, 9, 4680, 128, device=cuda, generator=g)).bfloat16()
+    # logits of standard deviation scale^2 (64, 90): each row's largest is
+    # ~240 or ~330; 4,680 keys stream (K1 against K2)
+    q = (scale * torch.randn(1, 9, 4680, 128, device=cuda, generator=g)).bfloat16()
+    k = (scale * torch.randn(1, 9, 4680, 128, device=cuda, generator=g)).bfloat16()
     v = torch.randn(1, 4680, 9, 128, device=cuda, generator=g).bfloat16()
     bounded = tfa.flash_attention(q, k, v, **BNLD_BOUNDED)
     assert not torch.isfinite(bounded.float()).all()  # logits past ~88 overflow exp

@@ -24,11 +24,11 @@ def profile():
 
 
 @pytest.mark.parametrize("name,group", [
-    ("void (anonymous namespace)::flash_fwd_kernel<false>(__nv_bfloat16 const*, int)", "K1"),
-    ("void (anonymous namespace)::flash_fwd_kernel<true>(__nv_bfloat16 const*, int)", "K2"),
-    ("void (anonymous namespace)::flash_fwd_single_kernel<false>(CUtensorMap_st, float*)",
+    ("void (anonymous namespace)::flash_fwd_kernel<false, true>(CUtensorMap_st, float*)", "K1"),
+    ("void (anonymous namespace)::flash_fwd_kernel<true, true>(CUtensorMap_st, float*)", "K2"),
+    ("void (anonymous namespace)::flash_fwd_kernel<false, false>(CUtensorMap_st, float*)",
      "K3"),
-    ("void (anonymous namespace)::flash_fwd_single_kernel<true>(CUtensorMap_st, float*)",
+    ("void (anonymous namespace)::flash_fwd_kernel<true, false>(CUtensorMap_st, float*)",
      "K3s"),
     ("void (anonymous namespace)::flash_bwd_merged_kernel(CUtensorMap_st, MergedArgs)", "K4"),
     ("void (anonymous namespace)::flash_bwd_prologue_kernel(PrologueArgs)", "K4"),
