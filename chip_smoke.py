@@ -7,16 +7,19 @@ Phases, each of which raises on failure:
 
 1. Print the card's name and power limit; build the Hopper kernels from
    hyvideo_prfl_torch/csrc (one nvcc per source, all at once) and print the
-   build time, each slice kernel's registers and spills (K1-K4, K3s and
-   the norm kernels' wide instances must have none), the forward's and
-   K4's shared memory, and the HGMMA and UTMALDG instructions in the
-   disassembly of K1, K2, K3, K3s and K4 (both must be there).
+   build time, each slice kernel's registers and spills (K1-K5, K3s, K10
+   and the norm kernels' wide instances must have none), the shared memory
+   of the forward, K4 (and K5's dk/dv pass), K5's dq pass and K10, and the
+   warpgroup MMA and TMA load instructions in the disassembly of K1, K2,
+   K3, K3s, K4, both K5 passes (HGMMA, UTMALDG) and K10 (IGMMA for the
+   int8 score, HGMMA for p v, UTMALDG): all must be there.
 2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
    streaming and K3 single-block flash forward, K10 int8-score flash
    forward) against its plain PyTorch version at the t2v-1.3B 832*480
    81-frame CFG-2 shapes, with a stated bound, K10 also against K1, and
    time each with CUDA events, in turns with its plain version and, where
-   one PyTorch call computes the same function, that call. K1 and K3
+   one PyTorch call computes the same function, that call (K10 in turns
+   with K1). K1 and K3
    (both TMA/wgmma instances of flash_fwd.cu) print TFLOP/s and their
    share of the bound; K3 is timed over 20 calls a turn, in turns also
    with the streaming form at the same 512 keys (streaming_ms).
@@ -44,8 +47,11 @@ Phases, each of which raises on failure:
    plain PyTorch version at the training shapes (81 frames, batch 1), with
    a stated bound, and time each with its plain version and, for K4/K5,
    the flash backward of PyTorch's scaled_dot_product_attention; K4 at
-   the self-attention (also in turns with K5, the mma.sync design, as
-   mma_sync_ms) and at the text cross-attention (lk 512: cross_*).
+   the self-attention and at the text cross-attention (lk 512: cross_*);
+   K5 at the self-attention (in turns with K4 too, as k4_ms) and at lq
+   1,024 (short_q_*: the split route through the autograd op, the dq
+   pass's key range split as the wrapper picks it, and unsplit as
+   short_q_unsplit_ms).
    5b. K4 and K5 with a key mask: within their bound, masked keys'
    gradients exactly 0.
 6. Whole-model gradient check: the 2-block full-width WanModel (fp32
@@ -58,12 +64,14 @@ Phases, each of which raises on failure:
    latent cache: the train_prfl_t2v_480.yaml config at t2v-1.3B (8 PRFL
    steps, fixed_mid 3, no accumulation, remat "attn"), two outer steps at
    21 frames and one at 81; then, from the same weights and draws, one at
-   21 and one at 81 with train.rollout_quant int8, and one at 21 on the
-   shifted route. Metrics finite, grad norm above 0, the policy's blocks
-   moved, launch counts per outer step equal to the derivation
-   (expected_train_launches), the int8 run's first reward within 0.05 and
-   the shifted run's within 0.01 of the bf16 run's; prints seconds per
-   refl and SFT step and the peak device memory.
+   21 and one at 81 with train.rollout_quant int8, one at 21 on the
+   shifted route, and one at 21 with every backward on K5
+   (HYV_FLASH_MERGED_BWD=0). Metrics finite, grad norm above 0, the
+   policy's blocks moved, launch counts per outer step equal to the
+   derivation (expected_train_launches), the int8 run's first reward
+   within 0.05, the shifted and the split-backward runs' within 0.01 of
+   the bf16 run's; prints seconds per refl and SFT step and the peak device
+   memory.
 8. The int8 probes P1 and P2 through their scripts
    (scripts/probe_int8_{rate,mosaic}_torch.py): exact against their plain
    versions, int8 and bf16 TOPS beside torch._int_mm's and torch.matmul's.
@@ -85,8 +93,9 @@ Phases, each of which raises on failure:
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
-backward kernels, the split-route gradient call for K5, the probe scripts
-for P1/P2, the un-normed pipeline for R); the last is
+backward kernels, the split-route gradient call and the split-backward
+training step for K5, the probe scripts for P1/P2, the un-normed pipeline
+for R); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -124,7 +133,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
            "hyvideo_prfl_tpu/ops/flash_attention.py:198"),
     "K3s": ("hyvideo_prfl_torch/csrc/flash_fwd.cu",
             "hyvideo_prfl_tpu/ops/flash_attention.py:351"),
-    "K4": ("hyvideo_prfl_torch/csrc/flash_bwd_merged.cu",
+    "K4": ("hyvideo_prfl_torch/csrc/flash_bwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:453"),
     "K5": ("hyvideo_prfl_torch/csrc/flash_bwd.cu",
            "hyvideo_prfl_tpu/ops/flash_attention.py:371"),
@@ -149,7 +158,8 @@ def _add(total, counts, times=1):
 
 
 def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn", qk8=False,
-                 shifted=False, qk_norm=True, cross_attn_norm=True, self_single=False):
+                 shifted=False, qk_norm=True, cross_attn_norm=True, self_single=False,
+                 merged_bwd=True):
     """Kernel launches of one DiT forward, and of its backward.
 
     A forward launches, per block, three K8 (two adaLN norms and norm3; two
@@ -164,7 +174,8 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
     single-block form too: K3, or K3s on the shifted route; the int8
     forward only takes streaming keys. The int8 forward has no backward. The backward
     launches, per block, one K9 per K8, one K4 per attention call (every
-    call at the slice's lengths takes the merged route) and one K7 per
+    call at the slice's lengths takes the merged route; K5 in its place
+    under HYV_FLASH_MERGED_BWD=0, ``merged_bwd`` False) and one K7 per
     qk-norm whose input needs a gradient: four, or three when the text
     context needs none (the frozen LRM's cross k), or two R (the rotations'
     backward) without qk_norm; plus one K9 at the head. Remat re-runs
@@ -190,22 +201,25 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
         recompute = {"attn": {"K8": k8, **norm_recompute}, "full": fwd_block,
                      "off": {}}[remat_policy]
         norm_bwd = {"K7": 3 + ctx_grad} if qk_norm else {"R": 2}
-        total = _add(total, _add({"K9": k8, **norm_bwd, "K4": 2}, recompute), n_layers)
+        attn_bwd = {"K4" if merged_bwd else "K5": 2}
+        total = _add(total, _add({"K9": k8, **norm_bwd, **attn_bwd}, recompute), n_layers)
         if head:
             total = _add(total, {"K9": 1})
     return total
 
 
 def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_quant=None,
-                            shifted=False):
+                            shifted=False, merged_bwd=True):
     """Kernel launches of one outer PRFL step: the refl step (mid no-grad
     rollout forwards, through the int8 model under rollout_quant "int8",
     one policy forward and backward, one forward and backward of the
     head-less LRM, whose text context needs no gradient) and the SFT step
-    (one policy forward and backward); ``shifted`` for HYV_FLASH_BOUNDED=0."""
-    policy = dit_launches(n_policy, True, remat_policy=remat_policy, shifted=shifted)
+    (one policy forward and backward); ``shifted`` for HYV_FLASH_BOUNDED=0,
+    ``merged_bwd`` False for HYV_FLASH_MERGED_BWD=0."""
+    policy = dit_launches(n_policy, True, remat_policy=remat_policy, shifted=shifted,
+                          merged_bwd=merged_bwd)
     lrm = dit_launches(n_lrm, True, ctx_grad=0, head=False, remat_policy=remat_policy,
-                       shifted=shifted)
+                       shifted=shifted, merged_bwd=merged_bwd)
     rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8", shifted=shifted)
     return _add(_add(_add({}, rollout, mid), lrm), policy, 2)
 
@@ -821,11 +835,14 @@ def phase_bwd_kernels(results):
     # ulps of the largest gradient (2^-6 max|ref|) per output.
     # The split route runs through the op as training would reach it: a
     # gradient of flash_attention at lq 1,024, where the JAX rule picks K5.
+    # Its numbers land beside the self-attention call's as short_q_*, the
+    # cross-attention's beside K4's as cross_*.
     cases = (("K4", lq, lq, "self-attention, 32,760 keys (56 valid in the last 64-key tile)"),
              ("K4", lq, TEXT_LEN, "cross-attention, 512 keys"),
-             ("K5", 1024, lq, "lq 1,024 (the split route, through the autograd op)"),
-             ("K5", lq, lq, "self-attention shape, called directly for timing"))
+             ("K5", lq, lq, "self-attention shape, called directly"),
+             ("K5", 1024, lq, "lq 1,024 (the split route, through the autograd op)"))
     route_launches = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, lq_, lk_, label in cases:
         merged = name == "K4"
         if "directly" not in label:
@@ -850,56 +867,67 @@ def phase_bwd_kernels(results):
             got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
         torch.cuda.synchronize()
-        timed = name == "K4" or "directly" in label
-        timing, extra, cross = None, {}, name == "K4" and lk_ != lq
-        if timed:
-            del got, ref
-            # the library yardstick: SDPA's flash backward on the same
-            # tensors in its [B, N, L, D] layout, one op per call; at the
-            # self-attention shape also K5, the mma.sync backward, as K4's
-            # yardstick of the old design in the same turns
-            qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
-            vs = v.movedim(1, 2).contiguous().requires_grad_()
-            out = sdpa_flash(qs, ks, vs)
-            dot = do.movedim(1, 2).contiguous()
-            fns = {"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                   "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, merged),
-                   "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
-                                                          retain_graph=True)}
-            if name == "K4" and not cross:
-                fns["mma_sync"] = lambda: fa.bwd_kernel(q, k, v, o, lse, do, False)
-            # the cross call is short: 20 calls a turn
-            t = timed_turns(fns, reps=5 if cross else 3, calls=20 if cross else 1)
-            del qs, ks, vs, out, dot
-            timing = (t["kernel"], t["plain"])
-            got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
-            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-            flop = 10 * n * lq_ * lk_ * d  # five products of 2 flop per multiply-add
-            print(f"  {name} {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), "
-                  f"{flop / (t['plain'] * 1e9):.1f} (plain), {flop / (t['library'] * 1e9):.1f} "
-                  f"(SDPA flash backward)"
-                  + (f", {flop / (t['mma_sync'] * 1e9):.1f} (K5, mma.sync, "
-                     f"{t['mma_sync']:.4f} ms)" if "mma_sync" in t else "")
-                  + f", counting the five products of the algorithm"
-                  f"{' (K5 runs seven)' if name == 'K5' else ''}")
-            # q, k, v, dO in; dq, dk, dv out (bf16); lse and delta fp32
-            extra = {**bound(n * d * 2 * (3 * lq_ + 4 * lk_) + 8 * n * lq_, bf16=flop),
-                     "library_ms": t["library"]}
-            if "mma_sync" in t:
-                extra["mma_sync_ms"] = t["mma_sync"]
-            if name == "K4":
-                sms = torch.cuda.get_device_properties(dev).multi_processor_count
-                splits = fa.q_splits(n * -(-lk_ // 128), -(-lq_ // 64), sms)
-                print(f"  {name} {label}: {extra['bound_ms'] / t['kernel']:.3f} of the bound, "
-                      f"q sweep split over {splits} block(s) per key tile")
+        cross, short_q = lk_ != lq, lq_ != lq
+        del got, ref
+        # the library yardstick: SDPA's flash backward on the same tensors
+        # in its [B, N, L, D] layout, one op per call; K5 at the
+        # self-attention in turns with K4 too, and at lq 1,024 also with its
+        # dq pass unsplit (dq_splits 1), the measurement behind the split
+        qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vs = v.movedim(1, 2).contiguous().requires_grad_()
+        out = sdpa_flash(qs, ks, vs)
+        dot = do.movedim(1, 2).contiguous()
+        fns = {"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+               "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, merged),
+               "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                      retain_graph=True)}
+        if name == "K5" and not short_q:
+            fns["k4"] = lambda: fa.bwd_kernel(q, k, v, o, lse, do, True)
+        if short_q:
+            fns["unsplit"] = lambda: fa.bwd_kernel(q, k, v, o, lse, do, False, dq_splits=1)
+        # the cross and the lq 1,024 calls are short: 20 calls a turn
+        t = timed_turns(fns, reps=5 if cross or short_q else 3,
+                        calls=20 if cross or short_q else 1)
+        del qs, ks, vs, out, dot
+        timing = (t["kernel"], t["plain"])
+        got = fa.bwd_kernel(q, k, v, o, lse, do, merged)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        flop = 10 * n * lq_ * lk_ * d  # five products of 2 flop per multiply-add
+        print(f"  {name} {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s (kernel), "
+              f"{flop / (t['plain'] * 1e9):.1f} (plain), {flop / (t['library'] * 1e9):.1f} "
+              f"(SDPA flash backward)"
+              + (f", {flop / (t['k4'] * 1e9):.1f} (K4, {t['k4']:.4f} ms)" if "k4" in t else "")
+              + (f", {flop / (t['unsplit'] * 1e9):.1f} (dq pass unsplit, "
+                 f"{t['unsplit']:.4f} ms)" if "unsplit" in t else "")
+              + f", counting the five products of the algorithm"
+              f"{' (K5 runs seven)' if name == 'K5' else ''}")
+        # q, k, v, dO in; dq, dk, dv out (bf16); lse and delta fp32
+        extra = {**bound(n * d * 2 * (3 * lq_ + 4 * lk_) + 8 * n * lq_, bf16=flop),
+                 "library_ms": t["library"]}
+        for key in ("k4", "unsplit"):
+            if key in t:
+                extra[f"{key}_ms"] = t[key]
+        splits = (fa.q_splits(n * -(-lk_ // 128), -(-lq_ // 64), sms),
+                  fa.q_splits(n * -(-lq_ // 128), -(-lk_ // 64), sms))
+        print(f"  {name} {label}: {extra['bound_ms'] / t['kernel']:.3f} of the bound; dk/dv "
+              f"q sweep split over {splits[0]} block(s) per key tile"
+              + (f", dq key range over {splits[1]} block(s) per q tile" if name == "K5" else ""))
         checks = [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)]
-        if cross:
-            # recorded beside the self-attention call's numbers, as cross_*
+        if cross or short_q:
+            # recorded beside the self-attention call's numbers
             part = {}
             report_many(name, label, checks, part, timing, **extra)
-            results[name].update({f"cross_{key}": val for key, val in part[name].items()})
+            prefix = "cross" if cross else "short_q"
+            results[name].update({f"{prefix}_{key}": val for key, val in part[name].items()})
         else:
             report_many(name, label, checks, results, timing, **extra)
+        if name == "K5" and not short_q:
+            # dq written once per q tile: the same bits on a second call
+            again = fa.bwd_kernel(q, k, v, o, lse, do, False)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"  K5 {label}: dq, dk, dv bitwise equal on a second call: {same}")
+            expect(same, "K5 is not deterministic")
+            del again
         del q, k, v, o, lse, do, got, ref
         torch.cuda.empty_cache()
 
@@ -1437,8 +1465,8 @@ def _build_trainer(cli, raw, dev):
 
 def phase_train(root):
     """Phase 7: PRFL training through the CLI path, with the bf16 and the
-    int8 rollout, then one step on the shifted route; returns the launch
-    counts of all."""
+    int8 rollout, then one step on the shifted route and one with the split
+    backward K5; returns the launch counts of all."""
     import torch
 
     from hyvideo_prfl_torch.data.dataset import LatentCacheDataset
@@ -1586,7 +1614,40 @@ def phase_train(root):
     expect(d <= 0.01, f"the shifted route's first reward lies {d} from the bounded run's")
     del trainer
     torch.cuda.empty_cache()
-    return _add(_add(got, got8), got_s)
+
+    # Every backward on K5 (HYV_FLASH_MERGED_BWD=0), from the same weights,
+    # data and draws: one outer step at 21 frames. The forward is the bf16
+    # run's, so its first reward is too (bound 0.01, as the shifted
+    # route's); the gradients differ from K4's in where dq rounds, so the
+    # grad norm stays within 1% of the bf16 run's.
+    fa.FLASH_MERGED_BWD = False
+    try:
+        trainer, config, build_s = _build_trainer(cli, raw, dev)
+        per_step_k5 = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
+                                              cfg.remat_policy, merged_bwd=False)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        (m,) = cli.run(trainer, 1)
+        torch.cuda.synchronize()
+        got_k5 = dict(_build.LAUNCHES)
+    finally:
+        fa.FLASH_MERGED_BWD = True
+    print(f"  split backward (K5), 21 frames: refl_loss {m['refl_loss']:.6f}, reward "
+          f"{m['reward']:.6f}, grad_norm {m['grad_norm']:.6e}, sft_loss {m['sft_loss']:.6f}, "
+          f"t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s (a fresh trainer's first "
+          f"step); launches {got_k5}")
+    for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+        expect(math.isfinite(m[key]), f"{key} is not finite with the split backward: {m}")
+    expect(got_k5 == per_step_k5, f"split backward launches {got_k5}, expected {per_step_k5}")
+    d = abs(m["reward"] - first_reward)
+    g = abs(m["grad_norm"] / hist[0]["grad_norm"] - 1)
+    print(f"  first step, split backward against merged: reward {d:.2e} apart (bound 0.01), "
+          f"grad norm {m['grad_norm']:.6e} against {hist[0]['grad_norm']:.6e} ({g:.2e} "
+          f"relative, bound 0.01)")
+    expect(d <= 0.01 and g <= 0.01, "the split backward's first step strays from the merged one's")
+    del trainer
+    torch.cuda.empty_cache()
+    return _add(_add(_add(got, got8), got_s), got_k5)
 
 
 def phase_probes(results):
@@ -1625,11 +1686,11 @@ def phase_probes(results):
     return launches
 
 
-def print_ptxas(log: str, smem_fwd: int, smem_k4: int) -> None:
+def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
-    setmaxnreg), and the dynamic shared memory per block of the forward's
-    four instances (K1/K2/K3/K3s, one layout) and of K4. The
+    setmaxnreg), and the dynamic shared memory per block of the TMA/wgmma
+    kernels (``smem``: name -> bytes). The
     norm kernels' instances: narrow rows (a warp each) under a ceiling of
     12 (K8/K9) or 6 (K6/K7) chunks a lane, filled exactly at D 1536 / 12
     heads (a compile-time count) and not at D 1280 / 10 heads, and wide
@@ -1641,7 +1702,8 @@ def print_ptxas(log: str, smem_fwd: int, smem_k4: int) -> None:
               "rope_kernelI13__nv_bfloat16E": "R bf16",
               "rope_kernelIfE": "R fp32",
               "flash_bwd_merged_kernel": "K4",
-              "flash_bwd_prologue_kernel": "K4 prologue",
+              "flash_bwd_prologue_kernelILb0E": "K4 prologue",
+              "flash_bwd_prologue_kernelILb1E": "K5 prologue",
               "flash_bwd_dkv_kernel": "K5 dk/dv",
               "flash_bwd_dq_kernel": "K5 dq",
               "rmsnorm_rope_bwd_kernelILi1ELi6ELb1ELb1": "K7 narrow 12 heads rope",
@@ -1680,23 +1742,26 @@ def print_ptxas(log: str, smem_fwd: int, smem_k4: int) -> None:
             print(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
             # the TMA/wgmma kernels and the norm kernels' wide row layout
             # must not spill
-            if current in ("K1", "K2", "K3", "K3s") or current.startswith("K4") \
+            if current in ("K1", "K2", "K3", "K3s", "K10") or current[:2] in ("K4", "K5") \
                     or "wide" in current:
                 expect("spill" not in line or " 0 bytes spill stores" in line,
                        f"ptxas: {current} spills: {line.strip()}")
-    print(f"  dynamic shared memory per block: K1/K2/K3/K3s {smem_fwd} bytes, K4 {smem_k4}")
+    print("  dynamic shared memory per block: "
+          + ", ".join(f"{name} {n} bytes" for name, n in smem.items()))
 
 
 def check_sass(lib_path) -> None:
-    """The forward's four instances and K4's main kernel, disassembled from
-    the built library, must load by TMA (UTMALDG) and multiply on wgmma
-    (HGMMA); the forward stores o by TMA (UTMASTG), K4 adds dq by TMA
-    reductions (UTMAREDG)."""
+    """The forward's four instances, K4's and K5's main kernels and K10,
+    disassembled from the built library, must load by TMA (UTMALDG) and
+    multiply on wgmma: HGMMA (bf16), and for K10's int8 score also IGMMA;
+    the forward and K10 store o by TMA (UTMASTG), K4 adds dq by TMA
+    reductions (UTMAREDG), K5's dq pass needs neither."""
     from hyvideo_prfl_torch.ops import _build
 
     kernels = {"flash_fwd_kernelILb0ELb1E": "K1", "flash_fwd_kernelILb1ELb1E": "K2",
                "flash_fwd_kernelILb0ELb0E": "K3", "flash_fwd_kernelILb1ELb0E": "K3s",
-               "flash_bwd_merged_kernel": "K4"}
+               "flash_bwd_merged_kernel": "K4", "flash_bwd_dkv_kernel": "K5 dk/dv",
+               "flash_bwd_dq_kernel": "K5 dq", "flash_fwd_qk8_kernel": "K10"}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -1705,13 +1770,14 @@ def check_sass(lib_path) -> None:
         if "Function :" in line:
             current = next((v for k, v in kernels.items() if k in line), None)
         elif current:
-            for op in ("HGMMA", "UTMALDG", "UTMASTG", "UTMAREDG", "ATOM", "RED."):
+            for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG", "ATOM", "RED."):
                 if op in line:
                     counts[current][op] = counts[current].get(op, 0) + 1
     for name, c in counts.items():
         print(f"  {name} SASS instruction counts: {c}")
         expect(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
                f"{name}'s kernel lacks HGMMA or UTMALDG: {c}")
+        expect(name != "K10" or c.get("IGMMA", 0) > 0, f"K10's kernel lacks IGMMA: {c}")
 
 
 def main() -> int:
@@ -1743,8 +1809,11 @@ def main() -> int:
     _build.lib()
     print(f"  kernels built in {_build.build_seconds:.2f} s "
           f"(loaded in {time.perf_counter() - t0:.2f} s)")
-    print_ptxas(_build.build_log, _build.lib().hyv_flash_fwd_smem(),
-                _build.lib().hyv_flash_bwd_merged_smem())
+    lib = _build.lib()
+    print_ptxas(_build.build_log, {"K1/K2/K3/K3s": lib.hyv_flash_fwd_smem(),
+                                   "K4 and K5 dk/dv": lib.hyv_flash_bwd_merged_smem(),
+                                   "K5 dq": lib.hyv_flash_bwd_dq_smem(),
+                                   "K10": lib.hyv_flash_fwd_qk8_smem()})
     check_sass(_build.build())
 
     results = {}
@@ -1765,10 +1834,10 @@ def main() -> int:
     print("phase 7: PRFL training through the CLI path")
     with tempfile.TemporaryDirectory() as root:
         train_launches = phase_train(root)
-    # every kernel of the training path ran there; K5 is not on it (the JAX
-    # rule routes every full-width call to K4): its launches are the
-    # split-route gradient call of phase 5
-    expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k not in ("K5", "P1", "P2", "R")),
+    # every kernel of the training path ran there (K5 in the step with
+    # HYV_FLASH_MERGED_BWD=0; the JAX rule routes every full-width call to
+    # K4 otherwise)
+    expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k not in ("P1", "P2", "R")),
            f"a kernel of the training path never launched: {train_launches}")
     print(f"  serving launches {serve_launches}; training launches {train_launches}")
     print("phase 8: the int8 probes P1 and P2")

@@ -1,492 +1,881 @@
-// K5: the split flash-attention backward, head_dim 128.
+// K4 and K5: the flash-attention backward, head_dim 128, written for
+// Hopper: TMA loads, wgmma products, warp specialisation.
 //
-// Replaces hyvideo_prfl_tpu/ops/flash_attention.py _dq_kernel (:371;
-// pallas_call at :775) and _dkv_kernel (:407; pallas_call at :798), both
-// from _flash_bwd (:752): the split backward, a dq pass and a dk/dv pass.
-// The route between it and the merged backward K4 (flash_bwd_merged.cu) is
-// the JAX rule (flash_attention.py:763), taken by the Python wrapper: K4
-// when the padded q range holds at least four of JAX's backward q blocks,
-// K5 otherwise. Per (batch, head), both compute from the saved lse (the
-// backward always recomputes, so the bounded and the shifted forward share
-// it):
+// Replaces hyvideo_prfl_tpu/ops/flash_attention.py
+//   K4  _dqkv_kernel (:453; pallas_call at :890 in _flash_bwd_merged :849):
+//       the merged backward, five products per (q tile, key tile) cell;
+//   K5  _dkv_kernel (:407; pallas_call at :798) and _dq_kernel (:371;
+//       pallas_call at :775), both from _flash_bwd (:752): the split
+//       backward, a dk/dv pass and a dq pass.
+// The route between them is the JAX rule (flash_attention.py:763), taken by
+// the Python wrapper: K4 when the padded q range holds at least four of
+// JAX's backward q blocks and HYV_FLASH_MERGED_BWD is not 0, K5 otherwise.
+// Per (batch, head), from the saved lse (the backward recomputes p, so the
+// bounded and the shifted forward share it):
 //
-//   q' = bf16(q * scale * log2e),  s = q' k^T (fp32),  p = exp2(s - lse * log2e)
+//   q' = bf16(q * scale * log2e),  p = exp2(q' k^T - lse * log2e)
 //   dv += bf16(p)^T dO,   dp = dO v^T,   ds = p * (dp - delta)
 //   dk += bf16(ds)^T bf16(q * scale),   dq += bf16(ds) bf16(k * scale)
 //
-// with delta = rowsum(dO * o) computed by the caller from the bf16 o the
-// forward wrote. Keys past lk and q rows past lq contribute nothing: their
-// rows are zero-filled and their p is forced to 0 (the TPU zero-pads and
-// lets pad rows carry harmless values instead). An optional int32 [B*N]
-// valid length per (batch, head), the key mask of the shifted forward
-// (the TPU's "user" mask, _apply_mask in :389, :429, :483), lowers lk for
-// that head: p = 0 past it, so the gradients of masked keys are exactly 0,
-// a dk/dv block whose keys are all masked writes zeros and stops, and the
-// dq pass ends its key loop at the last valid tile.
+// with delta = rowsum(dO * o) over the bf16 o the forward wrote. Keys at or
+// past lk contribute nothing (p = 0), where lk is Lk or the optional int32
+// [B*N] valid length of the head (the shifted forward's key mask, the TPU's
+// "user" mask), so masked keys get exactly zero gradients; a dk/dv block
+// whose keys are all masked writes zeros and stops, and the dq pass ends
+// its key loop at the tile that holds the last valid key.
 //
-// Bound on the H100: tensor-core math (seven products: the dq pass
-// recomputes s and dp).
+// Bound on the H100: tensor-core math. At the 81-frame self-attention
+// shape (12 heads x 32,760 x 32,760 x 128) the five products are 1.65e13
+// flop against well under 1 GB of traffic: 16.7 ms at the 989 TFLOP/s bf16
+// peak. K5 computes s and dp in both passes (seven products); the bound
+// counts the algorithm's five for both.
 //
-// Design (FlashAttention-2's backward on mma.sync m16n8k16, bf16 in, fp32
-// accumulate; it keeps its first form, and the JAX rule sends no full-width
-// call here):
-// * dk/dv pass: a block of 8 warps owns 128 keys of one (batch, head) and
-//   keeps their dk and dv in registers (each warp 16 keys x 128 features of
-//   each) while it loops over all q tiles of 64 rows. It computes the
-//   transposed products s^T = k q'^T and dp^T = v dO^T, so the fp32
-//   accumulator fragments of p^T and ds^T are the A operands of dv and dk
-//   directly, with no trip through shared memory.
-// * dq pass: a block of 8 warps owns 128 q rows (16 per warp, q' fragments
-//   in registers) and loops over key tiles of 64, recomputing s and dp; it
-//   writes dq once, so K5 is deterministic.
-// * q and k are read head-major [B, N, L, 128], v, dO token-major
-//   [B, L, N, 128], all through strides with no transposes; q' and the two
-//   scaled copies bf16(q * scale), bf16(k * scale) are formed in shared
-//   memory from the raw tiles. The next q tile (or key tile) streams in by
-//   cp.async while the current one computes.
+// Design (FlashAttention-3's backward shape, simplified):
+// * A prologue kernel forms, once per call, q' and q_s = bf16(q * scale)
+//   in a [2, B*N, Lq, 128] scratch, and per 64-row q tile the row
+//   statistics lse * log2e (+inf past Lq, so p = 0 there) and delta (a
+//   warp's sum of dO * o) in a [B*N, n_qt, 2, 64] scratch, so the main
+//   kernels' tiles arrive ready for the tensor cores. For K5 it also forms
+//   k_s = bf16(k * scale) in a [B*N, Lk, 128] scratch: JAX rounds k * scale
+//   to bf16 before the product, so the scale cannot move onto dq.
+// * The dk/dv kernel (K4, and K5's first pass: the two instances of
+//   bwd_kv<kMerged>). A block owns 128 keys of one (batch, head), keeps
+//   their dk and dv in fp32 registers and sweeps q tiles of 64 rows; 384
+//   threads: warpgroup 0 is the producer (24 registers after setmaxnreg;
+//   one thread issues every load), warpgroups 1 and 2 are consumers (240
+//   registers) owning 64 keys each. k and v arrive once by TMA; the q',
+//   q_s and dO tiles and the statistics stream through a ring of two
+//   stages, each with a full barrier (TMA bytes) and an empty one.
+//   s^T = k q'^T and dp^T = v dO^T (m64n64, both operands in shared
+//   memory) leave p^T and ds^T in the accumulator layout, which is the
+//   register A operand of dv += p^T dO and dk += ds^T q_s (m64n128, dO and
+//   q_s read with B's transpose bit). K5's instance stops there: four
+//   products a cell, and each stage returns to the producer once its
+//   products have retired.
+// * K4 alone: for dq = ds k_s, each warpgroup writes bf16(ds^T) to a shared
+//   [128 keys x 64 q] tile, read as A with the transpose bit, and computes
+//   64 of the 128 features of the q tile's dq over all 128 keys (m64n64),
+//   with k_s formed once per block in shared memory. Its fp32 64 x 64
+//   share is staged in the stage's own q' or q_s buffer and added to the
+//   fp32 [B*N, Lq, 128] dq with two TMA reduce-adds (boxes of 32 features
+//   x 64 rows; rows past Lq are clipped); the stage returns to the producer
+//   when the reduction has read it. The order of the adds across blocks
+//   changes from run to run: K4's dq is not bitwise deterministic.
+// * Short key ranges (the text cross-attention, 4 key tiles a head): the
+//   wrapper splits each key tile's q sweep over `kv_splits` blocks so that
+//   the grid fills the SMs; each split writes fp32 dk/dv partials, which
+//   the wrapper sums in a fixed order.
+// * K5's dq pass, in the shape of the forward (flash_fwd.cu): a persistent
+//   grid over (batch*head, key split, q tile of 128 rows), the q' and dO
+//   tiles resident in shared memory, k, v and k_s streamed by TMA through
+//   three stages of 64 keys. Per key tile each consumer warpgroup (64 q
+//   rows) issues s = q' k^T and dp = dO v^T (m64n64, shared x shared),
+//   then dq += bf16(ds) k_s of the previous key tile (m64n128, ds from
+//   registers, k_s read with B's transpose bit, as p v reads v in the
+//   forward), and waits for the first two alone: p and ds of this tile are
+//   formed while that dq product is in flight. 64-key tiles keep s, dp and
+//   dq (32 + 32 + 64 fp32) and the ds fragments under the 240 registers.
+//   dq leaves the registers once per q tile, as fp32: no atomics and no
+//   reduce-adds, so K5's dq is bitwise deterministic. When the q tiles
+//   alone leave SMs idle (lq 1,024: 96 tiles for 132 SMs), the wrapper
+//   splits each q tile's key range over `dq_splits` blocks, each writing an
+//   fp32 partial that the wrapper sums in a fixed order.
+// * Shared memory: dk/dv kernel k, v, k_s 3 x 32 KB, ds^T 16 KB, two stages
+//   of q', q_s, dO (16 KB each) and statistics (512 B): 211 KB. dq pass:
+//   q' and dO 2 x 32 KB, three stages of k, v, k_s (16 KB each): 209 KB.
+#include "sm90.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-using hyv::acc_to_a;
-using hyv::cp_async16;
-using hyv::cp_async_commit;
-using hyv::cp_async_wait;
-using hyv::ldsm_x4;
-using hyv::ldsm_x4_t;
-using hyv::mma;
-using hyv::pack_bf16x2;
-using hyv::swz;
+using namespace hyv::sm90;
 
 constexpr int kD = 128;
-constexpr int kRowBytes = kD * 2;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockN = 128;  // keys per dk/dv block, 64 per consumer warpgroup
+constexpr int kBlockM = 64;   // q rows per dk/dv stage, and per statistics tile
+constexpr int kThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Strides {  // element strides of (batch, head, row); the feature stride is 1
-  long long b, h, l;
-};
+// dk/dv kernel shared memory, byte offsets from a 1024-aligned base; every
+// tile is two 64-feature halves of 128-byte-swizzled rows
+constexpr uint32_t kKvTile = kBlockN * kD * 2;   // k, v or k_s: 32 KB
+constexpr uint32_t kKvHalf = kKvTile / 2;
+constexpr uint32_t kQTile = kBlockM * kD * 2;    // q', q_s or dO: 16 KB
+constexpr uint32_t kQHalf = kQTile / 2;
+constexpr uint32_t kStatBytes = 2 * kBlockM * 4;  // lse * log2e and delta of 64 rows
+constexpr uint32_t kOffK = 0, kOffV = kKvTile, kOffKs = 2 * kKvTile, kOffDs = 3 * kKvTile;
+constexpr uint32_t kOffStage = kOffDs + kBlockN * kBlockM * 2;  // after ds^T: 128 x 64 bf16
+constexpr uint32_t kStageBytes = 3 * kQTile + 1024;             // q', q_s, dO, statistics
+constexpr uint32_t kSQp = 0, kSQs = kQTile, kSDo = 2 * kQTile, kSStat = 3 * kQTile;
+constexpr uint32_t kOffBar = kOffStage + 2 * kStageBytes;
+constexpr int kSmemBytes = kOffBar + 64 + 1024;  // + barriers + alignment slack
+// barriers, 8 B each: full and empty per stage, k/v full
+constexpr uint32_t kFull = 0, kEmpty = 16, kKvFull = 32;
 
-struct BwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;    // [B*N, Lq], natural units
-  const float* delta;  // [B*N, Lq]
+struct KvArgs {
+  const float* stats;  // [B*N, n_qt, 2, 64]: lse * log2e, delta
   const int* valid;    // null, or [B*N] key counts
-  float* dq;           // [B*N, Lq, 128] fp32
-  __nv_bfloat16* dk;
+  __nv_bfloat16* dk;   // splits == 1: bf16 by strides
   __nv_bfloat16* dv;
-  int N, Lq, Lk;
-  Strides qs, ks, vs, dos, dks, dvs;
-  float qscale;  // fp32(scale * log2e)
-  float scale;   // fp32(scale)
+  float* part;         // splits > 1: [2, splits, B*N, Lk, 128] fp32 dk, dv
+  long long dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl;
+  int N, Lk, n_qt, splits;
+  float scale;
 };
 
-// ---- dk/dv pass ---------------------------------------------------------
+// The dk/dv block of K4 (kMerged, which also adds dq) and of K5's first
+// pass. dqmap is read only by K4.
+template <bool kMerged>
+__device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMap& vmap,
+                                       const CUtensorMap& qpmap, const CUtensorMap& qsmap,
+                                       const CUtensorMap& domap, const CUtensorMap* dqmap,
+                                       const KvArgs& args) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bar = base + kOffBar;
 
-constexpr int kKvBlockN = 128;  // keys per block
-constexpr int kKvBlockM = 64;   // q rows per iteration
-constexpr int kKTile = kKvBlockN * kRowBytes;  // 32 KB
-constexpr int kQTile = kKvBlockM * kRowBytes;  // 16 KB
-// smem: K, V, Q', Qs, 2 x raw Q, 2 x dO, lse2/delta [64] each
-constexpr int kOffK = 0;
-constexpr int kOffV = kOffK + kKTile;
-constexpr int kOffQ = kOffV + kKTile;
-constexpr int kOffQs = kOffQ + kQTile;
-constexpr int kOffQraw = kOffQs + kQTile;
-constexpr int kOffDO = kOffQraw + 2 * kQTile;
-constexpr int kOffLse = kOffDO + 2 * kQTile;
-constexpr int kOffDelta = kOffLse + kKvBlockM * 4;
-constexpr int kSmemDkv = kOffDelta + kKvBlockM * 4;
-
-// acc[16 rows x 64 cols] (8 n-tiles) += A rows [16 x 128] . B rows [64 x 128]^T,
-// both operands row-major tiles of 256 B rows in shared memory
-__device__ __forceinline__ void gemm_rows_nt(uint32_t sA, int a_row0, uint32_t sB,
-                                             int lane, float (*acc)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(sA + swz(a_row0 + (lane & 15), kk * 2 + (lane >> 4)), a[0], a[1], a[2], a[3]);
-#pragma unroll
-    for (int nn = 0; nn < 4; ++nn) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(sB + swz(nn * 16 + (lane & 7) + ((lane >> 4) << 3), kk * 2 + ((lane >> 3) & 1)),
-              b0, b1, b2, b3);
-      mma(acc[2 * nn], a, b0, b1);
-      mma(acc[2 * nn + 1], a, b2, b3);
-    }
-  }
-}
-
-// acc[16 rows x 128 features] (16 n-tiles) += P (fragments of 16 rows x 64,
-// reduction over the 64) . B [64 x 128] held row-major in shared memory
-__device__ __forceinline__ void gemm_frag_nn(const float (*p)[4], uint32_t sB, int lane,
-                                             float (*acc)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a(p[2 * kk], p[2 * kk + 1], a);
-#pragma unroll
-    for (int dd = 0; dd < kD / 16; ++dd) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(sB + swz(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), dd * 2 + (lane >> 4)),
-                b0, b1, b2, b3);
-      mma(acc[2 * dd], a, b0, b1);
-      mma(acc[2 * dd + 1], a, b2, b3);
-    }
-  }
-}
-
-// bf16(x * scale) over 16 B chunks: src and dst tiles of 256 B rows
-__device__ __forceinline__ void scale_chunk(const uint8_t* src, uint8_t* dst, float scale) {
-  float f[8];
-  hyv::unpack8(*reinterpret_cast<const uint4*>(src), f);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(f[e], scale);
-  *reinterpret_cast<uint4*>(dst) = hyv::pack8(f);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(BwdArgs args) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
-  const uint32_t sK = base + kOffK, sV = base + kOffV, sQ = base + kOffQ, sQs = base + kOffQs;
-  float* sLse = reinterpret_cast<float*>(smem + kOffLse);
-  float* sDelta = reinterpret_cast<float*>(smem + kOffDelta);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y, b = bh / args.N, h = bh - b * args.N;
-  const int n0 = blockIdx.x * kKvBlockN;
-  const int Lq = args.Lq, Lk = args.Lk;
-  const __nv_bfloat16* qp = args.q + b * args.qs.b + h * args.qs.h;
-  const __nv_bfloat16* kp = args.k + b * args.ks.b + h * args.ks.h;
-  const __nv_bfloat16* vp = args.v + b * args.vs.b + h * args.vs.h;
-  const __nv_bfloat16* dop = args.dout + b * args.dos.b + h * args.dos.h;
-  const float* lsep = args.lse + (long long)bh * Lq;
-  const float* deltap = args.delta + (long long)bh * Lq;
-  const int lk = args.valid != nullptr ? min(args.valid[bh], Lk) : Lk;
-  if (n0 >= lk) {
-    // every key of this block is masked: its dk and dv are zero
-#pragma unroll
-    for (int i = 0; i < kKvBlockN * 16 / kThreads; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-      if (n0 + r >= Lk) continue;
-      const long long key = n0 + r;
-      *reinterpret_cast<uint4*>(args.dk + b * args.dks.b + h * args.dks.h + key * args.dks.l +
-                                c * 8) = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(args.dv + b * args.dvs.b + h * args.dvs.h + key * args.dvs.l +
-                                c * 8) = make_uint4(0, 0, 0, 0);
+  const int kt = blockIdx.x / args.splits, split = blockIdx.x - kt * args.splits;
+  const int n0 = kt * kBlockN;
+  const int lk = args.valid != nullptr ? min(args.valid[bh], args.Lk) : args.Lk;
+  const int qt0 = (int)((long long)split * args.n_qt / args.splits);
+  const int qt1 = (int)((long long)(split + 1) * args.n_qt / args.splits);
+  const int n_tiles = n0 < lk ? qt1 - qt0 : 0;  // all keys masked: write zeros
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bar + kFull + 8 * i, 1);
+      // K4: one thread per consumer warpgroup, once its dq reduction has
+      // read the stage; K5: one lane per consumer warp
+      mbar_init(bar + kEmpty + 8 * i, kMerged ? 2 : 8);
+    }
+    mbar_init(bar + kKvFull, 1);
+    fence_barrier_init();
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    prefetch_map(&qpmap);
+    prefetch_map(&qsmap);
+    prefetch_map(&domap);
+    if constexpr (kMerged) prefetch_map(dqmap);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    reg_dealloc<24>();
+    if (threadIdx.x != 0 || n_tiles == 0) return;
+    mbar_expect_tx(bar + kKvFull, 2 * kKvTile);
+    tma_load_4d(base + kOffK, &kmap, bar + kKvFull, 0, n0, h, b);
+    tma_load_4d(base + kOffK + kKvHalf, &kmap, bar + kKvFull, 64, n0, h, b);
+    tma_load_4d(base + kOffV, &vmap, bar + kKvFull, 0, n0, h, b);
+    tma_load_4d(base + kOffV + kKvHalf, &vmap, bar + kKvFull, 64, n0, h, b);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it & 1, qt = qt0 + it, m0 = qt * kBlockM;
+      const uint32_t sb = base + kOffStage + st * kStageBytes, full = bar + kFull + 8 * st;
+      mbar_wait(bar + kEmpty + 8 * st, ((it >> 1) & 1) ^ 1);
+      mbar_expect_tx(full, 3 * kQTile + kStatBytes);
+      tma_load_4d(sb + kSQp, &qpmap, full, 0, m0, h, b);
+      tma_load_4d(sb + kSQp + kQHalf, &qpmap, full, 64, m0, h, b);
+      tma_load_4d(sb + kSQs, &qsmap, full, 0, m0, h, b);
+      tma_load_4d(sb + kSQs + kQHalf, &qsmap, full, 64, m0, h, b);
+      tma_load_4d(sb + kSDo, &domap, full, 0, m0, h, b);
+      tma_load_4d(sb + kSDo + kQHalf, &domap, full, 64, m0, h, b);
+      bulk_load(sb + kSStat, args.stats + ((long long)bh * args.n_qt + qt) * (2 * kBlockM),
+                kStatBytes, full);
     }
     return;
   }
 
-  // k, v tiles of this block (rows past Lk zero-filled)
-#pragma unroll
-  for (int i = 0; i < kKvBlockN * 16 / kThreads; ++i) {
-    const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-    const bool valid = n0 + r < Lk;
-    const long long key = valid ? n0 + r : 0;
-    cp_async16(sK + swz(r, c), kp + key * args.ks.l + c * 8, valid);
-    cp_async16(sV + swz(r, c), vp + key * args.vs.l + c * 8, valid);
-  }
-  cp_async_commit();
+  // ---- consumers: warpgroups 1 and 2, 64 keys each ----
+  reg_alloc<240>();
+  const int cw = wg - 1;             // consumer warpgroup, 0 or 1
+  const int wt = threadIdx.x & 127;  // thread in the warpgroup
+  const int lane = threadIdx.x & 31;
+  // this thread's key rows in the block (accumulator rows): key_row, key_row + 8
+  const int key_row = cw * 64 + (wt >> 5) * 16 + (lane >> 2);
+  const int q_lane = (lane & 3) * 2;  // its first q (or feature) column in a group of 8
 
-  const int n_qt = (Lq + kKvBlockM - 1) / kKvBlockM;
-  auto load_q = [&](int qt, int stage) {
-    const int m0 = qt * kKvBlockM;
+  float dk[64], dv[64];
 #pragma unroll
-    for (int i = 0; i < kKvBlockM * 16 / kThreads; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-      const bool valid = m0 + r < Lq;
-      const long long row = valid ? m0 + r : 0;
-      cp_async16(base + kOffQraw + stage * kQTile + swz(r, c), qp + row * args.qs.l + c * 8, valid);
-      cp_async16(base + kOffDO + stage * kQTile + swz(r, c), dop + row * args.dos.l + c * 8, valid);
-    }
-  };
-  // lse * log2e and delta of the next q tile, one row per thread of warps 0-1;
-  // rows past Lq get +inf (so p = 0) and 0
-  float lse_next = 0.f, delta_next = 0.f;
-  auto fetch_stats = [&](int qt) {
-    const int row = qt * kKvBlockM + tid;
-    if (tid < kKvBlockM) {
-      const bool valid = row < Lq;
-      lse_next = valid ? __fmul_rn(lsep[row], kLog2e) : __int_as_float(0x7f800000);
-      delta_next = valid ? deltap[row] : 0.f;
-    }
-  };
-  load_q(0, 0);
-  cp_async_commit();
-  fetch_stats(0);
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
-  const int kr0 = warp * 16;  // this warp's 16 keys inside the block's 128
-  float dk[kD / 8][4], dv[kD / 8][4];
+  if constexpr (kMerged) {
+    if (n_tiles > 0) {
+      // k_s = bf16(k * scale) over this warpgroup's 64 keys, in k's layout
+      mbar_wait(bar + kKvFull, 0);
 #pragma unroll
-  for (int t = 0; t < kD / 8; ++t)
+      for (int i = 0; i < 8; ++i) {
+        const int idx = wt + 128 * i, r = cw * 64 + (idx >> 4), c = idx & 15;
+        const uint32_t off = (c >> 3) * kKvHalf + hyv::swz128(r, c & 7);
+        float f[8];
+        hyv::unpack8(*reinterpret_cast<const uint4*>(smem + kOffK + off), f);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
-
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int st = qt & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // this tile landed; every warp is done with the last one
-#pragma unroll
-    for (int i = 0; i < kKvBlockM * 16 / kThreads; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-      const uint8_t* raw = smem + kOffQraw + st * kQTile + swz(r, c);
-      scale_chunk(raw, smem + kOffQ + swz(r, c), args.qscale);
-      scale_chunk(raw, smem + kOffQs + swz(r, c), args.scale);
-    }
-    if (tid < kKvBlockM) {
-      sLse[tid] = lse_next;
-      sDelta[tid] = delta_next;
-    }
-    if (qt + 1 < n_qt) {
-      load_q(qt + 1, st ^ 1);
-      fetch_stats(qt + 1);
-    }
-    cp_async_commit();
-    __syncthreads();
-
-    const uint32_t sDO = base + kOffDO + st * kQTile;
-    // s^T = k q'^T: this warp's 16 keys x the tile's 64 q rows
-    float p[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) p[t][0] = p[t][1] = p[t][2] = p[t][3] = 0.f;
-    gemm_rows_nt(sK, kr0, sQ, lane, p);
-    const int key_hi = n0 + kr0 + (lane >> 2);  // fragment row of e < 2; +8 for e >= 2
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = t * 8 + (lane & 3) * 2 + (e & 1);
-        float pv = exp2f(p[t][e] - sLse[qc]);
-        if (key_hi + 8 * (e >> 1) >= lk) pv = 0.f;
-        p[t][e] = pv;
+        for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(f[e], args.scale);
+        *reinterpret_cast<uint4*>(smem + kOffKs + off) = hyv::pack8(f);
       }
+      fence_proxy_async();  // read by the dq products, after the ds^T barrier
     }
-    // dv += bf16(p)^T dO
-    gemm_frag_nn(p, sDO, lane, dv);
-    // dp^T = v dO^T, then ds^T = p^T (dp^T - delta)
-    float ds[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) ds[t][0] = ds[t][1] = ds[t][2] = ds[t][3] = 0.f;
-    gemm_rows_nt(sV, kr0, sDO, lane, ds);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = t * 8 + (lane & 3) * 2 + (e & 1);
-        ds[t][e] = p[t][e] * (ds[t][e] - sDelta[qc]);
-      }
-    }
-    // dk += bf16(ds)^T bf16(q * scale)
-    gemm_frag_nn(ds, sQs, lane, dk);
+  } else {
+    if (n_tiles > 0) mbar_wait(bar + kKvFull, 0);
   }
 
-  // epilogue: dk head-major, dv token-major, bf16; rows past Lk are dropped
+  // The accumulators live across the loop and only wgmma writes them
+  // while a product is in flight; every register write between an issue
+  // and its wait would serialise the wgmma pipeline (ptxas note C7513).
+  float s[32], dp[32], dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dq[i] = 0.f;
+  const bool tail = n0 + kBlockN > lk;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, m0 = (qt0 + it) * kBlockM;
+    const uint32_t sb = base + kOffStage + st * kStageBytes;
+    const float* stat =
+        reinterpret_cast<const float*>(smem + kOffStage + st * kStageBytes + kSStat);
+    mbar_wait(bar + kFull + 8 * st, (it >> 1) & 1);
+
+    // s^T = k q'^T and dp^T = v dO^T: this warpgroup's 64 keys x 64 q rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_ss<0, 0>(
+          s, desc_sw128(base + kOffK + (kk >> 2) * kKvHalf + cw * 8192 + (kk & 3) * 32, 1, 64),
+          desc_sw128(sb + kSQp + (kk >> 2) * kQHalf + (kk & 3) * 32, 1, 64), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_ss<0, 0>(
+          dp, desc_sw128(base + kOffV + (kk >> 2) * kKvHalf + cw * 8192 + (kk & 3) * 32, 1, 64),
+          desc_sw128(sb + kSDo + (kk >> 2) * kQHalf + (kk & 3) * 32, 1, 64), kk > 0);
+    wgmma_commit();
+    if constexpr (kMerged) {
+      // the previous tile's dq reductions have read their staging buffer:
+      // return that stage to the producer
+      if (it > 0 && wt == 0) {
+        bulk_wait_read();
+        mbar_arrive(bar + kEmpty + 8 * (st ^ 1));
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // p = exp2(s - lse * log2e); keys at or past lk get p = 0 (q rows past
+    // Lq have lse * log2e = +inf, so p = 0 there too); then
+    // ds^T = p^T (dp^T - delta) in place of dp
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int q = (i >> 2) * 8 + q_lane + (i & 1);
+      float p = exp2f(s[i] - stat[q]);
+      if (tail && n0 + key_row + 8 * ((i >> 1) & 1) >= lk) p = 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - stat[kBlockM + q]);
+    }
+    // bf16(p^T) and bf16(ds^T): the accumulator fragments of q columns
+    // 16kk..16kk+15 are the A operand of k-step kk; [kk][i] holds q columns
+    // 16kk + 8(i / 2).. of key row key_row + 8(i % 2)
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pf[kk][i] = hyv::pack_bf16x2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+        dsf[kk][i] = hyv::pack_bf16x2(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+      }
+    if constexpr (kMerged) {
+      // bf16(ds^T) into the shared [128 keys x 64 q] tile, before any
+      // product reads dsf
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = key_row + 8 * (i & 1);
+          const uint32_t addr =
+              base + kOffDs + hyv::swz128(row, 2 * kk + (i >> 1)) + (lane & 3) * 4;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(dsf[kk][i]) : "memory");
+        }
+      fence_proxy_async();
+    }
+
+    // dv += bf16(p)^T dO and dk += bf16(ds)^T q_s
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_rs<1>(dv, pf[kk], desc_sw128(sb + kSDo + kk * 2048, kQHalf >> 4, 64), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_rs<1>(dk, dsf[kk], desc_sw128(sb + kSQs + kk * 2048, kQHalf >> 4, 64), 1);
+    wgmma_commit();
+    if constexpr (!kMerged) {
+      // the stage's last readers have retired: return it to the producer
+      wgmma_wait<0>();
+      reg_fence(dk);
+      reg_fence(dv);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        reg_fence(pf[kk]);
+        reg_fence(dsf[kk]);
+      }
+      if (lane == 0) mbar_arrive(bar + kEmpty + 8 * st);
+    } else {
+      named_bar_sync(1, 256);  // the whole ds^T tile (and k_s) is in place
+
+      // dq = bf16(ds) k_s over all 128 keys, this warpgroup's 64 features
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_m64n64k16_ss<1, 1>(dq, desc_sw128(base + kOffDs + kk * 2048, 1, 64),
+                                 desc_sw128(base + kOffKs + cw * kKvHalf + kk * 2048, 1, 64),
+                                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq);
+      reg_fence(dk);
+      reg_fence(dv);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        reg_fence(pf[kk]);
+        reg_fence(dsf[kk]);
+      }
+      named_bar_sync(2, 256);  // both warpgroups are done with this stage and ds^T
+
+      // stage dq (fp32, 64 q x 64 features) in the stage's q' (warpgroup 0)
+      // or q_s (warpgroup 1) buffer as two 128-byte-swizzled boxes of 32
+      // features, then add it to the global dq with two TMA reductions
+      const uint32_t stg = sb + (cw == 0 ? kSQp : kSQs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = (wt >> 5) * 16 + (lane >> 2) + 8 * half;
+          const int chunk = 2 * (j & 3) + ((lane & 3) >> 1);
+          const uint32_t addr =
+              stg + (j >> 2) * 8192 + row * 128 + ((chunk ^ (row & 7)) << 4) + (lane & 1) * 8;
+          asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+                       "f"(dq[4 * j + 2 * half]), "f"(dq[4 * j + 2 * half + 1])
+                       : "memory");
+        }
+      fence_proxy_async();
+      named_bar_sync(3 + cw, 128);
+      if (wt == 0) {
+        tma_reduce_add_4d(dqmap, stg, cw * 64, m0, h, b);
+        tma_reduce_add_4d(dqmap, stg + 8192, cw * 64 + 32, m0, h, b);
+        bulk_commit();
+      }
+    }
+  }
+  if constexpr (kMerged) {
+    if (wt == 0 && n_tiles > 0) bulk_wait();
+  }
+
+  // epilogue: rows past Lk are dropped; one split writes bf16 dk (head-major)
+  // and dv (token-major), several write fp32 partials
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int key = n0 + kr0 + (lane >> 2) + 8 * half;
-    if (key >= Lk) continue;
-    __nv_bfloat16* dkr = args.dk + b * args.dks.b + h * args.dks.h + key * args.dks.l;
-    __nv_bfloat16* dvr = args.dv + b * args.dvs.b + h * args.dvs.h + key * args.dvs.l;
+    const int key = n0 + key_row + 8 * half;
+    if (key >= args.Lk) continue;
+    if (args.splits == 1) {
+      __nv_bfloat16* dkr = args.dk + b * args.dk_sb + h * args.dk_sh + key * args.dk_sl;
+      __nv_bfloat16* dvr = args.dv + b * args.dv_sb + h * args.dv_sh + key * args.dv_sl;
 #pragma unroll
-    for (int t = 0; t < kD / 8; ++t) {
-      const int d = t * 8 + (lane & 3) * 2;
-      *reinterpret_cast<uint32_t*>(dkr + d) = pack_bf16x2(dk[t][2 * half], dk[t][2 * half + 1]);
-      *reinterpret_cast<uint32_t*>(dvr + d) = pack_bf16x2(dv[t][2 * half], dv[t][2 * half + 1]);
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = 8 * j + q_lane;
+        *reinterpret_cast<uint32_t*>(dkr + d) =
+            hyv::pack_bf16x2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + d) =
+            hyv::pack_bf16x2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
+    } else {
+      const long long plane = (long long)gridDim.y * args.Lk * kD;  // one split's [B*N, Lk, 128]
+      float* dkr = args.part + ((long long)split * gridDim.y + bh) * args.Lk * kD +
+                   (long long)key * kD;
+      float* dvr = dkr + args.splits * plane;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = 8 * j + q_lane;
+        *reinterpret_cast<float2*>(dkr + d) =
+            make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<float2*>(dvr + d) =
+            make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_merged_kernel(const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap qpmap,
+                        const __grid_constant__ CUtensorMap qsmap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const __grid_constant__ CUtensorMap dqmap, const KvArgs args) {
+  bwd_kv<true>(kmap, vmap, qpmap, qsmap, domap, &dqmap, args);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap qpmap,
+                     const __grid_constant__ CUtensorMap qsmap,
+                     const __grid_constant__ CUtensorMap domap, const KvArgs args) {
+  bwd_kv<false>(kmap, vmap, qpmap, qsmap, domap, nullptr, args);
 }
 
 // ---- K5's dq pass ---------------------------------------------------------
 
-constexpr int kDqBlockM = 128;  // q rows per block, 16 per warp
-constexpr int kDqBlockN = 64;   // keys per iteration
-constexpr int kKvTile = kDqBlockN * kRowBytes;  // 16 KB
-constexpr int kDqOffQ = 0;
-constexpr int kDqOffDO = kDqOffQ + kDqBlockM * kRowBytes;
-constexpr int kDqOffK = kDqOffDO + kDqBlockM * kRowBytes;  // 2 stages
-constexpr int kDqOffV = kDqOffK + 2 * kKvTile;             // 2 stages
-constexpr int kDqOffKs = kDqOffV + 2 * kKvTile;
-constexpr int kSmemDq = kDqOffKs + kKvTile;
+constexpr int kDqBlockM = 128;  // q rows per tile, 64 per consumer warpgroup
+constexpr int kDqBlockN = 64;   // keys per stage
+constexpr int kDqStages = 3;
+constexpr uint32_t kDqQTile = kDqBlockM * kD * 2;  // q' or dO: 32 KB
+constexpr uint32_t kDqQHalf = kDqQTile / 2;        // one 64-feature box
+constexpr uint32_t kDqKTile = kDqBlockN * kD * 2;  // k, v or k_s: 16 KB
+constexpr uint32_t kDqKHalf = kDqKTile / 2;
+constexpr uint32_t kDqOffDo = kDqQTile, kDqOffStage = 2 * kDqQTile;
+constexpr uint32_t kDqStageBytes = 3 * kDqKTile;  // k, v, k_s
+constexpr uint32_t kDqOffBar = kDqOffStage + kDqStages * kDqStageBytes;
+// barriers: q full and empty, then full and empty per stage
+constexpr uint32_t kDqQFull = 0, kDqQEmpty = 8, kDqFull = 16, kDqEmpty = 16 + 8 * kDqStages;
+constexpr int kDqSmemBytes = kDqOffBar + 128 + 1024;
 
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdArgs args) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem);
-  const uint32_t sQ = base + kDqOffQ, sDO = base + kDqOffDO, sKs = base + kDqOffKs;
+struct DqArgs {
+  const float* stats;  // [B*N, n_qt, 2, 64] (64-row tiles, as the dk/dv pass)
+  const int* valid;    // null, or [B*N] key counts
+  float* dq;           // [splits, B*N, Lq, 128] fp32
+  int BN, N, Lq, Lk, n_qt, n_qt128, splits, n_tiles;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y, b = bh / args.N, h = bh - b * args.N;
-  const int m0 = blockIdx.x * kDqBlockM;
-  const int Lq = args.Lq, Lk = args.Lk;
-  const __nv_bfloat16* qp = args.q + b * args.qs.b + h * args.qs.h;
-  const __nv_bfloat16* kp = args.k + b * args.ks.b + h * args.ks.h;
-  const __nv_bfloat16* vp = args.v + b * args.vs.b + h * args.vs.h;
-  const __nv_bfloat16* dop = args.dout + b * args.dos.b + h * args.dos.h;
+struct DqTile {
+  int b, h, bh, qt, split, j0, j1, lk;
+};
 
-  auto load_kv = [&](int tile, int stage) {
-    const int n0 = tile * kDqBlockN;
-#pragma unroll
-    for (int i = 0; i < kDqBlockN * 16 / kThreads; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-      const bool valid = n0 + r < Lk;
-      const long long key = valid ? n0 + r : 0;
-      cp_async16(base + kDqOffK + stage * kKvTile + swz(r, c), kp + key * args.ks.l + c * 8, valid);
-      cp_async16(base + kDqOffV + stage * kKvTile + swz(r, c), vp + key * args.vs.l + c * 8, valid);
+// tiles in (batch*head, split, q tile) order: the blocks in flight share
+// one head's key range in L2
+__device__ __forceinline__ DqTile dq_decode(int tile, const DqArgs& a) {
+  DqTile t;
+  const int per_head = a.splits * a.n_qt128;
+  t.bh = tile / per_head;
+  const int rem = tile - t.bh * per_head;
+  t.split = rem / a.n_qt128;
+  t.qt = rem - t.split * a.n_qt128;
+  t.b = t.bh / a.N;
+  t.h = t.bh - t.b * a.N;
+  t.lk = a.valid != nullptr ? min(a.valid[t.bh], a.Lk) : a.Lk;
+  const int nk = (t.lk + kDqBlockN - 1) / kDqBlockN;
+  t.j0 = (int)((long long)t.split * nk / a.splits);
+  t.j1 = (int)((long long)(t.split + 1) * nk / a.splits);
+  return t;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qpmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap ksmap, const DqArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + kDqOffBar;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar + kDqQFull, 1);
+    mbar_init(bar + kDqQEmpty, 8);  // one lane per consumer warp
+    for (int i = 0; i < kDqStages; ++i) {
+      mbar_init(bar + kDqFull + 8 * i, 1);
+      mbar_init(bar + kDqEmpty + 8 * i, 8);
     }
-  };
-  // dO rows by cp.async, q rows through registers into q'
-#pragma unroll
-  for (int i = 0; i < kDqBlockM * 16 / kThreads; ++i) {
-    const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-    const bool valid = m0 + r < Lq;
-    const long long row = valid ? m0 + r : 0;
-    cp_async16(sDO + swz(r, c), dop + row * args.dos.l + c * 8, valid);
-  }
-  load_kv(0, 0);
-  cp_async_commit();
-#pragma unroll
-  for (int i = 0; i < kDqBlockM * 16 / kThreads; ++i) {
-    const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (m0 + r < Lq) {
-      hyv::unpack8(*reinterpret_cast<const uint4*>(qp + (long long)(m0 + r) * args.qs.l + c * 8), f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(f[e], args.qscale);
-    }
-    *reinterpret_cast<uint4*>(smem + kDqOffQ + swz(r, c)) = hyv::pack8(f);
-  }
-
-  const int wr = warp * 16;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = m0 + wr + (lane >> 2) + 8 * half;
-    const bool valid = row < Lq;
-    lse2[half] = valid ? __fmul_rn(args.lse[(long long)bh * Lq + row], kLog2e)
-                       : __int_as_float(0x7f800000);
-    dlt[half] = valid ? args.delta[(long long)bh * Lq + row] : 0.f;
+    fence_barrier_init();
+    prefetch_map(&qpmap);
+    prefetch_map(&domap);
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    prefetch_map(&ksmap);
   }
   __syncthreads();
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    ldsm_x4(sQ + swz(wr + (lane & 15), kk * 2 + (lane >> 4)), qf[kk][0], qf[kk][1], qf[kk][2],
-            qf[kk][3]);
 
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int t = 0; t < kD / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  const int lk = args.valid != nullptr ? min(args.valid[bh], Lk) : Lk;
-  const int n_tiles = (lk + kDqBlockN - 1) / kDqBlockN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile j landed; every warp is done with tile j-1
-    const uint32_t sK = base + kDqOffK + st * kKvTile, sV = base + kDqOffV + st * kKvTile;
-#pragma unroll
-    for (int i = 0; i < kDqBlockN * 16 / kThreads; ++i) {
-      const int idx = tid + i * kThreads, r = idx >> 4, c = idx & 15;
-      scale_chunk(smem + kDqOffK + st * kKvTile + swz(r, c), smem + kDqOffKs + swz(r, c),
-                  args.scale);
-    }
-    if (j + 1 < n_tiles) load_kv(j + 1, st ^ 1);
-    cp_async_commit();
-    __syncthreads();
-
-    // s = q' k^T: 16 q rows x 64 keys per warp
-    float p[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) p[t][0] = p[t][1] = p[t][2] = p[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(sK + swz(nn * 16 + (lane & 7) + ((lane >> 4) << 3), kk * 2 + ((lane >> 3) & 1)),
-                b0, b1, b2, b3);
-        mma(p[2 * nn], qf[kk], b0, b1);
-        mma(p[2 * nn + 1], qf[kk], b2, b3);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every load ----
+    reg_dealloc<24>();
+    if (threadIdx.x != 0) return;
+    int st = 0;
+    uint32_t ph = 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < args.n_tiles; tile += gridDim.x, ++it) {
+      const DqTile t = dq_decode(tile, args);
+      const int m0 = t.qt * kDqBlockM;
+      mbar_wait(bar + kDqQEmpty, (it & 1) ^ 1);
+      mbar_expect_tx(bar + kDqQFull, 2 * kDqQTile);
+      tma_load_4d(base, &qpmap, bar + kDqQFull, 0, m0, t.h, t.b);
+      tma_load_4d(base + kDqQHalf, &qpmap, bar + kDqQFull, 64, m0, t.h, t.b);
+      tma_load_4d(base + kDqOffDo, &domap, bar + kDqQFull, 0, m0, t.h, t.b);
+      tma_load_4d(base + kDqOffDo + kDqQHalf, &domap, bar + kDqQFull, 64, m0, t.h, t.b);
+      for (int j = t.j0; j < t.j1; ++j) {
+        const uint32_t sb = base + kDqOffStage + st * kDqStageBytes, full = bar + kDqFull + 8 * st;
+        const int n0 = j * kDqBlockN;
+        mbar_wait(bar + kDqEmpty + 8 * st, ph ^ 1);
+        mbar_expect_tx(full, kDqStageBytes);
+        tma_load_4d(sb, &kmap, full, 0, n0, t.h, t.b);
+        tma_load_4d(sb + kDqKHalf, &kmap, full, 64, n0, t.h, t.b);
+        tma_load_4d(sb + kDqKTile, &vmap, full, 0, n0, t.h, t.b);
+        tma_load_4d(sb + kDqKTile + kDqKHalf, &vmap, full, 64, n0, t.h, t.b);
+        tma_load_4d(sb + 2 * kDqKTile, &ksmap, full, 0, n0, t.h, t.b);
+        tma_load_4d(sb + 2 * kDqKTile + kDqKHalf, &ksmap, full, 64, n0, t.h, t.b);
+        if (++st == kDqStages) {
+          st = 0;
+          ph ^= 1;
+        }
       }
     }
-    const int key0 = j * kDqBlockN + (lane & 3) * 2;
-    const bool tail = j * kDqBlockN + kDqBlockN > lk;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pv = exp2f(p[t][e] - lse2[e >> 1]);
-        if (tail && key0 + t * 8 + (e & 1) >= lk) pv = 0.f;
-        p[t][e] = pv;
-      }
-    }
-    // dp = dO v^T, ds = p (dp - delta)
-    float ds[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) ds[t][0] = ds[t][1] = ds[t][2] = ds[t][3] = 0.f;
-    gemm_rows_nt(sDO, wr, sV, lane, ds);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[t][e] = p[t][e] * (ds[t][e] - dlt[e >> 1]);
-    // dq += bf16(ds) bf16(k * scale)
-    gemm_frag_nn(ds, sKs, lane, acc);
+    return;
   }
 
+  // ---- consumers: warpgroups 1 and 2, 64 q rows each ----
+  reg_alloc<240>();
+  const int cw = wg - 1;
+  const int wt = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int wrow = (wt >> 5) * 16 + (lane >> 2);  // this thread's rows in its 64: wrow, wrow + 8
+  const int key_lane = (lane & 3) * 2;             // its first key column in a group of 8
+  const float inf = __int_as_float(0x7f800000);
+
+  float s[32], dp[32], dq[64];
+  uint32_t dsf[4][4];  // bf16(ds) of the previous key tile: the A fragments of dq += ds k_s
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = m0 + wr + (lane >> 2) + 8 * half;
-    if (row >= Lq) continue;
-    float* dst = args.dq + ((long long)bh * Lq + row) * kD + (lane & 3) * 2;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
-    for (int t = 0; t < kD / 8; ++t)
-      *reinterpret_cast<float2*>(dst + t * 8) = make_float2(acc[t][2 * half], acc[t][2 * half + 1]);
+  for (int kk = 0; kk < 4; ++kk) dsf[kk][0] = dsf[kk][1] = dsf[kk][2] = dsf[kk][3] = 0u;
+  int st = 0;
+  uint32_t ph = 0;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < args.n_tiles; tile += gridDim.x, ++it) {
+    const DqTile t = dq_decode(tile, args);
+    // this warpgroup's 64 rows are statistics tile 2 qt + cw; rows past Lq
+    // (and a tile past the last) have lse * log2e = +inf, so p = 0
+    const int t64 = 2 * t.qt + cw;
+    float lse2[2] = {inf, inf}, dlt[2] = {0.f, 0.f};
+    if (t64 < args.n_qt) {
+      const float* sp = args.stats + ((long long)t.bh * args.n_qt + t64) * (2 * kBlockM);
+      lse2[0] = sp[wrow];
+      lse2[1] = sp[wrow + 8];
+      dlt[0] = sp[kBlockM + wrow];
+      dlt[1] = sp[kBlockM + wrow + 8];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    mbar_wait(bar + kDqQFull, it & 1);
+    const uint32_t sq = base + cw * 64 * 128, sdo = base + kDqOffDo + cw * 64 * 128;
+
+    int prev = 0;
+    // dq += bf16(ds) k_s for the key tile in stage `stage`
+    auto issue_dq = [&](int stage) {
+      const uint32_t sks = base + kDqOffStage + stage * kDqStageBytes + 2 * kDqKTile;
+#pragma unroll
+      for (int kk = 0; kk < kDqBlockN / 16; ++kk)
+        wgmma_m64n128k16_rs<1>(dq, dsf[kk], desc_sw128(sks + kk * 2048, kDqKHalf >> 4, 64), 1);
+      wgmma_commit();
+    };
+    for (int j = t.j0; j < t.j1; ++j) {
+      const uint32_t sb = base + kDqOffStage + st * kDqStageBytes;
+      mbar_wait(bar + kDqFull + 8 * st, ph);
+      // s = q' k^T and dp = dO v^T over this tile's 64 keys; then dq of the
+      // previous tile, in flight while p and ds are formed
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(s, desc_sw128(sq + (kk >> 2) * kDqQHalf + (kk & 3) * 32, 1, 64),
+                                 desc_sw128(sb + (kk >> 2) * kDqKHalf + (kk & 3) * 32, 1, 64),
+                                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(
+            dp, desc_sw128(sdo + (kk >> 2) * kDqQHalf + (kk & 3) * 32, 1, 64),
+            desc_sw128(sb + kDqKTile + (kk >> 2) * kDqKHalf + (kk & 3) * 32, 1, 64), kk > 0);
+      wgmma_commit();
+      if (j > t.j0) issue_dq(prev);
+      if (j > t.j0)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+
+      // p = exp2(s - lse * log2e), keys at or past lk (only in the last
+      // tile) at p = 0; ds = p (dp - delta), in place of dp
+      const bool tail = j * kDqBlockN + kDqBlockN > t.lk;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int half = (i >> 1) & 1;
+        float p = exp2_mufu(s[i] - lse2[half]);
+        if (tail && j * kDqBlockN + (i >> 2) * 8 + key_lane + (i & 1) >= t.lk) p = 0.f;
+        dp[i] = p * (dp[i] - dlt[half]);
+      }
+
+      // dq of the previous tile has retired: its stage returns to the
+      // producer, and the A fragments are free to write
+      wgmma_wait<0>();
+      reg_fence(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) reg_fence(dsf[kk]);
+      if (j > t.j0 && lane == 0) mbar_arrive(bar + kDqEmpty + 8 * prev);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dsf[kk][i] = hyv::pack_bf16x2(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+      prev = st;
+      if (++st == kDqStages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    if (t.j1 > t.j0) {
+      wgmma_fence();
+      issue_dq(prev);
+      wgmma_wait<0>();
+      reg_fence(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) reg_fence(dsf[kk]);
+      if (lane == 0) mbar_arrive(bar + kDqEmpty + 8 * prev);
+    }
+    // every product of the tile has retired: q' and dO return to the producer
+    if (lane == 0) mbar_arrive(bar + kDqQEmpty);
+
+    // dq (fp32) straight from the accumulator, rows past Lq dropped
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = t.qt * kDqBlockM + cw * 64 + wrow + 8 * half;
+      if (row >= args.Lq) continue;
+      float* dst =
+          args.dq + (((long long)t.split * args.BN + t.bh) * args.Lq + row) * kD + key_lane;
+#pragma unroll
+      for (int jd = 0; jd < kD / 8; ++jd)
+        *reinterpret_cast<float2*>(dst + 8 * jd) =
+            make_float2(dq[4 * jd + 2 * half], dq[4 * jd + 2 * half + 1]);
+    }
   }
 }
 
-template <typename K>
-cudaError_t launch(K kernel, dim3 grid, int smem_bytes, cudaStream_t st, const BwdArgs& args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+// ---- prologue: q', q_s and the row statistics, one warp per q row; K5
+// also k_s, one warp per key row, in the blocks past the q rows' ----
+
+struct PrologueArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const __nv_bfloat16* k;
+  const float* lse;   // [B*N, Lq], natural units
+  __nv_bfloat16* qp;  // [2, B*N, Lq, 128]: q', q_s
+  __nv_bfloat16* ks;  // K5: [B*N, Lk, 128] k_s
+  float* stats;       // [B*N, n_qt, 2, 64]
+  long long q_sb, q_sh, q_sl, o_sb, o_sh, o_sl, do_sb, do_sh, do_sl, k_sb, k_sh, k_sl;
+  int N, Lq, Lk, n_qt, q_blocks;
+  float qscale, scale;
+};
+
+constexpr int kPrologueWarps = 8;
+
+__device__ __forceinline__ void unpack4(uint2 u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(p[0]), c = __bfloat1622float2(p[1]);
+  f[0] = a.x; f[1] = a.y; f[2] = c.x; f[3] = c.y;
+}
+
+__device__ __forceinline__ uint2 pack4(const float* f) {
+  uint2 u;
+  u.x = hyv::pack_bf16x2(f[0], f[1]);
+  u.y = hyv::pack_bf16x2(f[2], f[3]);
+  return u;
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(kPrologueWarps * 32)
+flash_bwd_prologue_kernel(const PrologueArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, b = bh / a.N, h = bh - b * a.N;
+  const int c = lane * 4;  // this lane's 4 features
+  float f[4], g[4], t[4];
+  if (kSplit && (int)blockIdx.x >= a.q_blocks) {
+    // k_s = bf16(k * scale)
+    const int n = ((int)blockIdx.x - a.q_blocks) * kPrologueWarps + (threadIdx.x >> 5);
+    if (n >= a.Lk) return;
+    unpack4(*reinterpret_cast<const uint2*>(a.k + b * a.k_sb + h * a.k_sh + n * a.k_sl + c), f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[e] = __fmul_rn(f[e], a.scale);
+    *reinterpret_cast<uint2*>(a.ks + ((long long)bh * a.Lk + n) * kD + c) = pack4(t);
+    return;
+  }
+  const int m = blockIdx.x * kPrologueWarps + (threadIdx.x >> 5);
+  if (m >= a.n_qt * kBlockM) return;
+  float lse2 = __int_as_float(0x7f800000), delta = 0.f;  // rows past Lq: p = 0
+  if (m < a.Lq) {
+    unpack4(*reinterpret_cast<const uint2*>(a.q + b * a.q_sb + h * a.q_sh + m * a.q_sl + c), f);
+    const long long row = ((long long)bh * a.Lq + m) * kD + c;
+    const long long plane = (long long)gridDim.y * a.Lq * kD;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[e] = __fmul_rn(f[e], a.qscale);
+    *reinterpret_cast<uint2*>(a.qp + row) = pack4(t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[e] = __fmul_rn(f[e], a.scale);
+    *reinterpret_cast<uint2*>(a.qp + plane + row) = pack4(t);
+    unpack4(*reinterpret_cast<const uint2*>(a.o + b * a.o_sb + h * a.o_sh + m * a.o_sl + c), f);
+    unpack4(*reinterpret_cast<const uint2*>(a.dout + b * a.do_sb + h * a.do_sh + m * a.do_sl + c),
+            g);
+    delta = hyv::warp_sum((f[0] * g[0] + f[1] * g[1]) + (f[2] * g[2] + f[3] * g[3]));
+    lse2 = __fmul_rn(a.lse[(long long)bh * a.Lq + m], kLog2e);
+  }
+  if (lane == 0) {
+    float* st = a.stats + ((long long)bh * a.n_qt + m / kBlockM) * (2 * kBlockM) + m % kBlockM;
+    st[0] = lse2;
+    st[kBlockM] = delta;
+  }
+}
+
+struct Strides7 {  // element strides (batch, head, row) of q, k, v, o, dO, dk, dv
+  long long q[3], k[3], v[3], o[3], dout[3], dk[3], dv[3];
+};
+
+// The prologue, then the dk/dv kernel (K4's with dq when merged, K5's first
+// pass otherwise); dq is K4's fp32 accumulator (zeroed by the caller), and
+// is not read by K5's pass. ks: K5's k_s scratch, formed by the prologue.
+template <bool kMerged>
+cudaError_t launch_prologue_and_kv(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const void* lse, const void* valid,
+                                   void* dq, void* dk, void* dv, void* qp, void* ks, void* stats,
+                                   void* part, int B, int N, int Lq, int Lk, int splits,
+                                   const Strides7& s, float qscale, float scale,
+                                   cudaStream_t st) {
+  const int BN = B * N, n_qt = (Lq + kBlockM - 1) / kBlockM;
+  const int q_blocks = n_qt * kBlockM / kPrologueWarps;
+  const int k_blocks = kMerged ? 0 : (Lk + kPrologueWarps - 1) / kPrologueWarps;
+  const PrologueArgs pa{(const __nv_bfloat16*)q, (const __nv_bfloat16*)o,
+                        (const __nv_bfloat16*)dout, (const __nv_bfloat16*)k, (const float*)lse,
+                        (__nv_bfloat16*)qp, (__nv_bfloat16*)ks, (float*)stats,
+                        s.q[0], s.q[1], s.q[2], s.o[0], s.o[1], s.o[2],
+                        s.dout[0], s.dout[1], s.dout[2], s.k[0], s.k[1], s.k[2],
+                        N, Lq, Lk, n_qt, q_blocks, qscale, scale};
+  flash_bwd_prologue_kernel<!kMerged>
+      <<<dim3(q_blocks + k_blocks, BN), kPrologueWarps * 32, 0, st>>>(pa);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem_bytes, st>>>(args);
+
+  const long long row = kD, head = (long long)Lq * kD, batch = (long long)N * Lq * kD;
+  const __nv_bfloat16* qs = (const __nv_bfloat16*)qp + (long long)BN * Lq * kD;
+  CUtensorMap kmap, vmap, qpmap, qsmap, domap, dqmap;
+  if ((err = encode_bf16_rows(&kmap, k, Lk, N, B, s.k[2], s.k[1], s.k[0], kBlockN)) ||
+      (err = encode_bf16_rows(&vmap, v, Lk, N, B, s.v[2], s.v[1], s.v[0], kBlockN)) ||
+      (err = encode_bf16_rows(&qpmap, qp, Lq, N, B, row, head, batch, kBlockM)) ||
+      (err = encode_bf16_rows(&qsmap, qs, Lq, N, B, row, head, batch, kBlockM)) ||
+      (err = encode_bf16_rows(&domap, dout, Lq, N, B, s.dout[2], s.dout[1], s.dout[0],
+                              kBlockM)))
+    return err;
+  if (kMerged && (err = encode_f32_rows(&dqmap, dq, Lq, N, B, row, head, batch, kBlockM)))
+    return err;
+  const KvArgs args{(const float*)stats, (const int*)valid, (__nv_bfloat16*)dk,
+                    (__nv_bfloat16*)dv, (float*)part, s.dk[0], s.dk[1], s.dk[2],
+                    s.dv[0], s.dv[1], s.dv[2], N, Lk, n_qt, splits, scale};
+  const dim3 grid(((Lk + kBlockN - 1) / kBlockN) * splits, BN);
+  if constexpr (kMerged) {
+    err = cudaFuncSetAttribute(flash_bwd_merged_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_merged_kernel<<<grid, kThreads, kSmemBytes, st>>>(kmap, vmap, qpmap, qsmap, domap,
+                                                                dqmap, args);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<<<grid, kThreads, kSmemBytes, st>>>(kmap, vmap, qpmap, qsmap, domap,
+                                                             args);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, N, Lq, 128], k [B, N, Lk, 128] head-major; v [B, Lk, N, 128], dO
-// [B, Lq, N, 128] token-major; all bf16 by element strides (feature stride
-// 1, rows 16 B aligned). lse, delta [B*N, Lq] fp32. dq [B*N, Lq, 128] fp32,
-// written. dk [B, N, Lk, 128] and dv [B, Lk, N, 128] bf16 by strides.
-// valid: null, or int32 [B*N] key counts (>= 1), the forward's key mask.
-extern "C" int hyv_flash_bwd(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, const void* valid,
-    int B, int N, int Lq, int Lk,
+// q [B, N, Lq, 128], k [B, N, Lk, 128] head-major; v [B, Lk, N, 128], o and
+// dO [B, Lq, N, 128] token-major; all bf16 by element strides (feature
+// stride 1, rows 16 B aligned). lse [B*N, Lq] fp32. dq [B*N, Lq, 128] fp32,
+// zeroed by the caller and accumulated into. dk [B, N, Lk, 128] and dv
+// [B, Lk, N, 128] bf16 by strides when splits == 1; otherwise part [2,
+// splits, B*N, Lk, 128] fp32 receives dk and dv partials for the caller to
+// sum. Scratch: qp [2, B*N, Lq, 128] bf16, stats [B*N, ceil(Lq / 64), 2, 64]
+// fp32. valid: null, or int32 [B*N] key counts (>= 1), the forward's key mask.
+extern "C" int hyv_flash_bwd_merged(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, const void* valid, void* dq, void* dk, void* dv, void* qp, void* stats,
+    void* part, int B, int N, int Lq, int Lk, int splits,
     long long q_sb, long long q_sh, long long q_sl,
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
     long long do_sb, long long do_sh, long long do_sl,
     long long dk_sb, long long dk_sh, long long dk_sl,
     long long dv_sb, long long dv_sh, long long dv_sl,
     float qscale, float scale, void* stream) {
-  if (Lk <= 0 || Lq <= 0) return (int)cudaErrorInvalidValue;
+  if (Lk <= 0 || Lq <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
   if (B * N == 0) return 0;
-  BwdArgs args{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-               (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
-               (const int*)valid, (float*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, N, Lq, Lk,
-               Strides{q_sb, q_sh, q_sl}, Strides{k_sb, k_sh, k_sl}, Strides{v_sb, v_sh, v_sl},
-               Strides{do_sb, do_sh, do_sl}, Strides{dk_sb, dk_sh, dk_sl},
-               Strides{dv_sb, dv_sh, dv_sl}, qscale, scale};
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid_kv((Lk + kKvBlockN - 1) / kKvBlockN, B * N);
-  cudaError_t err = launch(flash_bwd_dkv_kernel, grid_kv, kSmemDkv, st, args);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((Lq + kDqBlockM - 1) / kDqBlockM, B * N);
-  return (int)launch(flash_bwd_dq_kernel, grid_q, kSmemDq, st, args);
+  const Strides7 s{{q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl},
+                   {o_sb, o_sh, o_sl}, {do_sb, do_sh, do_sl}, {dk_sb, dk_sh, dk_sl},
+                   {dv_sb, dv_sh, dv_sl}};
+  return (int)launch_prologue_and_kv<true>(q, k, v, o, dout, lse, valid, dq, dk, dv, qp, nullptr,
+                                           stats, part, B, N, Lq, Lk, splits, s, qscale, scale,
+                                           (cudaStream_t)stream);
 }
+
+// K5. Arguments as hyv_flash_bwd_merged's, but dq is [dq_splits, B*N, Lq,
+// 128] fp32, written (not accumulated): one partial per split of the key
+// range, for the caller to sum; kv_splits is the dk/dv pass's split of the
+// q sweep (hyv_flash_bwd_merged's splits). Scratch: also ks [B*N, Lk, 128]
+// bf16.
+extern "C" int hyv_flash_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, const void* valid, void* dq, void* dk, void* dv, void* qp, void* ks,
+    void* stats, void* part, int B, int N, int Lq, int Lk, int kv_splits, int dq_splits,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    long long do_sb, long long do_sh, long long do_sl,
+    long long dk_sb, long long dk_sh, long long dk_sl,
+    long long dv_sb, long long dv_sh, long long dv_sl,
+    float qscale, float scale, void* stream) {
+  if (Lk <= 0 || Lq <= 0 || kv_splits < 1 || dq_splits < 1) return (int)cudaErrorInvalidValue;
+  if (B * N == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Strides7 s{{q_sb, q_sh, q_sl}, {k_sb, k_sh, k_sl}, {v_sb, v_sh, v_sl},
+                   {o_sb, o_sh, o_sl}, {do_sb, do_sh, do_sl}, {dk_sb, dk_sh, dk_sl},
+                   {dv_sb, dv_sh, dv_sl}};
+  cudaError_t err = launch_prologue_and_kv<false>(q, k, v, o, dout, lse, valid, nullptr, dk, dv,
+                                                  qp, ks, stats, part, B, N, Lq, Lk, kv_splits,
+                                                  s, qscale, scale, st);
+  if (err != cudaSuccess) return (int)err;
+
+  const int BN = B * N;
+  const long long row = kD, head = (long long)Lq * kD, batch = (long long)N * Lq * kD;
+  const long long khead = (long long)Lk * kD, kbatch = (long long)N * Lk * kD;
+  CUtensorMap qpmap, domap, kmap, vmap, ksmap;
+  if ((err = encode_bf16_rows(&qpmap, qp, Lq, N, B, row, head, batch, kDqBlockM)) ||
+      (err = encode_bf16_rows(&domap, dout, Lq, N, B, do_sl, do_sh, do_sb, kDqBlockM)) ||
+      (err = encode_bf16_rows(&kmap, k, Lk, N, B, k_sl, k_sh, k_sb, kDqBlockN)) ||
+      (err = encode_bf16_rows(&vmap, v, Lk, N, B, v_sl, v_sh, v_sb, kDqBlockN)) ||
+      (err = encode_bf16_rows(&ksmap, ks, Lk, N, B, row, khead, kbatch, kDqBlockN)))
+    return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDqSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt128 = (Lq + kDqBlockM - 1) / kDqBlockM;
+  const int n_tiles = BN * dq_splits * n_qt128;
+  const DqArgs args{(const float*)stats, (const int*)valid, (float*)dq, BN, N, Lq, Lk,
+                    (Lq + kBlockM - 1) / kBlockM, n_qt128, dq_splits, n_tiles};
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  flash_bwd_dq_kernel<<<n_tiles < sms ? n_tiles : sms, kThreads, kDqSmemBytes, st>>>(
+      qpmap, domap, kmap, vmap, ksmap, args);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory each block of the dk/dv kernel (K4, K5's first
+// pass) and of K5's dq pass asks for, for reports
+extern "C" int hyv_flash_bwd_merged_smem() { return kSmemBytes; }
+extern "C" int hyv_flash_bwd_dq_smem() { return kDqSmemBytes; }

@@ -116,14 +116,6 @@ struct Tile {
   int b, h, qt, bh, nk, lk;
 };
 
-// 2^x on the multi-function unit alone (exp2f adds a rescue of denormal
-// results, which the sums cannot see); 2^-inf = 0
-__device__ __forceinline__ float exp2_mufu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ Tile decode(int tile, int n_qt, int N, int Lk, const int* kvalid) {
   Tile t;
   t.bh = tile / n_qt;

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_fwd.cu, flash_bwd_merged.cu): mbarriers, TMA tensor loads,
-// stores and reduce-adds, bulk copies, wgmma with the A operand in
-// registers or in shared memory, register reallocation between
-// warpgroups, and the host-side tensor-map encode.
+// (flash_fwd.cu, flash_fwd_qk8.cu, flash_bwd.cu): mbarriers, TMA tensor
+// loads, stores and reduce-adds, bulk copies, wgmma (bf16 with the A
+// operand in registers or in shared memory, int8 with both in shared
+// memory), register reallocation between warpgroups, and the host-side
+// tensor-map encode.
 //
 // Shared-memory tiles that TMA fills or drains use the 128-byte swizzle:
 // rows of 128 B, 16 B chunk c of row r stored at chunk c ^ (r & 7), every
@@ -168,6 +169,14 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// 2^x on the multi-function unit alone (exp2f adds a rescue of denormal
+// results, which the softmax sums cannot see); 2^-inf = 0
+__device__ __forceinline__ float exp2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Shared-memory matrix descriptor of a 128-byte-swizzled operand:
 // start address, leading and stride byte offsets, all in 16 B units.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo16, uint32_t sbo16) {
@@ -262,6 +271,39 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
+// d (64 x 128 int32, the m64n128 accumulator fragment, in the fp32 one's
+// register layout) (+)= a (64 x 32) * b (32 x 128), both int8 in shared
+// memory through descriptors, each with its 32-deep reduction dimension
+// contiguous (K-major: the only layout wgmma takes for 8-bit types). A
+// 128-byte-swizzled row holds 128 int8, so one k32 step advances the
+// descriptor by 32 B, as a bf16 k16 step does. The int32 sums are exact.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(uint32_t (&d)[64], uint64_t desc_a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // cuTensorMapEncodeTiled for a tensor addressed as rank 4 (features, rows,
 // heads, batch): 128 contiguous features, the other three by element
 // strides in any order; boxes of box_inner features (128 B) x box_rows rows
@@ -309,6 +351,15 @@ inline cudaError_t encode_bf16_rows(CUtensorMap* map, const void* base, int rows
                                     long long s_batch, int box_rows) {
   return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, heads, batch, s_row,
                      s_head, s_batch, 64, box_rows);
+}
+
+// int8 rows: boxes of all 128 features (128 B). TMA moves bytes, so the
+// unsigned 8-bit type serves signed data.
+inline cudaError_t encode_i8_rows(CUtensorMap* map, const void* base, int rows, int heads,
+                                  int batch, long long s_row, long long s_head,
+                                  long long s_batch, int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, heads, batch, s_row,
+                     s_head, s_batch, 128, box_rows);
 }
 
 // fp32 rows: boxes of 32 features

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "hyv_flash_fwd": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_F, _I, _I, _P],
     "hyv_ln_scale_shift_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "hyv_rmsnorm_rope_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "hyv_flash_bwd": [_P] * 10 + [_I] * 4 + [_LL] * 18 + [_F, _F, _P],
+    "hyv_flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 21 + [_F, _F, _P],
     "hyv_flash_bwd_merged": [_P] * 13 + [_I] * 5 + [_LL] * 21 + [_F, _F, _P],
     "hyv_flash_fwd_qk8": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_P],
     "hyv_probe_rate": [_P, _P, _P] + [_I] * 7 + [_P],
@@ -49,6 +49,8 @@ _SIGNATURES = {
     "hyv_rope": [_P] * 4 + [_LL, _I, _I, _I, _P],
     "hyv_flash_fwd_smem": [],
     "hyv_flash_bwd_merged_smem": [],
+    "hyv_flash_bwd_dq_smem": [],
+    "hyv_flash_fwd_qk8_smem": [],
 }
 
 _lib = None

@@ -25,12 +25,14 @@ forward runs K1 (bounded, streaming: lk padded to 128 exceeds FULL_K_MAX)
 or K2 (shifted, streaming), or K3 (bounded, single-K-block) or K3s (K3's
 shifted form): the four instances of one kernel in csrc/flash_fwd.cu (TMA
 and wgmma on a persistent warp-specialised grid, so q, k, v need 16-byte
-aligned bases and strides); the backward runs K4 (merged;
-csrc/flash_bwd_merged.cu, TMA and wgmma, the q sweep split over several
-blocks when the key tiles alone leave SMs idle: ``q_splits``) or K5
-(split; csrc/flash_bwd.cu, mma.sync), routed by the JAX rule
-(``uses_merged_bwd``), both masking keys past k_valid_len. A CPU tensor
-runs the plain versions below.
+aligned bases and strides); the backward runs K4 (merged: one dk/dv
+kernel that also adds dq by TMA reductions) or K5 (split: the same dk/dv
+kernel without dq, then a dq pass that writes dq once per q tile, so its
+dq is bitwise deterministic), both in csrc/flash_bwd.cu on TMA and wgmma,
+both masking keys past k_valid_len, routed by the JAX rule
+(``uses_merged_bwd``; every call goes to K5 when HYV_FLASH_MERGED_BWD=0).
+Where the tiles alone leave SMs idle, a sweep splits over several blocks
+(``q_splits``). A CPU tensor runs the plain versions below.
 
 ``qk_int8=True`` (WanConfig.quant_attn) takes the JAX package's int8
 serving forward wherever the bounded form applies and the keys stream in
@@ -41,9 +43,10 @@ time): q and k are quantized to int8 with one symmetric scale per
     s32 = q8 k8^T;  p = exp2(s32 c);  o = bf16(p) v / sum p
 
 with c = fp32(sq sk) fp32(scale log2(e)). A CUDA tensor runs K10
-(csrc/flash_fwd_qk8.cu). It has no backward, as in the JAX package, and
-refuses a call that could need one. Elsewhere qk_int8 falls back to the
-bf16 route, as in the JAX package.
+(csrc/flash_fwd_qk8.cu, TMA and int8 wgmma). It has no backward, as in the
+JAX package, and refuses a call that could need one. Elsewhere, and
+everywhere when HYV_FLASH_QK8=0, qk_int8 falls back to the bf16 route, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ NEG_INF = -1e30
 # reads it: "0" sends every call, bounded_logits or not, to the shifted
 # form, for a checkpoint whose logits could pass ~70 (attn_logit_bound).
 FLASH_BOUNDED = os.environ.get("HYV_FLASH_BOUNDED", "1") == "1"
+# Kill switch for the int8 q k^T forward (K10): "0" sends every qk_int8
+# call to the bf16 route, as in the JAX package.
+FLASH_QK8 = os.environ.get("HYV_FLASH_QK8", "1") == "1"
+# "0" sends every backward to the split form (K5, whose dq is written once
+# per q tile and so is bitwise deterministic), as in the JAX package.
+FLASH_MERGED_BWD = os.environ.get("HYV_FLASH_MERGED_BWD", "1") == "1"
 
 
 def _qscale(d: int) -> float:
@@ -114,8 +123,11 @@ def _pick_block_q(lq: int, lk: int) -> int:
 
 def uses_merged_bwd(lq: int, lk: int) -> bool:
     """True when the JAX package takes its merged backward (K4) for these
-    lengths: its padded q range holds at least four backward q blocks
-    (flash_attention.py:763, blocks from _bwd_blocks_merged). K5 otherwise."""
+    lengths: FLASH_MERGED_BWD is on and its padded q range holds at least
+    four backward q blocks (flash_attention.py:763, blocks from
+    _bwd_blocks_merged). K5 otherwise."""
+    if not FLASH_MERGED_BWD:
+        return False
     lq_p = _pad_len(lq, _pick_block_q(lq, lk))
     return lq_p // _divisor_block(lq_p, 512) >= 4
 
@@ -369,103 +381,91 @@ def flash_qk8_kernel(q8, k8, v, c):
     return o, lse
 
 
-# K4's q-range splits: at most this many blocks share one key tile's q sweep
+# at most this many blocks share one tile's sweep: K4's and K5's dk/dv
+# split of a key tile's q sweep, K5's dq split of a q tile's key range
 MAX_Q_SPLITS = 16
 
 
-def q_splits(key_blocks: int, n_qt: int, sms: int) -> int:
-    """How many blocks K4 gives each key tile's sweep over the q tiles.
+def q_splits(tiles: int, sweep: int, sms: int) -> int:
+    """How many blocks share each tile's sweep: for the dk/dv kernel (K4,
+    K5's first pass) ``tiles`` are batch * heads * key tiles of 128 and the
+    sweep runs over ``sweep`` q tiles of 64; for K5's dq pass ``tiles`` are
+    batch * heads * q tiles of 128 and the sweep runs over key tiles of 64.
 
-    One while the key tiles alone (``key_blocks`` = batch * heads * key
-    tiles of 128) fill the card's ``sms`` SMs, as at self-attention. Fewer
-    key tiles (the text cross-attention: 4 a head) leave SMs idle, so the
-    sweep is split: the count (up to n_qt q tiles of 64 and MAX_Q_SPLITS)
-    whose waves of one block per SM finish first, the smallest on a tie."""
-    if key_blocks >= sms:
+    One while the tiles alone fill the card's ``sms`` SMs, as at
+    self-attention. Fewer tiles (the text cross-attention's 4 key tiles a
+    head; K5's dq pass at lq 1,024) leave SMs idle, so the sweep is split:
+    the count (up to ``sweep`` and MAX_Q_SPLITS) whose waves of one block
+    per SM finish first, the smallest on a tie."""
+    if tiles >= sms:
         return 1
-    return min(range(1, min(MAX_Q_SPLITS, n_qt) + 1),
-               key=lambda s: (-(-key_blocks * s // sms) / s, s))
+    return min(range(1, min(MAX_Q_SPLITS, sweep) + 1),
+               key=lambda s: (-(-tiles * s // sms) / s, s))
 
 
-def _merged_kernel(q, k, v, o, lse, do, kvalid):
-    """Launch K4 -> (dq, dk, dv); see bwd_kernel."""
-    b, n, lq, d = q.shape
-    lk = k.shape[2]
-    dev = q.device
-    _check_rows(o, "o")
-    n_qt, n_kt = -(-lq // 64), -(-lk // 128)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = q_splits(b * n * n_kt, n_qt, sms)
-    dq = torch.zeros((b * n, lq, d), dtype=torch.float32, device=dev)
-    dk = torch.empty((b, n, lk, d), dtype=torch.bfloat16, device=dev)
-    dv = torch.empty((b, lk, n, d), dtype=torch.bfloat16, device=dev)
-    # scratch: q' and bf16(q * scale); per 64-row q tile, lse * log2e and delta
-    qp = torch.empty((2, b * n, lq, d), dtype=torch.bfloat16, device=dev)
-    stats = torch.empty((b * n, n_qt, 2, 64), dtype=torch.float32, device=dev)
-    part = (torch.empty((2, splits, b * n, lk, d), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    qs, ks, vs, os_, dos, dks, dvs = (q.stride(), k.stride(), v.stride(), o.stride(),
-                                      do.stride(), dk.stride(), dv.stride())
-    err = _build.lib().hyv_flash_bwd_merged(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        _check_valid(kvalid, b, n, dev), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        qp.data_ptr(), stats.data_ptr(), None if part is None else part.data_ptr(),
-        b, n, lq, lk, splits,
-        qs[0], qs[1], qs[2],
-        ks[0], ks[1], ks[2],
-        vs[0], vs[2], vs[1],          # v, o, dO, dv are [B, L, N, D]: (batch, head, row)
-        os_[0], os_[2], os_[1],
-        dos[0], dos[2], dos[1],
-        dks[0], dks[1], dks[2],
-        dvs[0], dvs[2], dvs[1],
-        _qscale(d), _f32(1.0 / math.sqrt(d)), _build.stream_ptr(dev))
-    _build.check(err, "K4")
-    if part is not None:
-        # the second pass over the q-split partials, in a fixed order
-        dk.copy_(part[0].sum(dim=0).view(b, n, lk, d))
-        dv.copy_(part[1].sum(dim=0).view(b, n, lk, d).movedim(1, 2))
-    return dq.view(b, n, lq, d).to(q.dtype), dk, dv
-
-
-def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None):
+def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None, dq_splits=None):
     """Launch K4 (merged) or K5 on CUDA tensors -> (dq, dk, dv) as
-    flash_attention_bwd_plain, keys past kvalid [B*N] int32 masked."""
+    flash_attention_bwd_plain, keys past kvalid [B*N] int32 masked.
+    dq_splits: K5's split of each q tile's key range (None: q_splits)."""
     b, n, lq, d = q.shape
     lk = k.shape[2]
+    name = "K4" if merged else "K5"
     _build.require(d == 128, f"the kernel takes head_dim 128, got {d}")
     _build.require(k.shape == (b, n, lk, d) and v.shape == (b, lk, n, d)
                    and o.shape == (b, lq, n, d) and do.shape == o.shape,
                    "shapes do not match the BNLD/BNLD/BLND contract")
     _build.require(lse.shape == (b * n, lq) and lse.dtype == torch.float32
                    and lse.is_contiguous(), f"lse must be contiguous fp32 [{b * n}, {lq}]")
-    _build.require(all(x.device == q.device for x in (k, v, o, lse, do))
-                   and q.device.type == "cuda", "q, k, v, o, lse, dO must be on one CUDA device")
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "dO")):
-        _check_rows(x, name)
+    dev = q.device
+    _build.require(all(x.device == dev for x in (k, v, o, lse, do)) and dev.type == "cuda",
+                   "q, k, v, o, lse, dO must be on one CUDA device")
+    for x, x_name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "dO")):
+        _check_rows(x, x_name)
+    n_qt, n_kt = -(-lq // 64), -(-lk // 128)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = q_splits(b * n * n_kt, n_qt, sms)
+    if not merged and dq_splits is None:
+        dq_splits = q_splits(b * n * -(-lq // 128), -(-lk // 64), sms)
+    # K4 adds into a zeroed fp32 dq; K5 writes one fp32 partial per key split
+    dq = (torch.zeros((b * n, lq, d), dtype=torch.float32, device=dev) if merged
+          else torch.empty((dq_splits, b * n, lq, d), dtype=torch.float32, device=dev))
+    dk = torch.empty((b, n, lk, d), dtype=torch.bfloat16, device=dev)
+    dv = torch.empty((b, lk, n, d), dtype=torch.bfloat16, device=dev)
+    # scratch: q' and bf16(q * scale); per 64-row q tile, lse * log2e and
+    # delta; K5 also bf16(k * scale)
+    qp = torch.empty((2, b * n, lq, d), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((b * n, n_qt, 2, 64), dtype=torch.float32, device=dev)
+    part = (torch.empty((2, splits, b * n, lk, d), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    qs, ks, vs, os_, dos, dks, dvs = (q.stride(), k.stride(), v.stride(), o.stride(),
+                                      do.stride(), dk.stride(), dv.stride())
+    strides = (qs[0], qs[1], qs[2],
+               ks[0], ks[1], ks[2],
+               vs[0], vs[2], vs[1],          # v, o, dO, dv are [B, L, N, D]: (batch, head, row)
+               os_[0], os_[2], os_[1],
+               dos[0], dos[2], dos[1],
+               dks[0], dks[1], dks[2],
+               dvs[0], dvs[2], dvs[1],
+               _qscale(d), _f32(1.0 / math.sqrt(d)), _build.stream_ptr(dev))
+    valid_ptr = _check_valid(kvalid, b, n, dev)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), valid_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qp.data_ptr())
+    part_ptr = None if part is None else part.data_ptr()
     if merged:
-        return _merged_kernel(q, k, v, o, lse, do, kvalid)
-    valid_ptr = _check_valid(kvalid, b, n, q.device)
-    # delta = rowsum(dO o) over the bf16 o, as the JAX package computes it
-    # outside its kernels
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).reshape(b * n, lq)
-    delta = delta.contiguous()
-    dq = torch.empty((b * n, lq, d), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, n, lk, d), dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty((b, lk, n, d), dtype=torch.bfloat16, device=q.device)
-    qs, ks, vs, dos, dks, dvs = (q.stride(), k.stride(), v.stride(), do.stride(),
-                                 dk.stride(), dv.stride())
-    err = _build.lib().hyv_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), valid_ptr,
-        b, n, lq, lk,
-        qs[0], qs[1], qs[2],
-        ks[0], ks[1], ks[2],
-        vs[0], vs[2], vs[1],          # v, dO, dv are [B, L, N, D]: (batch, head, row)
-        dos[0], dos[2], dos[1],
-        dks[0], dks[1], dks[2],
-        dvs[0], dvs[2], dvs[1],
-        _qscale(d), _f32(1.0 / math.sqrt(d)), _build.stream_ptr(q.device))
-    _build.check(err, "K5")
+        err = _build.lib().hyv_flash_bwd_merged(*ptrs, stats.data_ptr(), part_ptr,
+                                                b, n, lq, lk, splits, *strides)
+    else:
+        k_s = torch.empty((b * n, lk, d), dtype=torch.bfloat16, device=dev)
+        err = _build.lib().hyv_flash_bwd(*ptrs, k_s.data_ptr(), stats.data_ptr(), part_ptr,
+                                         b, n, lq, lk, splits, dq_splits, *strides)
+    _build.check(err, name)
+    if part is not None:
+        # the second pass over the q-split partials, in a fixed order
+        dk.copy_(part[0].sum(dim=0).view(b, n, lk, d))
+        dv.copy_(part[1].sum(dim=0).view(b, n, lk, d).movedim(1, 2))
+    if not merged:
+        # K5's key-split partials, in a fixed order: dq stays deterministic
+        dq = dq[0] if dq_splits == 1 else dq.sum(dim=0)
     return dq.view(b, n, lq, d).to(q.dtype), dk, dv
 
 
@@ -531,7 +531,7 @@ def flash_attention(q, k, v, k_valid_len=None, qk_layout: str = "blnd",
         kvalid = torch.as_tensor(k_valid_len, device=q.device).to(torch.int32)
         kvalid = kvalid.reshape(q.shape[0]).repeat_interleave(q.shape[1]).contiguous()
     bounded = bounded_logits and FLASH_BOUNDED and kvalid is None
-    if qk_int8 and bounded and not uses_single_block(k.shape[2]):
+    if qk_int8 and FLASH_QK8 and bounded and not uses_single_block(k.shape[2]):
         o, lse = flash_attention_qk8(q, k, v)
     else:
         o, lse = _FlashAttention.apply(q, k, v, kvalid, not bounded)

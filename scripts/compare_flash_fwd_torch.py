@@ -1,6 +1,6 @@
-"""The streaming flash-attention forward K1/K2 of this checkout against the same
-kernels of another checkout of the port (for example the parent commit's), in
-turns on one card.
+"""The streaming flash-attention forward K1/K2, the int8-score forward K10 and
+the split backward K5 of this checkout against the same kernels of another
+checkout of the port (for example the parent commit's), in turns on one card.
 
     python3 scripts/compare_flash_fwd_torch.py --other path/to/other/checkout \
         [--other_single_streaming]
@@ -27,6 +27,16 @@ instances, then one JSON line per kernel and shape: the median ms of each
 function, the minimum and maximum over its turns, TFLOP/s, the bf16 bound
 and the card's name and power limit.
 
+K10 (B 2, on q and k quantized per head as the port quantizes them) and K5
+(B 1, at the self-attention shape and at lq 1,024 over the same 32,760
+keys, the shape that reaches K5 by default) are called through each
+checkout's own Python wrappers, ``flash_qk8_kernel`` and ``bwd_kernel(...,
+merged=False)``, the other checkout's package imported under another name
+so that it builds and loads its own library. They are checked to agree as
+above (K5: dq, dk and dv within four bf16 ulps of each gradient's max) and
+timed in turns, K10 beside this checkout's K1 and K5 beside this
+checkout's K4 and SDPA's flash backward; one JSON line each.
+
 Last, what each library's K1 does to the work after it: at B 2, a DiT
 block's pattern, one K1 and then four FFN GEMMs ([65,520, 1536] x [1536,
 8960], bf16, as the block's first FFN layer), is run for about a second
@@ -39,6 +49,8 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
 import os
 import shutil
@@ -85,6 +97,42 @@ def lifted_copy(checkout: str, work: str) -> str:
         raise SystemExit(f"{path} no longer holds the key range check")
     open(path, "w").write(text.replace(*SINGLE_CHECK))
     return work
+
+
+def load_flash_module(checkout: str, alias: str):
+    """The checkout's ops/flash_attention.py, its package imported as
+    ``alias``, so its wrappers launch the kernels of its own build."""
+    pkg = os.path.join(checkout, "hyvideo_prfl_torch")
+    spec = importlib.util.spec_from_file_location(alias, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.flash_attention")
+
+
+def check_agree(name, got, ref, ulps=4):
+    """Each output within `ulps` bf16 ulps of its reference's max."""
+    ok = True
+    for label, a, r in zip(("o", "lse") if len(got) == 2 else ("dq", "dk", "dv"), got, ref):
+        err = (a.float() - r.float()).abs().max().item()
+        bnd = (2e-5 if label == "lse" else ulps * BF16_ULP) * r.float().abs().max().item()
+        good = bool(torch.isfinite(a.float()).all()) and err <= bnd
+        print(f"{name}: {label} {err:.3e} (bound {bnd:.3e})" + ("" if good else ": DISAGREE"))
+        ok &= good
+    return ok
+
+
+def report_turns(name, shape, fns, flop, bound_ms, card, args):
+    t = timed_turns(fns, reps=args.reps, calls=args.calls)
+    med = {label: statistics.median(ts) for label, ts in t.items()}
+    print(json.dumps({
+        "kernel": name, "shape": shape, "card": card,
+        **{f"{label}_ms": ms for label, ms in med.items()},
+        **{f"{label}_turns_ms": [min(ts), max(ts)] for label, ts in t.items()},
+        "tflops": {label: flop / ms / 1e9 for label, ms in med.items()},
+        "bound_ms": bound_ms, "this_of_bound": bound_ms / med["this"],
+        "this_over_other": med["this"] / med["other"]}))
 
 
 def neighbour_turns(k1s, gemm, card, rounds=40, gemms=4):
@@ -139,6 +187,9 @@ def main(argv=None) -> int:
         print(f"{label} ({root}): built in {build.build_seconds:.2f} s")
         for line in register_lines(build, FRAGMENTS):
             print(f"  ptxas {line}")
+
+    other_fa = load_flash_module(args.other, "hyvideo_prfl_torch_other")
+    wrappers = {"other": other_fa, "this": fa}
 
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -206,6 +257,45 @@ def main(argv=None) -> int:
                 "bound_ms": bound_ms, "this_of_bound": bound_ms / med["this"],
                 "this_over_other": med["this"] / med["other"],
                 "this_over_sdpa": med["this"] / med["sdpa_flash"]}))
+        if b == 2:
+            # K10 on the same q and k, quantized per (batch, head)
+            q8, sq = fa.quantize_bn(q)
+            k8, sk = fa.quantize_bn(k)
+            c = fa.qk8_scale(sq, sk, d)
+            outs10 = {label: w.flash_qk8_kernel(q8, k8, v, c) for label, w in wrappers.items()}
+            ok &= check_agree(f"K10 B {b}: this against other", outs10["this"], outs10["other"])
+            del outs10
+            ops = 2 * b * n * l * l * d  # of each product
+            report_turns("K10", [b, n, l, l, d],
+                         {label: (lambda w=w: w.flash_qk8_kernel(q8, k8, v, c))
+                          for label, w in wrappers.items()} | {"K1": call("this", 0)},
+                         2 * ops, 1e3 * (ops / 1979e12 + ops / 989e12), card, args)
+            del q8, k8
+        else:
+            # K5 at the self-attention shape and at lq 1,024 over its keys;
+            # o and lse from this checkout's K1
+            for lq in (l, 1024):
+                qq = q[:, :, :lq]
+                o, lse = fa.flash_fwd_kernel(qq, k, v, False)
+                do = torch.randn(o.shape, device=dev, generator=g).bfloat16()
+                grads = {label: w.bwd_kernel(qq, k, v, o, lse, do, False)
+                         for label, w in wrappers.items()}
+                ok &= check_agree(f"K5 lq {lq}: this against other", grads["this"], grads["other"])
+                del grads
+                qs_ = qq.clone().requires_grad_()
+                ks_ = k.clone().requires_grad_()
+                vs_ = vt.clone().requires_grad_()
+                with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.FLASH_ATTENTION):
+                    out = torch.nn.functional.scaled_dot_product_attention(qs_, ks_, vs_)
+                dot = do.movedim(1, 2).contiguous()
+                fns = {label: (lambda w=w: w.bwd_kernel(qq, k, v, o, lse, do, False))
+                       for label, w in wrappers.items()}
+                fns["K4"] = lambda: fa.bwd_kernel(qq, k, v, o, lse, do, True)
+                fns["sdpa_flash_bwd"] = lambda: torch.autograd.grad(
+                    out, (qs_, ks_, vs_), dot, retain_graph=True)
+                bflop = 10 * b * n * lq * l * d
+                report_turns("K5", [b, n, lq, l, d], fns, bflop, 1e3 * bflop / 989e12, card, args)
+                del o, lse, do, qs_, ks_, vs_, out, dot, fns
         if b == 2:
             x = torch.randn(b * l, 1536, device=dev, generator=g).bfloat16()
             w = torch.randn(8960, 1536, device=dev, generator=g).bfloat16().mul_(0.02)

@@ -55,6 +55,7 @@ GROUPS = (("flash_fwd_kernel<false, true>", "K1"),
           ("::rope_kernel<", "R"),
           ("flash_fwd_qk8_kernel", "K10"),
           ("flash_bwd_merged_kernel", "K4"),
+          ("flash_bwd_prologue_kernel<true>", "K5"),  # K5's prologue also forms k_s
           ("flash_bwd_prologue_kernel", "K4"),
           ("flash_bwd_dkv_kernel", "K5"),
           ("flash_bwd_dq_kernel", "K5"),

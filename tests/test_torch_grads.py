@@ -166,6 +166,19 @@ def test_bwd_route_matches_jax(lq, lk):
     assert tfa.uses_merged_bwd(lq, lk) == merged
 
 
+@pytest.mark.parametrize("switch", [True, False])
+@pytest.mark.parametrize("lq,lk", [(200, 77), (1024, 32760), (4680, 4680), (32760, 512)])
+def test_bwd_route_follows_the_merged_switch(monkeypatch, switch, lq, lk):
+    # HYV_FLASH_MERGED_BWD (read at import in both packages): off, every
+    # backward takes the split form (K5), as the JAX package's _flash_bwd
+    monkeypatch.setattr(jfa, "FLASH_MERGED_BWD", switch)
+    monkeypatch.setattr(tfa, "FLASH_MERGED_BWD", switch)
+    bq, bk = jfa.pick_blocks(lq, lk)
+    lq_p, lk_p = jfa._pad_len(lq, bq), jfa._pad_len(lk, bk)
+    merged = jfa.FLASH_MERGED_BWD and lq_p // jfa._bwd_blocks_merged(lq_p, lk_p)[0] >= 4
+    assert tfa.uses_merged_bwd(lq, lk) == merged
+
+
 def _grid_tables(grid):
     return tuple(torch.from_numpy(a) for a in rope_tables_rolled_np(grid, 128))
 
@@ -303,13 +316,7 @@ def test_dots_remat_policies_are_not_ported():
             tdit.WanModel(dataclasses.replace(tdit.tiny_test(), remat_policy=policy))
 
 
-@pytest.mark.parametrize("shifted", [False, True])
-def test_launch_derivation_with_single_block_self_attention(monkeypatch, shifted):
-    # chip_smoke.py holds the 14B check at 1,560 tokens to dit_launches with
-    # self_single: there the self-attention's keys fit one block, so it
-    # takes K3 (K3s on the shifted route) like the cross-attention. On the
-    # CPU the same Functions call the plain versions; count them by the
-    # kernel the card would launch for each key length
+def _chip_smoke():
     import importlib.util
     import os
 
@@ -318,8 +325,14 @@ def test_launch_derivation_with_single_block_self_attention(monkeypatch, shifted
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    if shifted:
-        monkeypatch.setattr(tfa, "FLASH_BOUNDED", False)
+    return smoke
+
+
+def _count_tiny_model_launches(monkeypatch, bwd_key):
+    """Kernel launches of one forward and backward of the 2-block tiny
+    model: on the CPU the same Functions call the plain versions; each is
+    counted by the kernel the card would launch for it (the flash backward
+    by ``bwd_key(q, k)``)."""
     counts = {}
 
     def counted(mod, name, key_fn):
@@ -340,9 +353,37 @@ def test_launch_derivation_with_single_block_self_attention(monkeypatch, shifted
             lambda q, k, v: "K3" if tfa.uses_single_block(k.shape[2]) else "K1")
     counted(tfa, "flash_attention_shifted_plain",
             lambda q, k, v, kvalid: "K3s" if tfa.uses_single_block(k.shape[2]) else "K2")
-    counted(tfa, "flash_attention_bwd_plain", lambda *a: "K4")
+    counted(tfa, "flash_attention_bwd_plain", lambda q, k, *a: bwd_key(q, k))
     x, t, ctx = _inputs(4)
     model = _tiny_model(param_dtype=torch.float32, remat_policy="attn")
     model(x.requires_grad_(), t, ctx).square().mean().backward()
     assert tfa.uses_single_block(48)  # the tiny grid's 48 tokens
-    assert counts == smoke.dit_launches(2, True, shifted=shifted, self_single=True)
+    return counts
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_launch_derivation_with_single_block_self_attention(monkeypatch, shifted):
+    # chip_smoke.py holds the 14B check at 1,560 tokens to dit_launches with
+    # self_single: there the self-attention's keys fit one block, so it
+    # takes K3 (K3s on the shifted route) like the cross-attention
+    if shifted:
+        monkeypatch.setattr(tfa, "FLASH_BOUNDED", False)
+    counts = _count_tiny_model_launches(monkeypatch, lambda q, k: "K4")
+    assert counts == _chip_smoke().dit_launches(2, True, shifted=shifted, self_single=True)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_launch_derivation_without_the_merged_backward(monkeypatch, shifted):
+    # HYV_FLASH_MERGED_BWD=0: every flash backward is K5, so dit_launches
+    # with merged_bwd=False has K5 where it had K4, call for call
+    monkeypatch.setattr(tfa, "FLASH_MERGED_BWD", False)
+    if shifted:
+        monkeypatch.setattr(tfa, "FLASH_BOUNDED", False)
+    counts = _count_tiny_model_launches(
+        monkeypatch,
+        lambda q, k: "K4" if tfa.uses_merged_bwd(q.shape[2], k.shape[2]) else "K5")
+    smoke = _chip_smoke()
+    want = smoke.dit_launches(2, True, shifted=shifted, self_single=True, merged_bwd=False)
+    assert counts == want
+    merged = smoke.dit_launches(2, True, shifted=shifted, self_single=True)
+    assert want == {("K5" if name == "K4" else name): n for name, n in merged.items()}

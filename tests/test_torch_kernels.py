@@ -451,9 +451,11 @@ def test_k6_k7_at_every_head_count(cuda, n, l):
         _close(dw, rdw, 1)
 
 
-def _k4_case(cuda, seed, b, n, lq, lk, valid=None, wide_rows=False):
-    """K4 called directly against the plain backward -> K4's gradients.
-    wide_rows: v and dO as strided views of wider token-major buffers."""
+def _k4_case(cuda, seed, b, n, lq, lk, valid=None, wide_rows=False, merged=True,
+             dq_splits=None):
+    """K4 (or K5: merged=False) called directly against the plain backward
+    -> the kernel's gradients. wide_rows: v and dO as strided views of
+    wider token-major buffers."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn(b, n, lq, 128, device=cuda, generator=g).bfloat16()
     k = torch.randn(b, n, lk, 128, device=cuda, generator=g).bfloat16()
@@ -466,12 +468,13 @@ def _k4_case(cuda, seed, b, n, lq, lk, valid=None, wide_rows=False):
                                   kvalid)
     do = torch.randn(b, lq, n, 256 if wide_rows else 128, device=cuda, generator=g).bfloat16()
     do = do[..., 128:] if wide_rows else do
-    before = _build.LAUNCHES["K4"]
-    got = tfa.bwd_kernel(q, k, v, o, lse, do, True, kvalid)
-    assert _build.LAUNCHES["K4"] == before + 1  # the prologue is part of the one launch
+    name = "K4" if merged else "K5"
+    before = _build.LAUNCHES[name]
+    got = tfa.bwd_kernel(q, k, v, o, lse, do, merged, kvalid, dq_splits)
+    assert _build.LAUNCHES[name] == before + 1  # the prologue (and K5's dq pass) in the one
     ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, kvalid)
-    # bf16(p), bf16(ds) and the bf16 outputs may round the other way, and dq
-    # adds in a run-dependent order: two bf16 ulps
+    # bf16(p), bf16(ds) and the bf16 outputs may round the other way, and
+    # K4's dq adds in a run-dependent order: two bf16 ulps
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == torch.bfloat16
         _close(a, r, 2)
@@ -515,3 +518,119 @@ def test_k4_masks_keys_exactly(cuda, lq, lk, valid):
 @pytest.mark.parametrize("lq,lk", [(1000, 1000), (4680, 512)])
 def test_k4_reads_strided_token_major_v_and_do(cuda, lq, lk):
     _k4_case(cuda, 26, 1, 4, lq, lk, wide_rows=True)
+
+
+# K5: key ranges ending 1, 64 and 127 keys past a 128-key tile (64-key
+# tiles in the dq pass: 1, 0 and 63 past one), q ranges ending inside a
+# 64-row and a 128-row tile
+K5_EDGES = [(1, 1), (64, 127), (129, 4097), (1000, 4160), (300, 4223), (4680, 4680),
+            (4680, 512), (777, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", K5_EDGES)
+def test_k5_matches_plain_at_tile_edges(cuda, lq, lk):
+    _k4_case(cuda, 27, 1, 12, lq, lk, merged=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dq_splits", [None, 1, 3])
+def test_k5_short_q_over_a_long_key_range(cuda, dq_splits):
+    # the shape that reaches K5 by default: lq 1,024 over the 81-frame
+    # self-attention's 32,760 keys, 12 heads; the dq pass's key range split
+    # as the wrapper picks it (None), not at all, and in three
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert not tfa.uses_merged_bwd(1024, 32760)
+    assert tfa.q_splits(12 * 8, -(-32760 // 64), sms) > 1
+    _k4_case(cuda, 28, 1, 12, 1024, 32760, merged=False, dq_splits=dq_splits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk,valid", [(700, 600, [1, 128]), (700, 600, [129, 333]),
+                                         (1024, 4680, [4680, 2001]), (4680, 512, [512, 77]),
+                                         (300, 4223, [64, 4160])])
+def test_k5_masks_keys_exactly(cuda, lq, lk, valid):
+    # key masks at 1, 64, 128 and 129 (tile edges of both passes) and
+    # inside a tile; masked keys' gradients are exactly 0, kept keys' are not
+    dq, dk, dv = _k4_case(cuda, 29, 2, 3, lq, lk, valid, merged=False)
+    for bi, vl in enumerate(valid):
+        assert not dk[bi, :, vl:].any() and not dv[bi, vl:].any()
+        assert dk[bi, :, :vl].abs().sum() > 0 and dv[bi, :vl].abs().sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", [(1000, 1000), (1024, 4680), (4680, 512)])
+def test_k5_reads_strided_token_major_v_and_do(cuda, lq, lk):
+    _k4_case(cuda, 30, 1, 4, lq, lk, wide_rows=True, merged=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lk", [(1024, 32760), (4680, 4680)])
+def test_k5_dq_is_bitwise_deterministic(cuda, lq, lk):
+    # dq is written once per q tile (and K5's key-split partials are summed
+    # in a fixed order): two calls give the same bits, dk and dv too
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = torch.randn(1, 12, lq, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(1, 12, lk, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(1, lk, 12, 128, device=cuda, generator=g).bfloat16()
+    o, lse = tfa.flash_fwd_kernel(q, k, v, tfa.uses_single_block(lk))
+    do = torch.randn(o.shape, device=cuda, generator=g).bfloat16()
+    first = tfa.bwd_kernel(q, k, v, o, lse, do, False)
+    second = tfa.bwd_kernel(q, k, v, o, lse, do, False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# K10: key ranges ending 1, 80 and 127 keys past a 128-key tile, lq above
+# and below lk, B 1 and B 2 (called directly: the route takes only
+# streaming key ranges, flash_attention's tests above hold it)
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("lq,lk", [(1, 1), (129, 127), (300, 3713), (5000, 3920), (777, 4095),
+                                   (4680, 129)])
+def test_k10_at_tile_edges(cuda, b, lq, lk):
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q = torch.randn(b, 12, lq, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(b, 12, lk, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(b, lk, 12, 128, device=cuda, generator=g).bfloat16()
+    q8, sq = tfa.quantize_bn(q)
+    k8, sk = tfa.quantize_bn(k)
+    c = tfa.qk8_scale(sq, sk, 128)
+    before = _build.LAUNCHES["K10"]
+    o, lse = tfa.flash_qk8_kernel(q8, k8, v, c)
+    assert _build.LAUNCHES["K10"] == before + 1
+    po, plse = tfa.flash_attention_qk8_plain(q8, k8, v, c)
+    # the same int32 scores; exp2 within 2 ulp can flip bf16(p), o rounds
+    # to bf16: two bf16 ulps
+    _close(o, po, 2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zero_head", "near_bound"])
+def test_k10_zero_head_and_logits_near_the_bound(cuda, case):
+    # an all-zero head (scale 1e-30 / 127, every score 0: o is the mean of
+    # v), and logits up to ~60 (q, k of standard deviation 3.5: logits of
+    # standard deviation ~12), where exp2 stays finite without a running max
+    g = torch.Generator(device=cuda).manual_seed(33)
+    sd = 3.5 if case == "near_bound" else 1.0
+    q = (sd * torch.randn(2, 12, 1000, 128, device=cuda, generator=g)).bfloat16()
+    k = (sd * torch.randn(2, 12, 4000, 128, device=cuda, generator=g)).bfloat16()
+    v = torch.randn(2, 4000, 12, 128, device=cuda, generator=g).bfloat16()
+    if case == "zero_head":
+        q[1, 5] = 0
+        k[0, 3] = 0
+    with torch.no_grad():
+        o, lse = tfa.flash_attention(q, k, v, qk_int8=True, return_lse=True, **BNLD_BOUNDED)
+    q8, sq = tfa.quantize_bn(q)
+    k8, sk = tfa.quantize_bn(k)
+    c = tfa.qk8_scale(sq, sk, 128)
+    po, plse = tfa.flash_attention_qk8_plain(q8, k8, v, c)
+    if case == "zero_head":
+        assert c[1 * 12 + 5] < 1e-30 and not q8[1, 5].any()
+    else:
+        logits = (q8[0, 0, :64].float() @ k8[0, 0].float().T) * c[0] / tfa.LOG2E
+        assert logits.max() > 40
+    assert torch.isfinite(plse).all()
+    _close(o, po, 2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)

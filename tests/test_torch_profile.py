@@ -45,6 +45,18 @@ def profile():
     ("void (anonymous namespace)::ln_scale_shift_bwd_kernel<12, float>(float*)", "K9"),
     ("void (anonymous namespace)::flash_fwd_qk8_kernel(signed char const*)", "K10"),
     ("void (anonymous namespace)::rope_kernel<float>(float const*)", "R"),
+    # the symbols of K4/K5 (one dk/dv body, two kernels; the prologue's
+    # instances) and of K10 on TMA and wgmma
+    ("void (anonymous namespace)::flash_bwd_merged_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, KvArgs)", "K4"),
+    ("void (anonymous namespace)::flash_bwd_prologue_kernel<false>(PrologueArgs)", "K4"),
+    ("void (anonymous namespace)::flash_bwd_prologue_kernel<true>(PrologueArgs)", "K5"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, KvArgs)", "K5"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, DqArgs)", "K5"),
+    ("void (anonymous namespace)::flash_fwd_qk8_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*, float*, int, int, int, int, int)", "K10"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT", "GEMM"),
     ("void at::native::vectorized_elementwise_kernel<4, float>(int)", "other"),
 ])

@@ -184,6 +184,30 @@ def test_qk8_attention_routes_by_the_jax_rule(streaming, monkeypatch):
         tfa.flash_attention(q.requires_grad_(), k, v, qk_int8=True, **BNLD_BOUNDED)
 
 
+def test_qk8_switch_off_takes_the_bf16_route_as_jax(streaming, monkeypatch):
+    # HYV_FLASH_QK8=0 (read at import in both packages): a qk_int8 call
+    # runs the bf16 forward, in the JAX package and in the port alike
+    monkeypatch.setattr(jfa, "FLASH_QK8", False)
+    monkeypatch.setattr(tfa, "FLASH_QK8", False)
+    calls = []
+    plain = tfa.flash_attention_qk8_plain
+    monkeypatch.setattr(tfa, "flash_attention_qk8_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    q, k, v = _qkv(300, 300)
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    want = _np(jfa.flash_attention(jb(q), jb(k), jb(v), block_q=256, block_k=256,
+                                   qk_layout="bnld", bounded_logits=True, qk_int8=True))
+    tb = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+    with torch.no_grad():
+        got = tfa.flash_attention(tb(q), tb(k), tb(v), qk_int8=True, **BNLD_BOUNDED)
+    assert not calls
+    # the bf16 forward on both sides: exp2 may differ in its last ulp, so
+    # bf16(p) can round the other way on a few keys, and o rounds to bf16:
+    # two bf16 ulps of the largest |o|, as test_qk8_attention_matches_jax
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 * BF16_ULP * np.abs(want).max())
+
+
 def test_qk8_scale_matches_jax():
     rng = np.random.RandomState(3)
     x = (rng.randn(2, 3, 50, 128) * 0.3).astype(np.float32)
