@@ -90,12 +90,31 @@ Phases, each of which raises on failure:
    tokens), as phases 3 and 6; the same blocks forward and backward at
    720*1280 and 81 frames on the card, gradients finite and launches as
    derived, with seconds and peak memory.
+11. i2v and flf2v: K3 at the image cross-attention (2 x 40 heads x 32,760
+   queries over 257 CLIP keys for i2v and 514 for flf2v) and K4 at the
+   i2v-1.3B training shape (12 heads, 9,360 x 257) against their plain
+   versions, timed beside SDPA and their bounds; 2 i2v-14B blocks card
+   against CPU at 1,560 tokens, output and every gradient (the image
+   branch's and the inputs y and clip_fea included), and 2 flf2v-14B blocks,
+   output; then i2v-14B and flf2v-14B at full width and depth (40 blocks,
+   dim 5120) served through scripts/inference_torch.py at 832*480, CFG
+   5.0, 2 UniPC steps: i2v one 81-frame and two 21-frame requests (same
+   seed and text, another image: their latents must differ), the first
+   21-frame one again under --quant int8 --quant_attn int8 (within 0.3
+   relative L2 of bf16), flf2v one 81-frame request; latents finite, each
+   kernel's launches as derived (dit_launches(..., i2v=True)), s/step and
+   peak memory per request, each pipeline freed before the next is built;
+   then one i2v PRFL outer step at i2v-1.3B, 21 frames, through
+   scripts/train_prfl_torch.py (configs/train_prfl_i2v_480.yaml's settings
+   on a seeded cache with f1_black_path and imgclip_path): metrics finite,
+   the policy's blocks, img_emb and k_img moved, launches as derived
+   (expected_train_launches(..., i2v=True)).
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
-for R); the last is
+for R, and phase 11's serving and training); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -159,14 +178,17 @@ def _add(total, counts, times=1):
 
 def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn", qk8=False,
                  shifted=False, qk_norm=True, cross_attn_norm=True, self_single=False,
-                 merged_bwd=True):
+                 merged_bwd=True, i2v=False):
     """Kernel launches of one DiT forward, and of its backward.
 
     A forward launches, per block, three K8 (two adaLN norms and norm3; two
     without cross_attn_norm), four K6 (self q and k with rope, cross q and
     k without; none without qk_norm, where two R rotate the self q and k
     instead), one self-attention forward and one text cross-attention
-    forward, plus one K8 at the head. The attention forwards are K1 and K3,
+    forward, plus one K8 at the head. An i2v/flf2v model (``i2v``) adds, per
+    block, the image cross-attention forward (257 or 514 keys: the
+    cross-attention's form) and, under qk_norm, the K6 of its k_img. The
+    attention forwards are K1 and K3,
     or K10 and K3 under quant_attn "int8" (qk8, at the slice's streaming
     lengths), or K2 and K3s on the shifted route (HYV_FLASH_BOUNDED=0,
     shifted, or no qk_norm). With ``self_single`` (a token count whose keys
@@ -176,32 +198,35 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
     launches, per block, one K9 per K8, one K4 per attention call (every
     call at the slice's lengths takes the merged route; K5 in its place
     under HYV_FLASH_MERGED_BWD=0, ``merged_bwd`` False) and one K7 per
-    qk-norm whose input needs a gradient: four, or three when the text
-    context needs none (the frozen LRM's cross k), or two R (the rotations'
-    backward) without qk_norm; plus one K9 at the head. Remat re-runs
+    qk-norm whose input needs a gradient: four (five for i2v), or three
+    when the text and image context need none (the frozen LRM's cross k and
+    k_img), or two R (the rotations' backward) without qk_norm; plus one K9
+    at the head. Remat re-runs
     forward work inside the backward: under "attn" each block's
     checkpointed segments re-run up to their last op that saved a tensor,
     which is every K8, every K6 whose output is differentiated and every
     R, never the attention forward; under "full" the whole block forward
     re-runs."""
     k8 = 2 + int(cross_attn_norm)
-    norms = {"K6": 4} if qk_norm else {"R": 2}
+    ctx_norms = (1 + int(i2v)) * ctx_grad  # cross k (and k_img) K6/K7 with a context gradient
+    cross = 1 + int(i2v)
+    norms = {"K6": 4 + int(i2v)} if qk_norm else {"R": 2}
     if qk8 and qk_norm and not shifted:
-        attn = {"K10": 1, "K3": 1}
+        attn = {"K10": 1, "K3": cross}
     elif shifted or not qk_norm:
-        attn = {"K2": 1, "K3s": 1}
+        attn = {"K2": 1, "K3s": cross}
     else:
-        attn = {"K1": 1, "K3": 1}
+        attn = {"K1": 1, "K3": cross}
     if self_single:
-        attn = {"K3s": 2} if shifted or not qk_norm else {"K3": 2}
+        attn = {"K3s": 1 + cross} if shifted or not qk_norm else {"K3": 1 + cross}
     fwd_block = {"K8": k8, **norms, **attn}
     total = _add({"K8": 1} if head else {}, fwd_block, n_layers)
     if backward:
-        norm_recompute = {"K6": 3 + ctx_grad} if qk_norm else {"R": 2}
+        norm_recompute = {"K6": 3 + ctx_norms} if qk_norm else {"R": 2}
         recompute = {"attn": {"K8": k8, **norm_recompute}, "full": fwd_block,
                      "off": {}}[remat_policy]
-        norm_bwd = {"K7": 3 + ctx_grad} if qk_norm else {"R": 2}
-        attn_bwd = {"K4" if merged_bwd else "K5": 2}
+        norm_bwd = {"K7": 3 + ctx_norms} if qk_norm else {"R": 2}
+        attn_bwd = {"K4" if merged_bwd else "K5": 1 + cross}
         total = _add(total, _add({"K9": k8, **norm_bwd, **attn_bwd}, recompute), n_layers)
         if head:
             total = _add(total, {"K9": 1})
@@ -209,18 +234,20 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
 
 
 def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_quant=None,
-                            shifted=False, merged_bwd=True):
+                            shifted=False, merged_bwd=True, i2v=False):
     """Kernel launches of one outer PRFL step: the refl step (mid no-grad
     rollout forwards, through the int8 model under rollout_quant "int8",
     one policy forward and backward, one forward and backward of the
-    head-less LRM, whose text context needs no gradient) and the SFT step
-    (one policy forward and backward); ``shifted`` for HYV_FLASH_BOUNDED=0,
-    ``merged_bwd`` False for HYV_FLASH_MERGED_BWD=0."""
+    head-less LRM, whose text and image context need no gradient) and the
+    SFT step (one policy forward and backward, whose image context does,
+    through img_emb); ``shifted`` for HYV_FLASH_BOUNDED=0, ``merged_bwd``
+    False for HYV_FLASH_MERGED_BWD=0, ``i2v`` for an i2v/flf2v model."""
     policy = dit_launches(n_policy, True, remat_policy=remat_policy, shifted=shifted,
-                          merged_bwd=merged_bwd)
+                          merged_bwd=merged_bwd, i2v=i2v)
     lrm = dit_launches(n_lrm, True, ctx_grad=0, head=False, remat_policy=remat_policy,
-                       shifted=shifted, merged_bwd=merged_bwd)
-    rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8", shifted=shifted)
+                       shifted=shifted, merged_bwd=merged_bwd, i2v=i2v)
+    rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8", shifted=shifted,
+                           i2v=i2v)
     return _add(_add(_add({}, rollout, mid), lrm), policy, 2)
 
 
@@ -667,19 +694,22 @@ def _serve(cli, pipe, requests, per_forward, label):
     from hyvideo_prfl_torch.ops import _build
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    totals, latents = {}, []
+    totals, latents, run_peak = {}, [], 0
     for req in requests:
         before = dict(_build.LAUNCHES)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         lat = cli.run_request(pipe, req, SIZE)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         want = (1, *cli.latent_grid(SIZE, req.frame_num), 16)
         print(f"  {label} request seed {req.seed}, {req.frame_num} frames, {req.sample_steps} "
-              f"steps: {dt:.3f} s, {dt / req.sample_steps:.3f} s/step, latents {tuple(lat.shape)}")
+              f"steps: {dt:.3f} s, {dt / req.sample_steps:.3f} s/step, latents {tuple(lat.shape)}"
+              f", peak device memory {peak / 2**30:.2f} GiB")
+        run_peak = max(run_peak, peak)
         expect(tuple(lat.shape) == want, f"latents {tuple(lat.shape)}, expected {want}")
         expect(bool(torch.isfinite(lat).all()), f"{label}: non-finite latents")
         for name, per in per_forward.items():
@@ -691,7 +721,7 @@ def _serve(cli, pipe, requests, per_forward, label):
     launches = dict(_build.LAUNCHES)
     expect(launches == totals, f"{label}: launch counts {launches}, expected {totals}")
     print(f"  {label} launches {launches} (per DiT forward {per_forward}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{run_peak / 2**30:.2f} GiB")
     return latents, launches
 
 
@@ -1025,7 +1055,9 @@ def phase_masked_bwd():
 def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
     """Phase 6: the output (at phase 3's bound) and the gradients of the
     2-block full-width model (t2v-1.3B unless ``cfg`` says otherwise) on a
-    token grid, card against CPU. Returns the seeded state."""
+    token grid, card against CPU. An i2v/flf2v model also takes seeded
+    conditioning ``y`` and CLIP features, whose gradients are held too.
+    Returns the seeded state."""
     import torch
 
     from hyvideo_prfl_torch.models import wan_dit
@@ -1034,12 +1066,19 @@ def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
     from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
 
     cfg = cfg or wan_dit.t2v_1_3b(num_layers=2, remat_policy="attn")
+    i2v = wan_dit.is_i2v(cfg)
     state = from_jax_params(seeded_jax_tree(cfg, seed=seed), cfg)
     rng = np.random.default_rng(seed + 1)
     f, hh, ww = grid[0], grid[1] * 2, grid[2] * 2
     x = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
     ctx = rng.standard_normal((1, TEXT_LEN, cfg.text_dim), dtype=np.float32)
     r = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
+    cond = {}
+    if i2v:
+        frames = 2 if cfg.model_type == "flf2v" else 1
+        cond = {"y": rng.standard_normal((1, f, hh, ww, cfg.in_dim - 16), dtype=np.float32),
+                "clip_fea": rng.standard_normal((frames, wan_dit.CLIP_TOKENS, wan_dit.CLIP_DIM),
+                                                dtype=np.float32)}
     outs, grads, launches = {}, {}, {}
     # the card and the CPU at bf16 compute, and the CPU at fp32 compute,
     # which measures how far bf16 rounding alone moves each gradient
@@ -1049,9 +1088,10 @@ def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
                                  device=torch.device(dev), param_dtype=torch.float32)
         model.load_state_dict(state)
         xi = torch.from_numpy(x).to(dev).requires_grad_()
+        ci = {k: torch.from_numpy(a).to(dev).requires_grad_() for k, a in cond.items()}
         _build.reset_launches()
         t0 = time.perf_counter()
-        out = model(xi, torch.tensor([700.0], device=dev), torch.from_numpy(ctx).to(dev))
+        out = model(xi, torch.tensor([700.0], device=dev), torch.from_numpy(ctx).to(dev), **ci)
         (out * torch.from_numpy(r).to(dev)).sum().backward()
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -1059,8 +1099,9 @@ def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
         print(f"  {label}forward + backward, {key}: {time.perf_counter() - t0:.2f} s")
         outs[key] = out.detach().cpu()
         grads[key] = {"input latent": xi.grad.cpu(),
+                      **{f"input {k}": a.grad.cpu() for k, a in ci.items()},
                       **{name: p.grad.cpu() for name, p in model.named_parameters()}}
-        del model, out, xi
+        del model, out, xi, ci
 
     def rel(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
@@ -1074,7 +1115,8 @@ def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
     # Bound: bf16 matmuls and activations round at other points on the card
     # (and K4's dq adds in a run-dependent order), so a gradient may differ
     # from the CPU's bf16 run by a few bf16 ulps of its norm: 2e-2 (about
-    # five ulps of 2^-8). The attention k biases are held to the CPU's fp32
+    # five ulps of 2^-8). The attention k biases (and the image k_img's) are
+    # held to the CPU's fp32
     # run instead: their gradient is a sum over keys that nearly cancels
     # (softmax ignores a shift shared by all keys; only the RMSNorm breaks
     # it), so bf16 rounding alone moves it by a large part of its small
@@ -1086,7 +1128,7 @@ def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
         got = grads["card"][name]
         expect(bool(torch.isfinite(got).all()), f"gradient of {name}: non-finite")
         expect(ref.norm().item() > 0, f"gradient of {name} is zero on the CPU")
-        if name.endswith(".k.bias"):
+        if name.endswith((".k.bias", ".k_img.bias")):
             exact = grads["cpu fp32"][name]
             noise, err = rel(ref, exact), rel(got, exact)
             print(f"  {name}: card against CPU fp32 {err:.3e} (bound 1.5 x {noise:.3e}, "
@@ -1098,12 +1140,13 @@ def phase_grad_model(cfg=None, grid=GRID_9, seed=17, label=""):
         worst.append((err, name))
         expect(err <= 2e-2, f"gradient of {name}: relative error {err:.3e} over 2e-2")
     worst.sort(reverse=True)
-    print(f"  the other {len(worst)} gradients (every parameter and the input latent) within "
+    print(f"  the other {len(worst)} gradients (every parameter and the input latent"
+          f"{', y and the CLIP features' if i2v else ''}) within "
           f"2e-2 of the CPU bf16 run's, relative to their norms; the largest:")
     for err, name in worst[:5]:
         print(f"    {name}: {err:.3e}")
     want = dit_launches(cfg.num_layers, True,
-                        self_single=fa.uses_single_block(math.prod(grid)))
+                        self_single=fa.uses_single_block(math.prod(grid)), i2v=i2v)
     print(f"  {label}launches {launches}, derived {want}")
     expect(launches == want, f"{label}launches {launches}, expected {want}")
     torch.cuda.empty_cache()
@@ -1404,10 +1447,27 @@ TRAIN_CONFIG = {  # configs/train_prfl_t2v_480.yaml, with the smoke's changes ma
 }
 
 
-def write_latent_cache(root, frame_counts):
+TRAIN_CONFIG_I2V = {  # configs/train_prfl_i2v_480.yaml, with the smoke's changes marked
+    "train_id": "prfl_i2v_480",
+    "task": "i2v-1.3b",                      # changed from i2v-14b-480p
+    "prfl_inference_steps": 8,               # added: 8 steps
+    "model": {**TRAIN_CONFIG["model"]},      # base_path None: no weights in the repository
+    "extra_model": {"scheduler": {"flow_shift": 3.0, "num_train_timesteps": 1000,
+                                  "weighting_scheme": "uniform", "logit_mean": 0,
+                                  "logit_std": 1, "mode_scale": 1.29}},
+    "dataset": {"uncond_prob": [0.1, 0.0], "sp_size": 1, "batch_size": 1},
+    "optimizer": {**TRAIN_CONFIG["optimizer"]},
+    "train": {**TRAIN_CONFIG["train"]},      # accumulation 1 (changed from 5), fixed_mid 3
+    "lrm": {**TRAIN_CONFIG["lrm"]},
+}
+
+
+def write_latent_cache(root, frame_counts, i2v=False):
     """A seeded latent cache in the reference's layout (temp_data_smoke/) at
-    the slice's shapes: latents [1, 16, F, 60, 104], text [1, n, 4096].
-    Returns {frames: meta list path}."""
+    the slice's shapes: latents [1, 16, F, 60, 104], text [1, n, 4096]; with
+    ``i2v`` also the first-frame condition latent (f1_black_path, as
+    latents) and the CLIP features (imgclip_path, [1, 257, 1280]), drawn
+    after each clip's other draws. Returns {frames: meta list path}."""
     rng = np.random.default_rng(21)
     null_dir = os.path.join(root, "null", "wanx")
     os.makedirs(null_dir)
@@ -1426,6 +1486,11 @@ def write_latent_cache(root, frame_counts):
                 rng.standard_normal((1, 16, lat_f, 60, 104), np.float32))
         np.save(meta["textshort_path"], rng.standard_normal((1, 12, 4096), np.float32))
         np.save(meta["textlong_path"], rng.standard_normal((1, 48, 4096), np.float32))
+        if i2v:
+            meta.update(f1_black_path=stem + "_cond.npy", imgclip_path=stem + "_clip.npy")
+            np.save(meta["f1_black_path"],
+                    rng.standard_normal((1, 16, lat_f, 60, 104), np.float32))
+            np.save(meta["imgclip_path"], rng.standard_normal((1, 257, 1280), np.float32))
         meta_path = stem + "_meta.json"
         with open(meta_path, "w") as f:
             json.dump(meta, f)
@@ -1686,6 +1751,280 @@ def phase_probes(results):
     return launches
 
 
+def phase_i2v(results, root):
+    """Phase 11: i2v and flf2v. K3 at the image cross-attention's shapes and
+    K4 at its training shape; 2 i2v-14B blocks card against CPU (output and
+    every gradient) and 2 flf2v-14B blocks (output); i2v-14B and flf2v-14B
+    served at full width and depth through the CLI path; one i2v PRFL outer
+    step through the training CLI. Returns the launches of serving and
+    training."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+
+    # K3 at the image cross-attention of an 81-frame 832*480 CFG-2 forward of
+    # a 14B model: 40 heads x 32,760 queries over 257 CLIP tokens (i2v; one
+    # key past two 128-key tiles) and 514 (flf2v; two past four). Bounds as
+    # phase 2: o within two bf16 ulps of max|o|, lse 1e-5 max|lse|.
+    b, n, d = 2, 40, 128
+    lq = math.prod(GRID_81)
+    q = randn(b, n, lq, d)
+    for lk in (257, 514):
+        k, v = randn(b, n, lk, d), randn(b, lk, n, d)
+        expect(fa.uses_single_block(lk), f"K3: lk {lk} does not take the single-block form")
+        o, lse = fa.flash_fwd_kernel(q, k, v, True)
+        po, plse = fa.flash_attention_plain(q, k, v)
+        err, rmax, fin = max_err(o, po)
+        el, ml, fl = max_err(lse, plse)
+        del o, lse, po, plse
+        vt = v.movedim(1, 2).contiguous()
+        t = timed_turns({"plain": lambda: fa.flash_attention_plain(q, k, v),
+                         "kernel": lambda: fa.flash_fwd_kernel(q, k, v, True),
+                         "library": lambda: sdpa_flash(q, k, vt)}, reps=5, calls=20)
+        flop = 4 * b * n * lq * lk * d
+        bnd = bound(2 * b * n * (lq + lk) * d * 2, bf16=flop)
+        print(f"  K3 [2, 40, {lq:,} x {lk}, 128]: max_abs_err {err:.3e} (bound "
+              f"{2.0 ** -6 * rmax:.3e}), lse {el:.3e} (bound {1e-5 * ml:.3e}); kernel "
+              f"{t['kernel']:.4f} ms ({flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
+              f"{bnd['bound_ms'] / t['kernel']:.3f} of the {bnd['bound_ms']:.4f} ms bound, "
+              f"{bnd['bound_by']}), plain {t['plain']:.4f} ms, SDPA flash {t['library']:.4f} ms")
+        expect(fin and err <= 2.0 ** -6 * rmax, f"K3 at lk {lk}: error {err}")
+        expect(fl and el <= 1e-5 * ml, f"K3 at lk {lk}: lse error {el}")
+        tag = f"image_lk{lk}"
+        results["K3"].update({f"{tag}_ms": t["kernel"], f"{tag}_plain_ms": t["plain"],
+                              f"{tag}_library_ms": t["library"],
+                              f"{tag}_bound_ms": bnd["bound_ms"], f"{tag}_max_abs_err": err})
+        del k, v, vt
+    del q
+    torch.cuda.empty_cache()
+
+    # K4 at the i2v-1.3B training shape (batch 1, 12 heads, 21 frames:
+    # 9,360 queries over the 257 CLIP keys), phase 5's bound: two bf16 ulps
+    # of each gradient's largest entry
+    lq, lk, n = 9360, 257, 12
+    expect(fa.uses_merged_bwd(lq, lk), "K4: the image cross-attention takes the split route")
+    q, k, v = randn(1, n, lq, d), randn(1, n, lk, d), randn(1, lk, n, d)
+    o, lse = fa.flash_fwd_kernel(q, k, v, True)
+    do = randn(*o.shape)
+    got = fa.bwd_kernel(q, k, v, o, lse, do, True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
+    vs = v.movedim(1, 2).contiguous().requires_grad_()
+    out = sdpa_flash(qs, ks, vs)
+    dot = do.movedim(1, 2).contiguous()
+    t = timed_turns({"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                     "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, True),
+                     "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                            retain_graph=True)},
+                    reps=5, calls=20)
+    flop = 10 * n * lq * lk * d
+    bnd = bound(n * d * 2 * (3 * lq + 4 * lk) + 8 * n * lq, bf16=flop)
+    part = {}
+    report_many("K4", f"image cross-attention, 9,360 x {lk} keys", [
+        (o_, a, b_, 2.0 ** -6) for o_, a, b_ in zip(("dq", "dk", "dv"), got, ref)],
+        part, (t["kernel"], t["plain"]), library_ms=t["library"], **bnd)
+    print(f"  K4 image cross-attention: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
+          f"{bnd['bound_ms'] / t['kernel']:.3f} of the bound, SDPA flash backward "
+          f"{t['library']:.4f} ms")
+    results["K4"].update({f"image_lk{lk}_{key}": val for key, val in part["K4"].items()})
+    del q, k, v, o, lse, do, got, ref, qs, ks, vs, out, dot
+    torch.cuda.empty_cache()
+
+    # 2 blocks of i2v-14B, output and every gradient (the image branch's
+    # included), card against CPU, at one latent frame of 832*480, as phase
+    # 10 holds t2v-14B; then 2 blocks of flf2v-14B, output only
+    cfg = wan_dit.i2v_14b(num_layers=2, remat_policy="attn")
+    phase_grad_model(cfg, GRID_14B_1, seed=61, label="i2v-14B 2 blocks, 1,560 tokens: ")
+    cfg = wan_dit.flf2v_14b(num_layers=2)
+    state = from_jax_params(seeded_jax_tree(cfg, seed=63), cfg)
+    rng = np.random.default_rng(64)
+    shape = (1, GRID_14B_1[0], GRID_14B_1[1] * 2, GRID_14B_1[2] * 2)
+    inputs = [torch.from_numpy(a) for a in (
+        rng.standard_normal((*shape, 16), dtype=np.float32),
+        rng.standard_normal((1, TEXT_LEN, cfg.text_dim), dtype=np.float32),
+        rng.standard_normal((*shape, 20), dtype=np.float32),
+        rng.standard_normal((2, 257, 1280), dtype=np.float32))]
+    outs = {}
+    for key in ("cuda", "cpu"):
+        model = wan_dit.WanModel(cfg, device=torch.device(key))
+        model.load_state_dict(state)
+        x, ctx, y, clip = (a.to(key) for a in inputs)
+        _build.reset_launches()
+        with torch.inference_mode():
+            outs[key] = model(x, torch.tensor([700.0], device=key), ctx, y=y, clip_fea=clip).cpu()
+        if key == "cuda":
+            launches = dict(_build.LAUNCHES)
+        del model
+    err, rmax, fin = max_err(outs["cuda"], outs["cpu"])
+    want = dit_launches(2, False, self_single=True, i2v=True)
+    print(f"  flf2v-14B 2 blocks, 1,560 tokens (514 image keys): max_abs_err {err:.3e} (bound "
+          f"{3e-2 * rmax:.3e}, max|cpu| {rmax:.3e}); launches {launches}, derived {want}")
+    expect(fin and rmax > 0 and err <= 3e-2 * rmax, f"flf2v-14B 2 blocks: error {err}")
+    expect(launches == want, f"flf2v-14B launches {launches}, expected {want}")
+    del state, outs, inputs
+    torch.cuda.empty_cache()
+
+    launches = _serve_i2v(dev)
+    with tempfile.TemporaryDirectory(dir=root) as sub:
+        launches = _add(launches, _train_i2v(sub, dev))
+    return launches
+
+
+def _serve_i2v(dev):
+    """Phase 11's serving: i2v-14B and flf2v-14B at full width and depth
+    through scripts/inference_torch.py, each pipeline freed before the next
+    is built; returns the launches of every request."""
+    import gc
+
+    import torch
+
+    cli = load_script("inference_torch")
+
+    def build(task, flags=()):
+        args = cli.args_init(["--task", task, "--size", SIZE, "--frame_num", "81",
+                              "--sample_steps", "2", "--sample_guide_scale", "5.0",
+                              "--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = cli.build_pipeline(args)
+        # a seeded non-zero head, as phase 4's (the JAX initialisers zero it)
+        with torch.no_grad():
+            pipe.model.head.head.weight.normal_(
+                0.0, pipe.cfg.dim ** -0.5, generator=torch.Generator(device=dev).manual_seed(13))
+        torch.cuda.synchronize()
+        n_weights = sum(p.numel() for p in pipe.model.state_dict().values())
+        print(f"  {task} pipeline {list(flags) or '(bf16)'} built in "
+              f"{time.perf_counter() - t0:.2f} s: {n_weights / 1e9:.3f} B weights, "
+              f"{pipe.cfg.num_layers} blocks, dim {pipe.cfg.dim}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {type(pipe).__name__}, "
+              f"shift {args.sample_shift}")
+        expect(pipe.cfg.num_layers == 40 and pipe.cfg.dim == 5120 and pipe.cfg.in_dim == 36,
+               f"{task}: not the full-size model")
+        return pipe, args
+
+    def free(pipe):
+        del pipe.model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def embeds(seed, *shape):
+        return torch.randn(*shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+    def request(args, seed, text_seed, image_seed, frames, clip_frames=1):
+        grid = cli.latent_grid(SIZE, frames)
+        return cli.Request(
+            seed=seed, context=embeds(text_seed, 1, TEXT_LEN, 4096),
+            context_null=torch.zeros(1, TEXT_LEN, 4096, device=dev), frame_num=frames,
+            sample_steps=2, sample_shift=args.sample_shift, guide_scale=args.sample_guide_scale,
+            clip_fea=embeds(image_seed, clip_frames, 257, 1280),
+            cond_latent=embeds(image_seed + 1, 1, *grid, 16))
+
+    per_forward = dit_launches(40, False, i2v=True)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    pipe, args = build("i2v-14B")
+    reqs = [request(args, 51, 201, 301, 81), request(args, 52, 202, 303, 21),
+            request(args, 52, 202, 305, 21)]
+    lats, launches = _serve(cli, pipe, reqs, per_forward, "i2v-14B bf16")
+    # Two 21-frame requests with the same seed and text and another image
+    # (cond_latent and CLIP features): y and the image branch reach the
+    # latents only if they differ; the int8 bound below shows their scale
+    apart = rel(lats[2], lats[1])
+    print(f"  i2v-14B, seed 52, two images: latents {apart:.4f} apart (relative L2)")
+    expect(apart > 1e-3, "another image gave the same latents: y or the image branch is lost")
+    free(pipe)
+    del pipe
+
+    pipe, _ = build("i2v-14B", ("--quant", "int8", "--quant_attn", "int8"))
+    lats8, launches8 = _serve(cli, pipe, [reqs[1]], dit_launches(40, False, qk8=True, i2v=True),
+                              "i2v-14B int8")
+    free(pipe)
+    del pipe
+    # phase 4's bound: the int8 sample within 0.3 relative L2 of the bf16
+    # sample of the same request
+    d = rel(lats8[0], lats[1])
+    print(f"  i2v-14B int8 against bf16, seed 52, 21 frames: relative L2 distance {d:.4f} "
+          f"(bound 0.3; the other image lies {apart:.4f} away)")
+    expect(d <= 0.3, f"the int8 i2v latents lie {d} from the bf16 ones")
+
+    pipe, args = build("flf2v-14B")
+    defaults = cli.args_init(["--task", "flf2v-14B", "--size", SIZE])
+    expect(args.sample_shift == defaults.sample_shift == 5.0 and defaults.sample_steps == 50,
+           "flf2v-14B: the JAX CLI's defaults are 50 steps at shift 5.0")
+    _, launches_f = _serve(cli, pipe, [request(args, 53, 203, 307, 81, clip_frames=2)],
+                           per_forward, "flf2v-14B bf16")
+    free(pipe)
+    del pipe, lats, lats8
+    return _add(_add(dict(launches), launches8), launches_f)
+
+
+def _train_i2v(root, dev):
+    """Phase 11's training: one i2v PRFL outer step through
+    scripts/train_prfl_torch.py at i2v-1.3B, 21 frames; returns its
+    launches."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+
+    cli = load_script("train_prfl_torch")
+    lists, null_dir = write_latent_cache(root, (21,), i2v=True)
+    raw = json.loads(json.dumps(TRAIN_CONFIG_I2V))
+    raw["dataset"].update(meta_file_list=[lists[21]], null_dir=null_dir)
+    raw["save"] = {"output_dir": os.path.join(root, "out")}
+    trainer, config, build_s = _build_trainer(cli, raw, dev)
+    model = trainer.model
+    cfg = model.dit_cfg
+    n_lrm = model.lrm.dit_cfg.num_layers
+    print(f"  i2v trainer built in {build_s:.2f} s: {config.task}, in_dim {cfg.in_dim}, policy "
+          f"{sum(p.numel() for p in model.dit.parameters()) / 1e9:.3f} B fp32 master params; "
+          f"is_i2v {model.cfg.is_i2v}")
+    expect(model.cfg.is_i2v and not model.cfg.is_flf2v and cfg.model_type == "i2v",
+           "the i2v task did not make an i2v trainer")
+    watched = {name: p.detach().clone() for name, p in model.dit.named_parameters()
+               if name in ("blocks.0.ffn_0.weight", "blocks.29.cross_attn.k_img.weight",
+                           "blocks.3.cross_attn.v_img.weight", "blocks.7.cross_attn.norm_k_img",
+                           "img_emb.fc1.weight", "img_emb.ln1_scale", "patch_embedding.weight")}
+    expect(len(watched) == 7, f"watched weights missing: {sorted(watched)}")
+    want = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
+                                   cfg.remat_policy, i2v=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    (m,) = cli.run(trainer, 1)
+    torch.cuda.synchronize()
+    got = dict(_build.LAUNCHES)
+    print(f"  i2v-1.3B, 21 frames (9,360 tokens, 257 image keys): refl_loss "
+          f"{m['refl_loss']:.6f}, reward {m['reward']:.6f}, grad_norm {m['grad_norm']:.6e}, "
+          f"sft_loss {m['sft_loss']:.6f}, t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+        expect(math.isfinite(m[key]), f"i2v training: {key} is not finite: {m}")
+    expect(m["grad_norm"] > 0, f"i2v training: grad norm {m['grad_norm']} is not above 0")
+    params = dict(model.dit.named_parameters())
+    for name, before in watched.items():
+        moved = (params[name].detach() != before).float().mean().item()
+        print(f"  {name}: {moved:.1%} of its entries moved")
+        expect(moved > 0, f"i2v policy weight {name} did not move")
+    print(f"  launches {got}, derived {want}")
+    expect(got == want, f"i2v training launches {got}, expected {want}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return got
+
+
 def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
@@ -1846,9 +2185,13 @@ def main() -> int:
     unnormed_launches = phase_unnormed()
     print("phase 10: the 14B width (dim 5120, 40 heads) and bench.py's (1280, 10)")
     phase_wide(results)
+    print("phase 11: i2v and flf2v (the image cross-attention, i2v-14B/flf2v-14B served, "
+          "one i2v PRFL step)")
+    with tempfile.TemporaryDirectory() as root:
+        i2v_launches = phase_i2v(results, root)
 
-    launches = _add(_add(_add(_add(dict(serve_launches), train_launches), route_launches),
-                         probe_launches), unnormed_launches)
+    launches = _add(_add(_add(_add(_add(dict(serve_launches), train_launches), route_launches),
+                              probe_launches), unnormed_launches), i2v_launches)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -41,17 +41,21 @@ SUPPORTED_SIZES = {
 
 
 def dit_config_for_task(task: str, **kw) -> wan_dit.WanConfig:
-    """Map a task string (t2v-1.3b, t2v-14b, ...) to a WanConfig.
-
-    Only the t2v family is ported; the i2v/flf2v tasks raise until their
-    conditioning path lands."""
+    """Map a task string (t2v-1.3b, i2v-14b-720p, ...) to a WanConfig, by
+    the JAX package's prefixes."""
     t = task.lower()
     if t.startswith("t2v-1.3b"):
         return wan_dit.t2v_1_3b(**kw)
-    if t.startswith("t2i") or t.startswith("t2v-14b"):
+    if t.startswith("t2i"):
         return wan_dit.t2v_14b(**kw)
-    if t.startswith(("i2v", "flf2v")):
-        raise NotImplementedError(f"task {task}: i2v/flf2v are not ported yet")
+    if t.startswith("i2v-1.3b"):
+        return wan_dit.i2v_1_3b(**kw)
+    if t.startswith("t2v-14b"):
+        return wan_dit.t2v_14b(**kw)
+    if t.startswith("i2v-14b"):
+        return wan_dit.i2v_14b(**kw)
+    if t.startswith("flf2v"):
+        return wan_dit.flf2v_14b(**kw)
     raise ValueError(f"unknown task {task}")
 
 

@@ -5,13 +5,16 @@ The reference's on-disk cache, unchanged:
 * a "meta list" text file of JSON paths, one per line;
 * each JSON holds npy paths: ``vae_latent_path`` [1, C, T, H, W] fp32,
   ``textshort_path``/``textlong_path`` [1, L, text_dim] (or
-  ``text_en_path``) and captions;
-* ``{null_dir}/wanx/{null,uncond}.npy`` null and uncond text embeddings.
+  ``text_en_path``) and captions; for i2v also ``f1_black_path`` (or
+  ``latents_condition_path``), the first-frame conditioning latent
+  [1, 16, T, H, W], and ``imgclip_path``, the CLIP features [1, 257, 1280];
+* ``{null_dir}/wanx/{null,uncond,uncond_flf2v}.npy`` null and uncond text
+  embeddings (flf2v has its own uncond).
 
-Samples come out channel-last (latents [T, H, W, C]) with text padded to
-a fixed ``text_len``, as the JAX package returns them. Only the PRFL
-("refl") mode is ported, as this class; i2v conditioning, the
-reward-model modes and the native read-ahead ring are not.
+Samples come out channel-last (latents and ``cond`` [T, H, W, C],
+``clip_fea`` [n * 257, 1280]) with text padded to a fixed ``text_len``, as
+the JAX package returns them. Only the PRFL ("refl") mode is ported, as
+this class; the reward-model modes and the native read-ahead ring are not.
 """
 
 from __future__ import annotations
@@ -55,10 +58,13 @@ class LatentCacheDataset:
 
     def __init__(self, meta_file_list: Sequence[str] = (),
                  uncond_prob: Sequence[float] = (0.0, 0.0), text_len: int = 512,
-                 null_dir: Optional[str] = None, seed: Optional[int] = None):
+                 null_dir: Optional[str] = None, is_i2v: bool = True,
+                 is_flf2v: bool = False, seed: Optional[int] = None):
         self.uncond_prompt_prob = uncond_prob[0]
         self.text_len = text_len
         self.null_dir = null_dir or NULL_DIR
+        self.is_i2v = is_i2v
+        self.is_flf2v = is_flf2v
         self.rng = random.Random(seed)
         self.meta_paths: List[str] = []
         for meta_file in meta_file_list:
@@ -82,7 +88,8 @@ class LatentCacheDataset:
 
     def get_refl(self, idx: int) -> Dict[str, np.ndarray]:
         """PRFL sample: latents, text (dropped to the null embedding with
-        probability uncond_prob[0]), uncond_text, prompt."""
+        probability uncond_prob[0]), uncond_text, prompt; with is_i2v also
+        cond and clip_fea, where the meta names them."""
         with open(self.meta_paths[idx]) as f:
             d = json.load(f)
         lat = next((d[k] for k in ("video_vae_latent_path", "vae_latent_path", "latents_path")
@@ -100,9 +107,19 @@ class LatentCacheDataset:
             text = self._null_text("null")
         else:
             text = np.load(text_p)[0]
-        return {
+        out = {
             "latents": _to_thwc(np.load(lat)),
             "text": _pad_text(text, self.text_len),
-            "uncond_text": _pad_text(self._null_text("uncond"), self.text_len),
+            "uncond_text": _pad_text(
+                self._null_text("uncond_flf2v" if self.is_flf2v else "uncond"), self.text_len),
             "prompt": prompt,
         }
+        if not self.is_i2v:
+            return out
+        cond = next((d[k] for k in ("f1_black_path", "latents_condition_path") if k in d), None)
+        if cond is not None:
+            out["cond"] = _to_thwc(np.load(cond))
+        if "imgclip_path" in d:
+            clip = np.load(d["imgclip_path"])  # [1, 257, 1280] or [b, s, d]
+            out["clip_fea"] = clip.reshape(-1, clip.shape[-1]).astype(np.float32)
+        return out

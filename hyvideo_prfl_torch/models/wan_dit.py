@@ -1,4 +1,4 @@
-"""Wan video DiT backbone, t2v (hyvideo_prfl_tpu/models/wan_dit.py).
+"""Wan video DiT backbone, t2v, i2v and flf2v (hyvideo_prfl_tpu/models/wan_dit.py).
 
 Same math and the same precision islands as the JAX package:
 
@@ -33,12 +33,22 @@ policies "full" and "attn") and the feature taps the reward model reads
 with torch's [out, in] weight layout.
 
 The int8 serving path: ``cfg.quant_dense = "int8"`` makes the ten block
-matmuls (self and cross q/k/v/o, ``ffn_0``, ``ffn_2``) ``QuantLinear``
+matmuls (self and cross q/k/v/o, ``ffn_0``, ``ffn_2``; twelve with the
+image branch's ``k_img``/``v_img``) ``QuantLinear``
 (W8A8, ops/quant.py), and ``cfg.quant_attn = "int8"`` sends the
 self-attention to the int8 q k^T forward (K10) wherever its keys stream in
 several blocks; the text cross-attention stays on K3. Both are forward
-only. Not ported yet: i2v/flf2v conditioning (``y``, CLIP, and the
-``k_img``/``v_img`` matmuls), TeaCache, the "dots" remat policies and the
+only.
+
+i2v and flf2v (``model_type``; in_dim 36): the 20 conditioning channels
+``y`` (mask and first-frame latent) are concatenated onto the noisy latent
+before the patch embedding, and the CLIP image features ``clip_fea`` go
+through ``MLPProj`` (``img_emb``, fp32, plain PyTorch: 257 or 514 rows) and
+are prepended to the text context. Each block's cross-attention splits the
+context at ``len - 512`` and adds a second attention over the image
+tokens (``k_img``/``v_img``, int8 under ``quant_dense``, with the RMSNorm
+``norm_k_img`` on K6 under ``qk_norm``): K3 at lk 257 (i2v) or 514
+(flf2v). Not ported yet: TeaCache, the "dots" remat policies and the
 sharding policies.
 """
 
@@ -60,12 +70,17 @@ from ..ops.rope import rope_rotate
 from ..ops.stream import ln_scale_shift
 from .rope import rope_tables_rolled_np
 
+T5_CONTEXT_TOKEN_NUMBER = 512
+FIRST_LAST_FRAME_CONTEXT_TOKEN_NUMBER = 257 * 2
+# the released CLIP ViT-H/14 image features: [257, 1280] per frame
+CLIP_TOKENS, CLIP_DIM = 257, 1280
+
 
 @dataclasses.dataclass(frozen=True)
 class WanConfig:
     """Model hyperparameters (the JAX WanConfig's model fields)."""
 
-    model_type: str = "t2v"
+    model_type: str = "t2v"  # t2v | i2v | flf2v
     patch_size: Tuple[int, int, int] = (1, 2, 2)
     text_len: int = 512
     in_dim: int = 16
@@ -89,7 +104,7 @@ class WanConfig:
     # the attention calls, so the backward never re-runs K1/K3
     remat: bool = True
     remat_policy: str = "full"
-    # "int8": the ten block matmuls run as W8A8 int8 GEMMs (serving and the
+    # "int8": the block matmuls run as W8A8 int8 GEMMs (serving and the
     # int8 rollout; QuantLinear)
     quant_dense: Optional[str] = None
     # "int8": the self-attention's q k^T runs on the int8 path (K10) where
@@ -107,9 +122,31 @@ def t2v_14b(**kw):
                                num_heads=40, num_layers=40), **kw})
 
 
+def i2v_14b(**kw):
+    return WanConfig(**{**dict(model_type="i2v", in_dim=36, dim=5120, ffn_dim=13824,
+                               num_heads=40, num_layers=40), **kw})
+
+
 def t2v_1_3b(**kw):
     return WanConfig(**{**dict(model_type="t2v", dim=1536, ffn_dim=8960,
                                num_heads=12, num_layers=30), **kw})
+
+
+def i2v_1_3b(**kw):
+    """1.3B-sized i2v variant (no released counterpart; the JAX package's
+    small-scale i2v config, with the full 36-channel conditioning)."""
+    return WanConfig(**{**dict(model_type="i2v", in_dim=36, dim=1536, ffn_dim=8960,
+                               num_heads=12, num_layers=30), **kw})
+
+
+def flf2v_14b(**kw):
+    return WanConfig(**{**dict(model_type="flf2v", in_dim=36, dim=5120, ffn_dim=13824,
+                               num_heads=40, num_layers=40), **kw})
+
+
+def is_i2v(cfg: WanConfig) -> bool:
+    """True for the models with the image branch (i2v, flf2v)."""
+    return cfg.model_type in ("i2v", "flf2v")
 
 
 def tiny_test(**kw):
@@ -186,7 +223,7 @@ class QuantLinear(nn.Module):
 
 
 def _block_linear(cfg: WanConfig, in_f, out_f, device, dtype):
-    """One of the ten block matmuls: int8 under cfg.quant_dense."""
+    """One of the block matmuls: int8 under cfg.quant_dense."""
     if cfg.quant_dense == "int8":
         return QuantLinear(in_f, out_f, device)
     return _linear(in_f, out_f, device, dtype)
@@ -258,24 +295,49 @@ class SelfAttention(_Attention):
 
 
 class CrossAttention(_Attention):
-    """Text cross-attention, with qk-RMSNorm under cfg.qk_norm."""
+    """Text cross-attention, with qk-RMSNorm under cfg.qk_norm; for i2v and
+    flf2v also the attention over the image tokens, which lead the context,
+    added to the text attention's output before ``o``."""
+
+    def __init__(self, cfg: WanConfig, device=None, param_dtype=None):
+        super().__init__(cfg, device, param_dtype)
+        if is_i2v(cfg):
+            pd = param_dtype or cfg.compute_dtype
+            self.k_img = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
+            self.v_img = _block_linear(cfg, cfg.dim, cfg.dim, device, pd)
+            if cfg.qk_norm:
+                self.norm_k_img = _param(cfg.dim, device=device)
 
     def qkv(self, x, context):
         """-> q [B, N, L, D], k [B, N, Lk, D] head-major under qk_norm (else
-        token-major [B, L, N, D], [B, Lk, N, D]) and v [B, Lk, N, D]."""
+        token-major [B, L, N, D], [B, Lk, N, D]) and v [B, Lk, N, D]; for
+        i2v/flf2v also k_img and v_img, laid out as k and v."""
         cfg = self.cfg
         cd = cfg.compute_dtype
         b, l, _ = x.shape
         n, d = cfg.num_heads, cfg.head_dim
         x = x.to(cd)
         context = context.to(cd)
+        if is_i2v(cfg):
+            img_len = context.shape[1] - T5_CONTEXT_TOKEN_NUMBER
+            context_img, context = context[:, :img_len], context[:, img_len:]
         q, k = _dense(self.q, x, cd), _dense(self.k, context, cd)
         if cfg.qk_norm:
             q = rmsnorm_only(q, self.norm_q, n, cfg.eps)
             k = rmsnorm_only(k, self.norm_k, n, cfg.eps)
         else:
             q, k = q.view(b, l, n, d), k.view(b, -1, n, d)
-        return q, k, _dense(self.v, context, cd).view(b, -1, n, d)
+        out = (q, k, _dense(self.v, context, cd).view(b, -1, n, d))
+        if not is_i2v(cfg):
+            return out
+        k_img = _dense(self.k_img, context_img, cd)
+        k_img = (rmsnorm_only(k_img, self.norm_k_img, n, cfg.eps) if cfg.qk_norm
+                 else k_img.view(b, -1, n, d))
+        return (*out, k_img, _dense(self.v_img, context_img, cd).view(b, -1, n, d))
+
+    def attend(self, q, k, v, k_img=None, v_img=None):
+        o = super().attend(q, k, v)
+        return o if k_img is None else o + super().attend(q, k_img, v_img)
 
 
 class WanBlock(nn.Module):
@@ -366,6 +428,41 @@ class Head(nn.Module):
         return self.head(h)
 
 
+def _layer_norm(x, scale, bias, eps):
+    """fp32 affine LayerNorm (the JAX package's _layer_norm)."""
+    return F.layer_norm(x.float(), x.shape[-1:], scale, bias, eps)
+
+
+class MLPProj(nn.Module):
+    """CLIP image-context projector, fp32: LayerNorm, fc1, exact GELU,
+    fc2, LayerNorm. For flf2v the first- and last-frame features, stacked
+    on the batch axis, are joined into one 514-token row per sample and get
+    the learned ``emb_pos``."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        self.flf = cfg.model_type == "flf2v"
+        f32 = torch.float32
+        if self.flf:
+            self.emb_pos = _param(1, FIRST_LAST_FRAME_CONTEXT_TOKEN_NUMBER, CLIP_DIM,
+                                  device=device)
+        self.ln0_scale = _param(CLIP_DIM, device=device)
+        self.ln0_bias = _param(CLIP_DIM, device=device)
+        self.fc1 = _linear(CLIP_DIM, CLIP_DIM, device, f32)
+        self.fc2 = _linear(CLIP_DIM, cfg.dim, device, f32)
+        self.ln1_scale = _param(cfg.dim, device=device)
+        self.ln1_bias = _param(cfg.dim, device=device)
+
+    def forward(self, image_embeds):
+        x = image_embeds.float()
+        if self.flf:
+            _, n, d = x.shape
+            x = x.reshape(-1, 2 * n, d) + self.emb_pos
+        x = _layer_norm(x, self.ln0_scale, self.ln0_bias, 1e-5)
+        x = self.fc2(F.gelu(self.fc1(x)))
+        return _layer_norm(x, self.ln1_scale, self.ln1_bias, 1e-5)
+
+
 class WanModel(nn.Module):
     """The video DiT.
 
@@ -374,11 +471,17 @@ class WanModel(nn.Module):
     the trainer passes fp32 masters); ``with_head=False`` builds the
     head-less tower the reward model trims to.
 
-    forward(x, t, context, grid=None, output_features=False, selected_layers=())
-      x: [B, F, H, W, in_dim] latent video, or the token-cell layout
-         [B, L, cells, in_dim] from ``patchify`` with ``grid`` given (the
+    forward(x, t, context, y=None, clip_fea=None, grid=None,
+            output_features=False, selected_layers=())
+      x: [B, F, H, W, C] latent video, or the token-cell layout
+         [B, L, cells, C] from ``patchify`` with ``grid`` given (the
          sampling loop keeps its state in that layout).
       t: [B] or scalar timesteps.  context: [B, text_len, text_dim].
+      y: i2v/flf2v conditioning in x's layout, concatenated on the channel
+         axis (C + C_y = in_dim).  clip_fea: CLIP image features
+         [B, 257, 1280] (flf2v: [2B, 257, 1280], first and last frame of
+         each sample in turn), projected by ``img_emb`` and prepended to
+         the text context.
     Returns fp32 [B, F, H, W, out_dim], or [B, L, cells, out_dim] in token
     mode; with output_features, the residual stream after block ``idx``
     for each ``idx + 1`` in selected_layers, stacked [n_sel, B, L, dim]
@@ -399,6 +502,7 @@ class WanModel(nn.Module):
         self.time_0 = _linear(cfg.freq_dim, cfg.dim, device, f32)
         self.time_2 = _linear(cfg.dim, cfg.dim, device, f32)
         self.time_proj = _linear(cfg.dim, 6 * cfg.dim, device, f32)
+        self.img_emb = MLPProj(cfg, device) if is_i2v(cfg) else None
         self.blocks = nn.ModuleList(WanBlock(cfg, device, param_dtype)
                                     for _ in range(cfg.num_layers))
         self.head = Head(cfg, device) if with_head else None
@@ -412,12 +516,16 @@ class WanModel(nn.Module):
                                torch.from_numpy(s).to(device))
         return self._rope[key]
 
-    def forward(self, x, t, context, grid: Optional[Tuple[int, int, int]] = None,
+    def forward(self, x, t, context, y=None, clip_fea=None,
+                grid: Optional[Tuple[int, int, int]] = None,
                 output_features: bool = False, selected_layers: Sequence[int] = ()):
         cfg = self.cfg
         cd = cfg.compute_dtype
         pt, ph, pw = cfg.patch_size
         token_mode = x.dim() == 4
+        if y is not None:
+            # a channel concat in token-cell layout is the video-layout one
+            x = torch.cat([x, y.to(x.dtype)], dim=-1)
         if token_mode:
             b, seq_len, cells, c_in = x.shape
             if grid is None or cells != pt * ph * pw or seq_len != math.prod(grid):
@@ -436,6 +544,8 @@ class WanModel(nn.Module):
 
         ctx = _dense(self.text_2, F.gelu(_dense(self.text_0, context, cd), approximate="tanh"),
                      cd)
+        if clip_fea is not None:
+            ctx = torch.cat([self.img_emb(clip_fea).to(cd), ctx], dim=1)
 
         c_tab, s_tab = self.rope_tables(grid, h.device)
         sel = tuple(selected_layers)
@@ -467,7 +577,8 @@ def init_params(model: WanModel, generator: torch.Generator) -> WanModel:
     """Fill a model with the JAX package's initialisers (same distributions,
     not the same numbers): xavier-uniform dense kernels, normal(0.02) for
     the text/time embeddings, zero biases, a zero head kernel,
-    normal(1/sqrt(dim)) modulation, unit norm scales."""
+    normal(1/sqrt(dim)) modulation, unit norm and LayerNorm scales, zero
+    LayerNorm biases and a zero flf2v ``emb_pos``."""
     dim = model.cfg.dim
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear):
@@ -484,8 +595,9 @@ def init_params(model: WanModel, generator: torch.Generator) -> WanModel:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "modulation":
             p.normal_(0.0, 1.0 / math.sqrt(dim), generator=generator)
-        elif leaf in ("norm_q", "norm_k", "norm3_scale"):
+        elif leaf in ("norm_q", "norm_k", "norm_k_img", "norm3_scale", "ln0_scale",
+                      "ln1_scale"):
             p.fill_(1.0)
-        elif leaf == "norm3_bias":
+        elif leaf in ("norm3_bias", "ln0_bias", "ln1_bias", "emb_pos"):
             p.zero_()
     return model

@@ -1,11 +1,14 @@
-"""Text-to-video sampling pipeline (hyvideo_prfl_tpu/pipelines/pipeline.py).
+"""Video sampling pipelines, T2V, I2V and FLF2V
+(hyvideo_prfl_tpu/pipelines/pipeline.py).
 
 Batched classifier-free guidance: the cond/uncond pair runs as one
 2B-batch DiT forward per step, then UniPC steps the latent. The solver
 state stays in the token-cell layout (models/wan_dit.patchify) for the
 whole chain; the latent is patchified once before and unpatchified once
-after. Not ported yet: i2v/flf2v, the euler and dpm++ solvers, TeaCache
-and VAE decode.
+after. I2V and FLF2V condition every forward on ``y`` = [mask, cond_latent]
+(20 channels, patchified once with the noise) and on the CLIP features;
+both ride along with the CFG pair. Not ported yet: the euler and dpm++
+solvers, TeaCache and VAE decode.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import wan_dit
@@ -28,6 +32,22 @@ def latent_size_for(max_area: int, aspect: float, vae_stride=(4, 8, 8),
     lat_h = round(math.sqrt(max_area * aspect) / vae_stride[1] / patch_size[1]) * patch_size[1]
     lat_w = round(math.sqrt(max_area / aspect) / vae_stride[2] / patch_size[2]) * patch_size[2]
     return lat_f, lat_h, lat_w
+
+
+def i2v_mask(lat_f: int, lat_h: int, lat_w: int, last_frame: bool = False) -> torch.Tensor:
+    """4-channel conditioning mask per latent frame [F, H, W, 4] fp32.
+
+    The pixel-time mask is 1 on frame 0 (and on the last frame for
+    flf2v), 0 elsewhere; the first frame is repeated 4x so the (4n+1)-frame
+    video maps onto latent frames in groups of 4. On the last latent frame
+    only channel 3 is set (training/common.i2v_condition sets all four)."""
+    t_pix = (lat_f - 1) * 4 + 1
+    msk = np.zeros((t_pix,), np.float32)
+    msk[0] = 1.0
+    if last_frame:
+        msk[-1] = 1.0
+    msk = np.concatenate([np.repeat(msk[:1], 4), msk[1:]]).reshape(lat_f, 4)
+    return torch.from_numpy(msk)[:, None, None, :].expand(lat_f, lat_h, lat_w, 4)
 
 
 @dataclasses.dataclass
@@ -45,35 +65,46 @@ class WanPipeline:
         self.model = model
         self.cfg = model.cfg
 
-    def _velocity_cfg(self, x, t, context, context_null, guide_scale, grid):
+    def _velocity_cfg(self, x, t, context, context_null, guide_scale, grid,
+                      y=None, clip_fea=None):
         b = x.shape[0]
         x2 = torch.cat([x, x], dim=0)
         ctx2 = torch.cat([context, context_null], dim=0)
         t2 = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
-        out = self.model(x2, t2, ctx2, grid=grid)
+        # the cond and the uncond half see the same image conditioning; the
+        # flf2v features [2B, 257, d] repeat as a whole, so each sample's
+        # first and last frame stay neighbours for MLPProj's reshape
+        y2 = torch.cat([y, y], dim=0) if y is not None else None
+        clip2 = torch.cat([clip_fea, clip_fea], dim=0) if clip_fea is not None else None
+        out = self.model(x2, t2, ctx2, y=y2, clip_fea=clip2, grid=grid)
         cond, uncond = out[:b], out[b:]
         return uncond + guide_scale * (cond - uncond)
 
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], latent_shape, context,
                context_null, gen: GenerateConfig,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None, y=None, clip_fea=None) -> torch.Tensor:
         """Full denoising chain -> clean latents [B, F, H, W, C] fp32.
 
         noise: optional starting latent (e.g. another framework's draw);
-        otherwise drawn from ``generator`` on the context's device."""
+        otherwise drawn from ``generator`` on the context's device.
+        y: optional conditioning video [B, F, H, W, C_y], patchified once;
+        clip_fea: optional CLIP features for the image branch."""
         device = context.device
         if noise is None:
             noise = torch.randn(latent_shape, generator=generator,
                                 dtype=torch.float32, device=device)
         noise_t, grid = wan_dit.patchify(noise.to(device, torch.float32),
                                          self.cfg.patch_size)
+        y_t = (wan_dit.patchify(y.to(device, torch.float32), self.cfg.patch_size)[0]
+               if y is not None else None)
+        clip_fea = clip_fea.to(device) if clip_fea is not None else None
         sched = unipc.unipc_schedule(gen.sampling_steps, shift=gen.shift,
                                      num_train_timesteps=gen.num_train_timesteps)
 
         def vel(x, t):
             return self._velocity_cfg(x, t, context, context_null,
-                                      gen.guide_scale, grid)
+                                      gen.guide_scale, grid, y=y_t, clip_fea=clip_fea)
 
         x, _ = unipc.rollout(sched, vel, noise_t)
         return wan_dit.unpatchify(x, grid, self.cfg.patch_size)
@@ -88,3 +119,30 @@ class WanT2V(WanPipeline):
         gen = gen or GenerateConfig(shift=5.0, sampling_steps=50)
         shape = (context.shape[0], lat_f, lat_h, lat_w, self.cfg.out_dim)
         return self.sample(generator, shape, context, context_null, gen, noise=noise)
+
+
+class WanI2V(WanPipeline):
+    """Image-to-video. ``cond_latent`` is the VAE encoding of [first frame,
+    zeros...] ([B, F, H, W, 16]); ``clip_fea`` the first frame's CLIP
+    features [B, 257, 1280]."""
+
+    last_frame = False
+
+    def generate(self, generator, context, context_null, clip_fea, cond_latent,
+                 gen: Optional[GenerateConfig] = None,
+                 noise: Optional[torch.Tensor] = None):
+        gen = gen or GenerateConfig(shift=5.0, sampling_steps=40)
+        b, lat_f, lat_h, lat_w, _ = cond_latent.shape
+        msk = i2v_mask(lat_f, lat_h, lat_w, last_frame=self.last_frame).to(cond_latent.device)
+        y = torch.cat([msk[None].expand(b, -1, -1, -1, -1), cond_latent.float()], dim=-1)
+        shape = (b, lat_f, lat_h, lat_w, self.cfg.out_dim)
+        return self.sample(generator, shape, context, context_null, gen, noise=noise,
+                           y=y, clip_fea=clip_fea)
+
+
+class WanFLF2V(WanI2V):
+    """First-and-last-frame-to-video: the mask marks the first and the last
+    frame, and ``clip_fea`` holds both frames' features, [2B, 257, 1280]
+    (514 image tokens per sample)."""
+
+    last_frame = True

@@ -1,6 +1,6 @@
 """Shared training utilities (hyvideo_prfl_tpu/training/common.py): the LR
 schedule, the optimizer (global-norm clip + AdamW, optional gradient
-accumulation) and the train state.
+accumulation), the train state and the i2v/flf2v conditioning of a batch.
 
 The optimizer is written out rather than taken from ``torch.optim`` so it
 is the JAX package's optax chain step for step:
@@ -217,3 +217,38 @@ def validate_params(module: torch.nn.Module) -> dict:
     """NaN/Inf parameter health check -> {"finite": bool, "bad": [names]}."""
     bad = [n for n, p in module.named_parameters() if not bool(torch.isfinite(p).all())]
     return {"finite": not bad, "bad": bad}
+
+
+def i2v_condition(cond: Optional[torch.Tensor], flf2v: bool = False) -> Optional[torch.Tensor]:
+    """Concat the 4-channel conditioning mask onto 16-channel i2v latents:
+    [B, F, H, W, 16] -> [B, F, H, W, 20], ones on latent frame 0 (and, for
+    flf2v, on all four channels of the last frame: pipelines/pipeline.i2v_mask
+    sets only channel 3 there), zeros elsewhere. None and conds that are
+    not 16-channel pass through."""
+    if cond is None:
+        return None
+    b, f, h, w, c = cond.shape
+    if c != 16:
+        return cond
+    frames = torch.arange(f, device=cond.device)
+    hit = frames == 0
+    if flf2v:
+        hit = hit | (frames == f - 1)
+    mask = hit[None, :, None, None, None].to(cond.dtype).expand(b, f, h, w, 4)
+    return torch.cat([mask, cond], dim=-1)
+
+
+def reshape_clip(clip: Optional[torch.Tensor], tokens: int = 257) -> Optional[torch.Tensor]:
+    """[B, N*257, D] stacked CLIP features -> [B*N, 257, D] (N = 2 for the
+    flf2v first and last frame, 1 otherwise)."""
+    if clip is None:
+        return None
+    b, n_s, d = clip.shape
+    return clip.reshape(b * (n_s // tokens), tokens, d)
+
+
+def prepare_conditioning(batch, is_i2v: bool, flf2v: bool = False):
+    """(y, clip_fea) for the DiT from a dataset batch; (None, None) for t2v."""
+    if not is_i2v:
+        return None, None
+    return i2v_condition(batch.get("cond"), flf2v), reshape_clip(batch.get("clip_fea"))

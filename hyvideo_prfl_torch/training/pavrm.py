@@ -63,10 +63,11 @@ class PavrmModel(nn.Module):
         self.mlp.init_params(generator)
         return self
 
-    def score(self, noisy_latents, t, text, grid=None):
-        """Noisy latents (video, or token cells with ``grid``) -> reward
-        logits [B, 1] (pre-sigmoid)."""
-        feats = self.dit(noisy_latents, t, text, grid=grid, output_features=True,
-                         selected_layers=self.pc.feature_layer)
+    def score(self, noisy_latents, t, text, y=None, clip_fea=None, grid=None):
+        """Noisy latents (video, or token cells with ``grid``; ``y`` in the
+        same layout, and ``clip_fea``, for i2v/flf2v) -> reward logits
+        [B, 1] (pre-sigmoid)."""
+        feats = self.dit(noisy_latents, t, text, y=y, clip_fea=clip_fea, grid=grid,
+                         output_features=True, selected_layers=self.pc.feature_layer)
         pooled = rw.pool_features(feats, self.pc.pool, self.q_attn)
         return self.mlp(pooled)

@@ -20,6 +20,12 @@ The finite guard is the JAX package's: a non-finite loss zeroes the
 gradients, and the optimizer still applies that update (AdamW then still
 moves the weights through its moments and the weight decay).
 
+With ``is_i2v`` (and ``is_flf2v``) the batch's ``cond`` and ``clip_fea``
+condition every DiT call, as in the JAX package: ``y`` = the 4-channel mask
+and the 16-channel condition latent (patchified once in the refl step, in
+video layout for the SFT step) and the CLIP features reach the rollout,
+the gradient-carrying forward, the frozen LRM and the SFT forward.
+
 ``rollout_quant="int8"`` runs the no-grad rollout to ``mid`` through the
 int8 serving path (W8A8 block matmuls and the int8 q k^T self-attention,
 K10); the gradient-carrying forward, the LRM and the SFT step stay bf16
@@ -51,6 +57,8 @@ class PrflConfig:
     weighting_scheme: str = "uniform"
     logit_mean: float = 0.0
     logit_std: float = 1.0
+    is_i2v: bool = False
+    is_flf2v: bool = False
     fixed_mid: Optional[int] = None
     # "int8": the no-grad rollout runs through the int8 serving path
     rollout_quant: Optional[str] = None
@@ -125,9 +133,11 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
                 0, cfg.inference_steps - 1, (), generator=generator,
                 device=generator.device if generator is not None else "cpu")))
         latent0_t, grid = wan_dit.patchify(latent0.to(device, torch.float32), patch)
+        y, clip_fea = common.prepare_conditioning(batch, cfg.is_i2v, cfg.is_flf2v)
+        y_t = wan_dit.patchify(y, patch)[0] if y is not None else None
 
-        def velocity(x, t):
-            return model.dit(x, t, text, grid=grid)
+        def velocity(x, t, dit=model.dit):
+            return dit(x, t, text, y=y_t, clip_fea=clip_fea, grid=grid)
 
         with torch.no_grad():
             # the int8 weights follow the live masters: quantized in place,
@@ -135,14 +145,14 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
             for qlayer, layer in quant_pairs:
                 qlayer.quantize_(layer.weight, layer.bias)
             latent, solver_state = unipc.rollout(
-                sched, lambda x, t: rollout_dit(x, t, text, grid=grid), latent0_t,
-                num_steps=mid)
+                sched, lambda x, t: velocity(x, t, rollout_dit), latent0_t, num_steps=mid)
 
         v = velocity(latent, float(sched.timesteps[mid]))
         latent_next, _ = unipc.unipc_step(sched, solver_state, v, latent)
 
         t_mid1 = float(sched.timesteps[min(mid + 1, cfg.inference_steps - 1)])
-        logits = model.lrm.score(latent_next, t_mid1, text, grid=grid)
+        logits = model.lrm.score(latent_next, t_mid1, text, y=y_t, clip_fea=clip_fea,
+                                 grid=grid)
         reward = rw.reward_sigmoid(logits)[:, 0]
         loss = rw.prfl_hinge_loss(reward, cfg.target_reward, cfg.hinge_scale)
         loss.backward()
@@ -181,7 +191,8 @@ def make_sft_step(model: PrflModel, tx: common.Optimizer, schedule: fm.FlowMatch
         noise = noise.to(latents.device, torch.float32)
         noisy = fm.add_noise(latents, noise, sig5)
         target = fm.train_target(latents, noise)
-        v = model.dit(noisy, t, batch["text"])
+        y, clip_fea = common.prepare_conditioning(batch, cfg.is_i2v, cfg.is_flf2v)
+        v = model.dit(noisy, t, batch["text"], y=y, clip_fea=clip_fea)
         loss = torch.mean(fm.loss_weighting(sig5) * torch.square(v - target))
         loss.backward()
         state, loss, gnorm = _finish(state, tx, loss)

@@ -23,7 +23,10 @@ have none);
 ``from_jax_params`` also takes the JAX int8 tree (``quantize_params``'s
 ``kernel_q`` [D, F] int8, ``kernel_scale`` [F], ``bias``), which goes to the
 ``QuantLinear`` buffers, the weight transposed; ``quantize_state`` makes
-the same int8 state from the port's own float state.
+the same int8 state from the port's own float state. For i2v and flf2v
+both also carry the image branch: ``img_emb`` (the CLIP projector) and each
+block's ``cross_attn.{k_img, v_img, norm_k_img}``; cross-attention rows
+keep their order (only the self-attention q/k move to the half layout).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import numpy as np
 import torch
 
 from ..models.rope import rope_permutation
-from ..models.wan_dit import WanConfig, WanModel
+from ..models.wan_dit import CLIP_DIM, FIRST_LAST_FRAME_CONTEXT_TOKEN_NUMBER, WanConfig, \
+    WanModel, is_i2v
 from ..ops.quant import quantize_weight
 
 _TOP_DENSE = ("patch_embedding", "text_0", "text_2", "time_0", "time_2", "time_proj")
@@ -55,6 +59,18 @@ def rope_perm_full(dim: int, head_dim: int) -> np.ndarray:
 
 def _norm_names(cfg: WanConfig):
     return ("norm_q", "norm_k") if cfg.qk_norm else ()
+
+
+def _cross_dense(cfg: WanConfig):
+    return _ATTN_DENSE + (("k_img", "v_img") if is_i2v(cfg) else ())
+
+
+def _cross_norms(cfg: WanConfig):
+    return _norm_names(cfg) + (("norm_k_img",) if is_i2v(cfg) and cfg.qk_norm else ())
+
+
+# the image projector's LayerNorm leaves (port name, reference module index)
+_IMG_LN = (("ln0", 0), ("ln1", 4))
 
 
 def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
@@ -79,14 +95,25 @@ def from_jax_params(tree_np: Dict, cfg: WanConfig, with_head: bool = True
 
     for name in _TOP_DENSE:
         dense(name, p[name])
+    if is_i2v(cfg):
+        img = p["img_emb"]
+        for ln, _ in _IMG_LN:
+            state[f"img_emb.{ln}_scale"] = _t(img[f"{ln}_scale"])
+            state[f"img_emb.{ln}_bias"] = _t(img[f"{ln}_bias"])
+        dense("img_emb.fc1", img["fc1"])
+        dense("img_emb.fc2", img["fc2"])
+        if cfg.model_type == "flf2v":
+            state["img_emb.emb_pos"] = _t(img["emb_pos"])
     blk = p["blocks"]
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}"
         state[pre + ".modulation"] = _t(np.asarray(blk["modulation"])[i])
-        for attn in ("self_attn", "cross_attn"):
-            for name in _ATTN_DENSE:
+        for attn, dense_names, norm_names in (
+                ("self_attn", _ATTN_DENSE, _norm_names(cfg)),
+                ("cross_attn", _cross_dense(cfg), _cross_norms(cfg))):
+            for name in dense_names:
                 dense(f"{pre}.{attn}.{name}", blk[attn][name], i)
-            for name in _norm_names(cfg):
+            for name in norm_names:
                 state[f"{pre}.{attn}.{name}"] = _t(np.asarray(blk[attn][name])[i])
         if cfg.cross_attn_norm:
             state[pre + ".norm3_scale"] = _t(np.asarray(blk["norm3_scale"])[i])
@@ -119,11 +146,14 @@ def quantize_state(state: Dict[str, torch.Tensor], cfg: WanConfig) -> Dict[str, 
 
 def quantize_model(model: WanModel) -> WanModel:
     """A float WanModel -> its int8 counterpart (cfg.quant_dense "int8") on
-    the same device, the weights quantized by ``quantize_state``."""
+    the same device, the weights quantized by ``quantize_state``. The new
+    model takes the int8 tensors and shares every other tensor with
+    ``model`` (built on the meta device and assigned), so the device holds
+    the float weights and the int8 ones, and no third copy."""
     qcfg = dataclasses.replace(model.cfg, quant_dense="int8")
     state = quantize_state(model.state_dict(), qcfg)
-    qmodel = WanModel(qcfg, device=next(model.parameters()).device)
-    qmodel.load_state_dict(state)
+    qmodel = WanModel(qcfg, device="meta")
+    qmodel.load_state_dict(state, assign=True)
     return qmodel
 
 
@@ -153,7 +183,10 @@ def seeded_jax_tree(cfg: WanConfig, seed: int) -> Dict:
     seeded weights, for checks that need weights without JAX: dense
     kernels N(0, 1/fan_in), small biases, norm gains near 1 (the bounded
     softmax needs tame q/k gains) and a non-zero head, so the output
-    depends on every block."""
+    depends on every block. For i2v/flf2v the image leaves (the projector,
+    a non-zero flf2v ``emb_pos``, each block's k_img/v_img and norm_k_img)
+    are drawn after all the others, so a t2v tree is the same whatever the
+    model type."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     n_layers, dim = cfg.num_layers, cfg.dim
@@ -179,7 +212,7 @@ def seeded_jax_tree(cfg: WanConfig, seed: int) -> Dict:
 
     # the draws run in the order the dict literals are written
     cells = int(np.prod(cfg.patch_size))
-    return {"params": {
+    tree = {"params": {
         "patch_embedding": dense(cells * cfg.in_dim, dim),
         "text_0": dense(cfg.text_dim, dim), "text_2": dense(dim, dim),
         "time_0": dense(cfg.freq_dim, dim), "time_2": dense(dim, dim),
@@ -193,6 +226,26 @@ def seeded_jax_tree(cfg: WanConfig, seed: int) -> Dict:
         "head": {"modulation": normal((1, 2, dim), 1.0 / np.sqrt(dim)),
                  "head": dense(dim, cells * cfg.out_dim)},
     }}
+    if not is_i2v(cfg):
+        return tree
+    p = tree["params"]
+
+    def ln(width):
+        return {"scale": (1.0 + 0.1 * rng.uniform(-1.0, 1.0, width)).astype(f32),
+                "bias": normal((width,), 0.02)}
+
+    ln0, fc1, fc2, ln1 = ln(CLIP_DIM), dense(CLIP_DIM, CLIP_DIM), dense(CLIP_DIM, dim), ln(dim)
+    p["img_emb"] = {"ln0_scale": ln0["scale"], "ln0_bias": ln0["bias"], "fc1": fc1,
+                    "fc2": fc2, "ln1_scale": ln1["scale"], "ln1_bias": ln1["bias"]}
+    if cfg.model_type == "flf2v":
+        p["img_emb"]["emb_pos"] = normal((1, FIRST_LAST_FRAME_CONTEXT_TOKEN_NUMBER, CLIP_DIM),
+                                         0.1)
+    cross = p["blocks"]["cross_attn"]
+    cross["k_img"] = dense(dim, dim, (n_layers,))
+    cross["v_img"] = dense(dim, dim, (n_layers,))
+    if cfg.qk_norm:
+        cross["norm_k_img"] = gains()
+    return tree
 
 
 def from_reference_state(state: Dict[str, np.ndarray], cfg: WanConfig) -> Dict[str, torch.Tensor]:
@@ -211,20 +264,33 @@ def from_reference_state(state: Dict[str, np.ndarray], cfg: WanConfig) -> Dict[s
         out[dst + ".weight"] = _t(arr(src + ".weight"))
         out[dst + ".bias"] = _t(arr(src + ".bias"))
 
+    if is_i2v(cfg):
+        # img_emb.proj: 0 LayerNorm, 1 fc1, 2 GELU, 3 fc2, 4 LayerNorm
+        for ln, idx in _IMG_LN:
+            out[f"img_emb.{ln}_scale"] = _t(arr(f"img_emb.proj.{idx}.weight"))
+            out[f"img_emb.{ln}_bias"] = _t(arr(f"img_emb.proj.{idx}.bias"))
+        for dst, idx in (("fc1", 1), ("fc2", 3)):
+            out[f"img_emb.{dst}.weight"] = _t(arr(f"img_emb.proj.{idx}.weight"))
+            out[f"img_emb.{dst}.bias"] = _t(arr(f"img_emb.proj.{idx}.bias"))
+        if cfg.model_type == "flf2v":
+            out["img_emb.emb_pos"] = _t(arr("img_emb.emb_pos"))
+
     perm = rope_perm_full(cfg.dim, cfg.head_dim)
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}"
         out[pre + ".modulation"] = _t(arr(pre + ".modulation"))
-        for attn in ("self_attn", "cross_attn"):
+        for attn, dense_names, norm_names in (
+                ("self_attn", _ATTN_DENSE, _norm_names(cfg)),
+                ("cross_attn", _cross_dense(cfg), _cross_norms(cfg))):
             # self-attention q/k (and their norms) move to the half rope layout
             rows = perm if attn == "self_attn" else slice(None)
-            for name in _ATTN_DENSE:
+            for name in dense_names:
                 wk, bk = arr(f"{pre}.{attn}.{name}.weight"), arr(f"{pre}.{attn}.{name}.bias")
                 if name in ("q", "k"):
                     wk, bk = wk[rows], bk[rows]
                 out[f"{pre}.{attn}.{name}.weight"] = _t(wk)
                 out[f"{pre}.{attn}.{name}.bias"] = _t(bk)
-            for name in _norm_names(cfg):
+            for name in norm_names:
                 out[f"{pre}.{attn}.{name}"] = _t(arr(f"{pre}.{attn}.{name}.weight")[rows])
         if cfg.cross_attn_norm:
             out[pre + ".norm3_scale"] = _t(arr(pre + ".norm3.weight"))

@@ -2,14 +2,17 @@
 one PRFL refl training step (PyTorch port).
 
     python3 scripts/profile_torch_step.py --frame_num 21 81 [--quant int8] [--quant_attn int8]
+    python3 scripts/profile_torch_step.py --task i2v-14B --frame_num 81
     python3 scripts/profile_torch_step.py --refl --frame_num 21 81 [--steps 8 --mid 3] \
         [--rollout_quant int8]
 
-Forward mode, for each frame count: builds the t2v-1.3B 832*480 pipeline
-once (random weights, seeded non-zero head), runs one warm-up forward at
-CFG batch 2, one timed forward with the profiler off, then one under
-torch.profiler. One sampling step is one such forward plus a few
-elementwise solver passes. ``--quant int8`` quantizes the block matmuls
+Forward mode, for each frame count: builds the DiT of ``--task``
+(default t2v-1.3B) at 832*480 once (random weights, seeded non-zero head),
+runs one warm-up forward at CFG batch 2, one timed forward with the
+profiler off, then one under torch.profiler. One sampling step is one such
+forward plus a few elementwise solver passes. An i2v/flf2v task also gets
+seeded conditioning ``y`` (20 channels) and CLIP features (257 image tokens
+for i2v, 514 for flf2v), as its pipeline passes them. ``--quant int8`` quantizes the block matmuls
 after the weights are made and ``--quant_attn int8`` takes K10, as the
 serving CLI's flags do.
 
@@ -117,13 +120,22 @@ def profile_forward(model, frame_num: int, dev) -> dict:
     ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=g, device=dev)
     t = torch.full((2,), 999.0, device=dev)
     tokens, grid = wan_dit.patchify(x, cfg.patch_size)
+    y = clip = None
+    if wan_dit.is_i2v(cfg):
+        y = wan_dit.patchify(torch.randn(*shape[:4], cfg.in_dim - 16, generator=g, device=dev),
+                             cfg.patch_size)[0]
+        frames = 2 if cfg.model_type == "flf2v" else 1
+        clip = torch.randn(2 * frames, wan_dit.CLIP_TOKENS, wan_dit.CLIP_DIM, generator=g,
+                           device=dev)
 
     def run():
         with torch.inference_mode():
-            model(tokens, t, ctx, grid=grid)
+            model(tokens, t, ctx, y=y, clip_fea=clip, grid=grid)
 
-    return _profile(run, {"mode": "forward", "frame_num": frame_num, "tokens": tokens.shape[1],
-                          "quant_dense": cfg.quant_dense, "quant_attn": cfg.quant_attn})
+    return _profile(run, {"mode": "forward", "model_type": cfg.model_type,
+                          "dim": cfg.dim, "layers": cfg.num_layers, "frame_num": frame_num,
+                          "tokens": tokens.shape[1], "quant_dense": cfg.quant_dense,
+                          "quant_attn": cfg.quant_attn})
 
 
 def build_prfl(dev, steps: int, mid: int, rollout_quant=None):
@@ -163,6 +175,8 @@ def profile_refl(prfl, frame_num: int, dev) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--task", default="t2v-1.3B",
+                   help="forward: the model (t2v-1.3B, t2v-14B, i2v-14B, flf2v-14B, ...)")
     p.add_argument("--frame_num", type=int, nargs="+", default=[21, 81])
     p.add_argument("--refl", action="store_true", help="profile one PRFL refl step")
     p.add_argument("--steps", type=int, default=8, help="refl: PRFL inference steps")
@@ -190,7 +204,7 @@ def main(argv=None) -> int:
             print(json.dumps(out))
         return 0
     cfg = dit_config_for_task(
-        "t2v-1.3B", quant_attn=None if args.quant_attn == "none" else args.quant_attn)
+        args.task, quant_attn=None if args.quant_attn == "none" else args.quant_attn)
     model = wan_dit.WanModel(cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     wan_dit.init_params(model, g)
@@ -199,7 +213,10 @@ def main(argv=None) -> int:
     if args.quant == "int8":
         model = quantize_model(model)
     for frame_num in args.frame_num:
-        print(json.dumps(profile_forward(model.eval(), frame_num, dev)))
+        torch.cuda.reset_peak_memory_stats()
+        out = profile_forward(model.eval(), frame_num, dev)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(json.dumps(out))
     return 0
 
 

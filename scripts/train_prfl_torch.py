@@ -17,7 +17,9 @@ have yet raise NotImplementedError: LoRA, EMA, multi-device training,
 resume, checkpoint export (save_interval must exceed the steps run), LRM
 checkpoint loading and the VAE sanity decode. ``train.rollout_quant: int8``
 runs the no-grad rollout through the int8 serving path (W8A8 block
-matmuls, int8 q k^T self-attention), as the JAX trainer does.
+matmuls, int8 q k^T self-attention), as the JAX trainer does. An i2v or
+flf2v task (``i2v-1.3b``, ``i2v-14b-480p``, ...) conditions every step on
+the cache's first-frame latent and CLIP features, as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -116,6 +118,8 @@ def build_trainer(config, device="cuda") -> Trainer:
     if config.train.get("debug_nans"):
         torch.autograd.set_detect_anomaly(True)
     dit_cfg = dit_cfg_from(config)
+    is_i2v = "i2v" in config.task or "flf2v" in config.task
+    is_flf2v = "flf2v" in config.task
     pc = PavrmConfig(
         pool=config.lrm.pool,
         feature_layer=tuple(config.lrm.feature_layer),
@@ -128,7 +132,7 @@ def build_trainer(config, device="cuda") -> Trainer:
         inference_steps=int(config.get("prfl_inference_steps", 40)),
         flow_shift=sched_cfg.flow_shift, num_train_timesteps=sched_cfg.num_train_timesteps,
         weighting_scheme=sched_cfg.weighting_scheme, logit_mean=sched_cfg.logit_mean,
-        logit_std=sched_cfg.logit_std,
+        logit_std=sched_cfg.logit_std, is_i2v=is_i2v, is_flf2v=is_flf2v,
         fixed_mid=(int(config.train.fixed_mid)
                    if config.train.get("fixed_mid") is not None else None),
         rollout_quant=config.train.get("rollout_quant"))
@@ -158,7 +162,7 @@ def build_trainer(config, device="cuda") -> Trainer:
         meta_file_list=list(config.dataset.meta_file_list),
         uncond_prob=list(config.dataset.uncond_prob),
         text_len=config.extra_model.get_path("text_encoder.t5_text_len", 512),
-        null_dir=config.dataset.null_dir, seed=seed)
+        null_dir=config.dataset.null_dir, is_i2v=is_i2v, is_flf2v=is_flf2v, seed=seed)
     sampler = BlockDistributedSampler(len(dataset), shuffle=bool(config.dataset.get("shuffle")),
                                       seed=seed)
     loader = iter(BatchIterator(dataset, sampler, batch_size=config.dataset.batch_size))

@@ -514,6 +514,49 @@ def test_k4_masks_keys_exactly(cuda, lq, lk, valid):
         assert dk[bi, :, :vl].abs().sum() > 0 and dv[bi, :vl].abs().sum() > 0
 
 
+# the image cross-attention of i2v (257 CLIP tokens) and flf2v (514): one
+# and two keys past a 128-key tile, at the 1.3B and the 14B head counts
+IMAGE_LKS = (257, 514)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [12, 40])
+@pytest.mark.parametrize("lk", IMAGE_LKS)
+@pytest.mark.parametrize("shifted", [False, True])
+def test_k3_at_the_image_key_lengths(cuda, n, lk, shifted):
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = torch.randn(2, n, 1560, 128, device=cuda, generator=g).bfloat16()
+    k = torch.randn(2, n, lk, 128, device=cuda, generator=g).bfloat16()
+    v = torch.randn(2, lk, n, 128, device=cuda, generator=g).bfloat16()
+    assert tfa.uses_single_block(lk)
+    name = "K3s" if shifted else "K3"
+    before = _build.LAUNCHES[name]
+    o, lse = tfa.flash_attention(q, k, v, return_lse=True, qk_layout="bnld",
+                                 bounded_logits=not shifted)
+    assert _build.LAUNCHES[name] == before + 1
+    plain = tfa.flash_attention_shifted_plain if shifted else tfa.flash_attention_plain
+    po, plse = plain(q, k, v)
+    # as test_flash_matches_plain: two bf16 ulps of max|o|, lse 1e-5
+    _close(o, po, 2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [12, 40])
+def test_k4_at_the_i2v_image_keys(cuda, n):
+    # 257 keys: one key in the last 128-key tile
+    _k4_case(cuda, 32, 2, n, 1560, 257)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [[257, 129], [256, 1]])
+def test_k4_masks_the_image_key_tail_exactly(cuda, valid):
+    dq, dk, dv = _k4_case(cuda, 33, 2, 12, 1560, 257, valid)
+    for bi, vl in enumerate(valid):
+        assert not dk[bi, :, vl:].any() and not dv[bi, vl:].any()
+        assert dk[bi, :, :vl].abs().sum() > 0 and dv[bi, :vl].abs().sum() > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("lq,lk", [(1000, 1000), (4680, 512)])
 def test_k4_reads_strided_token_major_v_and_do(cuda, lq, lk):
