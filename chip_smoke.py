@@ -109,12 +109,29 @@ Phases, each of which raises on failure:
    on a seeded cache with f1_black_path and imgclip_path): metrics finite,
    the policy's blocks, img_emb and k_img moved, launches as derived
    (expected_train_launches(..., i2v=True)).
+12. PAVRM through scripts/train_pavrm_torch.py, each run on a seeded
+   labelled cache with the counters set to 0 just before: (a) the
+   published train_pavrm_t2v_480.yaml at t2v-14B width, its 8 blocks, 81
+   frames at 832*480 (32,760 tokens), batch 1, remat "attn", 3 ce steps
+   over the t list; (b) its i2v-14B Bradley-Terry form (win and lose in
+   one graph, 257 image keys), 2 steps at 21 frames (81 do not fit); each
+   with s/step, peak memory, the kept blocks and heads moved, the
+   embeddings not, launches as derived (expected_pavrm_launches); (c) one
+   ce step of 2 t2v-14B blocks with the heads at 1,560 tokens, the loss and
+   every gradient card against CPU at phases 3 and 6's bounds; (d) the
+   handoff at t2v-1.3B width: 2 PAVRM steps export the LRM, which
+   scripts/inference_pavrm_torch.py scores as the trained model does (its
+   logits equal the trained tower's bit for bit), the PRFL trainer (policy
+   cut to 8 blocks) loads it and trains 2 outer steps with EMA and the
+   optimizer state saved, then one more; a trainer resumed from
+   checkpoint-2 repeats that step bit for bit (on the split backward,
+   whose dq is deterministic).
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
-for R, and phase 11's serving and training); the last is
+for R, phase 11's serving and training and phase 12's runs); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -135,6 +152,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+CARD = ""  # nvidia-smi's name and power limit, set by main()
 SIZE = "832*480"
 GRID_81 = (21, 30, 52)   # latent grid of an 81-frame 832*480 request
 GRID_9 = (3, 30, 52)
@@ -249,6 +267,17 @@ def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_q
     rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8", shifted=shifted,
                            i2v=i2v)
     return _add(_add(_add({}, rollout, mid), lrm), policy, 2)
+
+
+def expected_pavrm_launches(n_blocks, loss="ce", remat_policy="attn", i2v=False, **kw):
+    """Kernel launches of one PAVRM step: a forward and backward of the
+    head-less tower per scored side (one for "ce", two for "bt": win and
+    lose). The text and image context need no gradient (the embeddings are
+    frozen), but the blocks' k projections and norm gains train, so every
+    cross-attention k norm runs its backward, as in the policy; the pool and
+    the reward MLP are plain PyTorch."""
+    tower = dit_launches(n_blocks, True, head=False, remat_policy=remat_policy, i2v=i2v, **kw)
+    return _add({}, tower, 2 if loss == "bt" else 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -2025,6 +2054,437 @@ def _train_i2v(root, dev):
     return got
 
 
+
+PAVRM_CONFIG = {  # configs/train_pavrm_t2v_480.yaml, with the smoke's changes marked
+    "train_id": "pavrm_t2v_480",
+    "task": "t2v-14b",
+    "model": {
+        "base_path": None,                    # changed: no weights in the repository
+        "resume_transformer_path": None,
+        "patch_size": [1, 2, 2],
+        "ema": {"use_ema": False, "ema_decay": 0.99},
+        "fsdp": {"fsdp_sharding_startegy": "full", "use_cpu_offload": False},
+        "gradient_checkpointing": True,
+        "remat_policy": "attn",
+        "selective_checkpointing": 1.0,
+    },
+    "extra_model": {"scheduler": {"flow_shift": 5.0, "num_train_timesteps": 1000,
+                                  "weighting_scheme": "logit_normal", "logit_mean": 0,
+                                  "logit_std": 1}},
+    "dataset": {"val_meta_file_list": [], "uncond_prob": [0.0, 0.0], "sp_size": 1,
+                "batch_size": 1, "sp_batch_size": 1},
+    "optimizer": {"learning_rate": 1e-5, "learning_rate_mlp": 1e-4, "adam_beta1": 0.9,
+                  "adam_beta2": 0.999, "weight_decay": 0.01, "lr_scheduler": "constant",
+                  "lr_warmup_steps": 0, "max_train_steps": 1000000},
+    "train": {"seed": 110221, "precision": "bf16", "allow_tf32": False, "save_interval": 500,
+              "gradient_accumulation_steps": 1},
+    "eval": {"seed": 42, "timestep": [100, 300, 500, 700, 900]},
+    "save": {"output_dir": "outputs", "log_dir": None},
+    "lrm": {"query_attention": {"num_queries": 1, "num_heads": 8, "dropout": 0.0,
+                                "return_type": "query"},
+            "feature_layer": [8], "pool": "q_attn", "mlp_dim": 5120, "loss": "ce",
+            "task": "motion_quality", "trainable_blocks": [0, 1, 2, 3, 4, 5, 6, 7],
+            "timestep": [400, 500, 600, 700]},
+}
+
+# configs/train_pavrm_i2v_480.yaml with the loss and the lose list of
+# configs/train_pavrm_bt_i2v_720.yaml (its 480p Bradley-Terry form)
+PAVRM_CONFIG_BT_I2V = {
+    **PAVRM_CONFIG, "train_id": "pavrm_bt_i2v_480", "task": "i2v-14b-480p",
+    "extra_model": {"scheduler": {**PAVRM_CONFIG["extra_model"]["scheduler"],
+                                  "flow_shift": 3.0}},
+    "lrm": {**PAVRM_CONFIG["lrm"], "loss": "bt"},
+}
+
+
+def write_reward_cache(root, frames, n=2, i2v=False, seed=31):
+    """A labelled latent cache in the reference's layout at 832*480: n clips
+    of latents [1, 16, F, 60, 104], one caption each (text_en_path [1, 20,
+    4096]: no caption is drawn, so a resumed run reads what an
+    uninterrupted one reads), motion_quality good and poor in turn; with
+    ``i2v`` the first-frame condition latent and CLIP features [1, 257,
+    1280]; the null dir's uncond embedding. Returns (meta list, null dir)."""
+    rng = np.random.default_rng(seed)
+    null_dir = os.path.join(root, "null")
+    os.makedirs(os.path.join(null_dir, "wanx"), exist_ok=True)
+    for name in ("null", "uncond"):
+        np.save(os.path.join(null_dir, "wanx", f"{name}.npy"),
+                rng.standard_normal((1, 20, 4096), np.float32))
+    lat_f = (frames - 1) // 4 + 1
+    lines = []
+    for i in range(n):
+        stem = os.path.join(root, f"clip{frames}_{seed}_{i}")
+        meta = {"vae_latent_path": stem + ".npy", "text_en_path": stem + "_text.npy",
+                "prompt": f"clip {i}", "motion_quality": ["good", "poor"][i % 2]}
+        np.save(meta["vae_latent_path"],
+                rng.standard_normal((1, 16, lat_f, 60, 104), np.float32))
+        np.save(meta["text_en_path"], rng.standard_normal((1, 20, 4096), np.float32))
+        if i2v:
+            meta.update(f1_black_path=stem + "_cond.npy", imgclip_path=stem + "_clip.npy")
+            np.save(meta["f1_black_path"],
+                    rng.standard_normal((1, 16, lat_f, 60, 104), np.float32))
+            np.save(meta["imgclip_path"], rng.standard_normal((1, 257, 1280), np.float32))
+        with open(stem + "_meta.json", "w") as f:
+            json.dump(meta, f)
+        lines.append(stem + "_meta.json")
+    path = os.path.join(root, f"clips{frames}_{seed}.list")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path, null_dir
+
+
+def _config(raw, root, meta, null_dir, **paths):
+    from hyvideo_prfl_torch.configs import config_from_dict
+
+    raw = json.loads(json.dumps(raw))
+    raw["dataset"].update(meta_file_list=[meta], null_dir=null_dir)
+    raw["save"] = {"output_dir": os.path.join(root, "out")}
+    for key, value in paths.items():
+        section, leaf = key.split("__")
+        raw.setdefault(section, {})[leaf] = value
+    return config_from_dict(raw)
+
+
+def _pavrm_run(cli, config, steps, label, want, dev="cuda"):
+    """A PAVRM trainer of ``config`` through the CLI, ``steps`` steps with
+    the counters set to 0 just before; checks its metrics, that the kept
+    blocks and heads moved and the embeddings did not, and the launches
+    against ``want``. Returns (trainer, history, launches, peak bytes)."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+
+    t0 = time.perf_counter()
+    trainer = cli.build_trainer(config, dev)
+    torch.cuda.synchronize()
+    params = dict(trainer.model.named_parameters())
+    n_train = sum(p.numel() for p in trainer.state.params)
+    print(f"  {label}: trainer built in {time.perf_counter() - t0:.2f} s, "
+          f"{trainer.model.dit_cfg.num_layers} blocks of dim {trainer.model.dit_cfg.dim}; "
+          f"{n_train / 1e9:.3f} B trainable fp32 params, "
+          f"{sum(p.numel() for p in params.values()) / 1e9 - n_train / 1e9:.3f} B frozen")
+    moved = [n for n in ("dit.blocks.0.ffn_0.weight", "dit.blocks.7.self_attn.q.weight",
+                         "dit.blocks.3.cross_attn.k_img.weight", "q_attn.wq",
+                         "mlp.Dense_2.weight") if n in params]
+    frozen = [n for n in ("dit.text_0.weight", "dit.patch_embedding.weight",
+                          "dit.img_emb.fc1.weight") if n in params]
+    before = {n: params[n].detach().clone() for n in moved + frozen}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    hist = cli.run(trainer, steps)
+    torch.cuda.synchronize()
+    got = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for m in hist:
+        print(f"  {label}, step {m['step']}: loss {m['loss']:.6f}, grad_norm "
+              f"{m['grad_norm']:.6e}, acc {m['acc']:.2f}, step_time {m['step_time']:.3f} s")
+        expect(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+               f"{label}: non-finite metrics {m}")
+        expect(m["grad_norm"] > 0, f"{label}: grad norm {m['grad_norm']} is not above 0")
+    for n in moved:
+        frac = (params[n].detach() != before[n]).float().mean().item()
+        print(f"  {label}: {n}: {frac:.1%} of its entries moved")
+        expect(frac > 0, f"{label}: trainable {n} did not move")
+    for n in frozen:
+        expect(torch.equal(params[n], before[n]), f"{label}: frozen {n} moved")
+    print(f"  {label}: launches over {steps} steps {got}, derived {want}")
+    expect(got == want, f"{label}: launches {got}, expected {want}")
+    return trainer, hist, got, peak
+
+
+class _GradCapture:
+    """An optimizer that keeps the step's gradients (on the CPU) and moves
+    nothing."""
+
+    def init(self, params, names=None):
+        return {}
+
+    def update(self, params, grads, opt_state, step):
+        self.grads = [g.detach().float().cpu().clone() for g in grads]
+
+
+def _pavrm_card_vs_cpu(seed=71, card="cuda", cfg=None):
+    """12c: one PAVRM ce step of 2 t2v-14B blocks with both heads at one
+    latent frame (1,560 tokens), card against CPU: the loss at phase 3's
+    bound and every gradient at phase 6's. Returns the card's launches."""
+    import torch
+
+    from hyvideo_prfl_torch.models import reward as rw
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.schedulers import flow_match as fm
+    from hyvideo_prfl_torch.training import common
+    from hyvideo_prfl_torch.training.pavrm import PavrmConfig, PavrmModel, make_train_step
+    from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
+
+    cfg = cfg or wan_dit.t2v_14b(num_layers=2, remat_policy="attn")
+    pc = PavrmConfig(feature_layer=(2,), trainable_blocks=(0, 1), timesteps=(500,),
+                     task="t2v-14b")
+    q_attn = rw.QueryAttention(cfg.dim, pc.num_queries, pc.num_heads, pc.return_type)
+    mlp = rw.RewardMLP(cfg.dim)
+    q_attn.init_params(torch.Generator().manual_seed(seed))
+    mlp.init_params(torch.Generator().manual_seed(seed + 1))
+    state = {f"dit.{k}": v for k, v in from_jax_params(seeded_jax_tree(cfg, seed), cfg,
+                                                          with_head=False).items()}
+    state.update({f"q_attn.{k}": v for k, v in q_attn.state_dict().items()})
+    state.update({f"mlp.{k}": v for k, v in mlp.state_dict().items()})
+    rng = np.random.default_rng(seed + 2)
+    f, hh, ww = GRID_14B_1[0], GRID_14B_1[1] * 2, GRID_14B_1[2] * 2
+    batch = {"latents": rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32),
+             "text": rng.standard_normal((1, TEXT_LEN, cfg.text_dim), dtype=np.float32),
+             "labels": np.ones(1, np.float32)}
+    noise = rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32)
+    loss, probs, grads, launches, names = {}, {}, {}, {}, None
+    for key, dev, cd in (("card", card, torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
+                         ("cpu fp32", "cpu", torch.float32)):
+        model = PavrmModel(dataclasses.replace(cfg, compute_dtype=cd), pc,
+                           device=torch.device(dev), param_dtype=torch.float32)
+        model.load_state_dict(state)
+        model.freeze_embeddings()
+        tx = _GradCapture()
+        st = common.init_train_state(model, tx)
+        names = st.names
+        step = make_train_step(model, tx, fm.train_schedule(1000))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        st, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                     noise=torch.from_numpy(noise))
+        if key == "card":
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        print(f"  12c: one PAVRM step, {key}: {time.perf_counter() - t0:.2f} s, loss "
+              f"{float(m['loss']):.6f}, reward {float(m['probs'][0]):.6f}")
+        loss[key], probs[key] = float(m["loss"]), float(m["probs"][0])
+        grads[key] = dict(zip(names, tx.grads))
+        del model, st, step
+    # phase 3's bound on the output: 3e-2 of the CPU's
+    err = abs(loss["card"] - loss["cpu"])
+    print(f"  12c: loss card {loss['card']:.6f} against CPU {loss['cpu']:.6f} ({err:.3e}, "
+          f"bound {3e-2 * abs(loss['cpu']):.3e}); reward {probs['card']:.6f} against "
+          f"{probs['cpu']:.6f}")
+    expect(math.isfinite(loss["card"]) and err <= 3e-2 * abs(loss["cpu"]),
+           f"12c: the loss lies {err} from the CPU's")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    # Phase 6's bounds: 2e-2 of each gradient's norm against the CPU bf16
+    # run; the attention k biases, whose gradients are near-cancelling sums
+    # over keys, against the CPU fp32 run at 1.5x the CPU bf16 run's
+    # distance from it. The pool's key bias shifts every logit of a head
+    # alike, which the softmax ignores: its exact gradient is 0 and every
+    # run returns rounding noise, held under 1e-3 of the pool's wk gradient.
+    worst = []
+    for name in names:
+        got, ref = grads["card"][name], grads["cpu"][name]
+        expect(bool(torch.isfinite(got).all()), f"12c: gradient of {name} is not finite")
+        if name == "q_attn.bk":
+            cap = 1e-3 * grads["cpu"]["q_attn.wk"].norm().item()
+            print(f"  12c: {name}: norm {got.norm().item():.3e} on the card, "
+                  f"{ref.norm().item():.3e} on the CPU (bound {cap:.3e}, analytically 0)")
+            expect(got.norm().item() <= cap, f"12c: gradient of {name} is not near 0")
+            continue
+        expect(ref.norm().item() > 0, f"12c: gradient of {name} is zero on the CPU")
+        if name.endswith(".k.bias"):
+            exact = grads["cpu fp32"][name]
+            noise_d, err = rel(ref, exact), rel(got, exact)
+            print(f"  12c: {name}: card against CPU fp32 {err:.3e} (bound 1.5 x "
+                  f"{noise_d:.3e})")
+            expect(err <= 1.5 * noise_d, f"12c: gradient of {name}: {err} over 1.5 x {noise_d}")
+            continue
+        err = rel(got, ref)
+        worst.append((err, name))
+        expect(err <= 2e-2, f"12c: gradient of {name}: relative error {err:.3e} over 2e-2")
+    worst.sort(reverse=True)
+    print(f"  12c: the other {len(worst)} gradients within 2e-2 of the CPU bf16 run's, "
+          f"relative to their norms; the largest: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in worst[:4]))
+    want = expected_pavrm_launches(2, "ce", self_single=fa.uses_single_block(1560))
+    print(f"  12c: launches {launches}, derived {want}")
+    expect(launches == want, f"12c: launches {launches}, expected {want}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _handoff(root, dev):
+    """12d: PAVRM at t2v-1.3B width (the LRM: its first 8 blocks) trains 2
+    steps and exports; the eval CLI scores the export, whose logits equal
+    the trained tower's; the PRFL trainer (policy cut to 8 blocks) loads
+    it and trains 2 outer steps with EMA and the optimizer state saved,
+    then one more; a trainer resumed from checkpoint-2 takes that step
+    again, to the bit. Returns the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.training import pavrm as tpavrm
+
+    total = {}
+    meta, null_dir = write_reward_cache(os.path.join(root, "cache"), 21, n=2)
+    pav = load_script("train_pavrm_torch")
+    pcfg = _config({**PAVRM_CONFIG, "task": "t2v-1.3b", "train_id": "pavrm_t2v_1_3b"},
+                   root, meta, null_dir, train__save_interval=2,
+                   train__save_optimizer_state=True, dataset__val_meta_file_list=[meta])
+    n_eval = len(pcfg.eval.timestep)  # one batch of both clips per eval timestep
+    eval_fwd = _add({}, dit_launches(8, False, head=False), n_eval)
+    want = _add(_add({}, expected_pavrm_launches(8, "ce"), 2), eval_fwd)
+    # the val eval at step 2 adds its forwards to the steps'
+    trainer, hist, got, _ = _pavrm_run(pav, pcfg, 2, "12d PAVRM t2v-1.3B, 21 frames", want,
+                                       dev)
+    _add(total, got)
+    out = os.path.join(root, "out", "pavrm_t2v_1_3b")
+    lrm = {"model__lrm_transformer_path": os.path.join(out, "transformer", "checkpoint-2"),
+           "model__lrm_mlp_path": os.path.join(out, "mlp", "mlp_step_2.ckpt"),
+           "model__lrm_query_attention_path": os.path.join(out, "mlp",
+                                                           "query_attention_step_2.ckpt")}
+    for path in lrm.values():
+        expect(os.path.exists(path), f"12d: the export lacks {path}")
+    for path in ("checkpoint-2", "checkpoint-2-opt"):
+        expect(os.path.isdir(os.path.join(out, path)), f"12d: no {path}")
+
+    infer = load_script("inference_pavrm_torch")
+    icfg = _config({**PAVRM_CONFIG, "task": "t2v-1.3b"}, root, meta, null_dir, **lrm)
+    _build.reset_launches()
+    res = infer.main(icfg, device=dev)
+    torch.cuda.synchronize()
+    got = dict(_build.LAUNCHES)
+    print(f"  12d: inference_pavrm_torch launches {got}, derived {eval_fwd}")
+    expect(got == eval_fwd, f"12d: eval launches {got}, expected {eval_fwd}")
+    _add(total, got)
+    mine = tpavrm.evaluate(trainer.eval_fn, trainer.val_dataset, icfg.eval.timestep,
+                           int(icfg.eval.seed), dev)
+    for key, val in res.items():
+        expect(val["mean_reward"] == mine[key]["mean_reward"] and
+               val["accuracy"] == mine[key]["accuracy"],
+               f"12d: the export scores {val} at {key}, the trained model {mine[key]}")
+    loaded = infer.load_lrm(icfg, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1, 6, 60, 104, 16, device=dev, generator=g)
+    ctx = torch.randn(1, TEXT_LEN, 4096, device=dev, generator=g)
+    t = torch.tensor([600.0], device=dev)
+    with torch.no_grad():
+        a, b = loaded.score(x, t, ctx), trainer.model.score(x, t, ctx)
+    print(f"  12d: reloaded LRM logit {a.item():.6f} (bf16 storage), trained tower "
+          f"{b.item():.6f} (fp32 masters; both cast to bf16 at use): "
+          f"{'equal' if torch.equal(a, b) else 'DIFFERENT'}; eval mean rewards "
+          + ", ".join(f"{k} {v['mean_reward']:.6f}" for k, v in res.items()))
+    expect(torch.equal(a, b), f"12d: the reloaded LRM's logit {a.item()} is not the "
+                              f"trained tower's {b.item()}")
+    del trainer, loaded
+    torch.cuda.empty_cache()
+
+    # PRFL from the export. The merged backward's dq adds in run order, so
+    # the step's bits repeat only on the split backward (K5), whose dq is
+    # deterministic; the dataset's draws restart on resume, as in the JAX
+    # package, so the cache has one caption per clip and no text drop.
+    prfl = load_script("train_prfl_torch")
+    raw = {**TRAIN_CONFIG, "train_id": "prfl_handoff",
+           "dataset": {**TRAIN_CONFIG["dataset"], "uncond_prob": [0.0, 0.0]},
+           "model": {**TRAIN_CONFIG["model"], "override": {"num_layers": 8},
+                     "ema": {"use_ema": True, "ema_decay": 0.99}}}
+    kw = dict(train__save_interval=2, train__save_optimizer_state=True, **lrm)
+    per_step = expected_train_launches(8, 8, int(TRAIN_CONFIG["train"]["fixed_mid"]),
+                                       merged_bwd=False)
+    fa.FLASH_MERGED_BWD = False
+    try:
+        whole = prfl.build_trainer(_config(raw, root, meta, null_dir, **kw), dev)
+        expect(torch.equal(whole.model.lrm.mlp.Dense_1.weight.float().cpu(),
+                           torch.load(lrm["model__lrm_mlp_path"])["fc2.weight"]),
+               "12d: the PRFL trainer did not load the exported head")
+        _build.reset_launches()
+        hist = prfl.run(whole, 2) + prfl.run(whole, 1)
+        torch.cuda.synchronize()
+        got = dict(_build.LAUNCHES)
+        pout = os.path.join(root, "out", "prfl_handoff")
+        ckpt = os.path.join(pout, "checkpoint-2")
+        for path in (os.path.join(ckpt, "config.json"), os.path.join(ckpt, "opt_state"),
+                     os.path.join(pout + "-ema", "checkpoint-2", "config.json")):
+            expect(os.path.exists(path), f"12d: no {path}")
+        resumed = prfl.build_trainer(_config(raw, root, meta, null_dir,
+                                             model__resume_transformer_path=ckpt, **kw), dev)
+        _build.reset_launches()
+        (m,) = prfl.run(resumed, 1)
+        torch.cuda.synchronize()
+        got_r = dict(_build.LAUNCHES)
+    finally:
+        fa.FLASH_MERGED_BWD = True
+    for h in hist + [m]:
+        print(f"  12d PRFL, step {h['step']}: refl_loss {h['refl_loss']:.6f}, reward "
+              f"{h['reward']:.6f}, grad_norm {h['grad_norm']:.6e}, sft_loss "
+              f"{h['sft_loss']:.6f}, t_refl {h['t_refl']:.3f} s, t_sft {h['t_sft']:.3f} s")
+        expect(all(math.isfinite(h[k]) for k in ("refl_loss", "reward", "grad_norm",
+                                                 "sft_loss")), f"12d: non-finite {h}")
+    timing = ("t_refl", "t_sft")
+    same = ({k: v for k, v in m.items() if k not in timing}
+            == {k: v for k, v in hist[2].items() if k not in timing})
+    bits = all(torch.equal(a, b) for a, b in zip(resumed.state.params, whole.state.params))
+    print(f"  12d: the resumed step against the uninterrupted step 3: metrics "
+          f"{'equal' if same else 'DIFFERENT'}, weights {'equal' if bits else 'DIFFERENT'}")
+    expect(same and bits and resumed.state.step == whole.state.step,
+           "12d: the resumed step is not the uninterrupted one")
+    want = _add({}, per_step, 3)
+    print(f"  12d: PRFL launches over 3 outer steps {got}, derived {want}; resumed {got_r}")
+    expect(got == want and got_r == per_step, f"12d: PRFL launches {got} / {got_r}")
+    _add(total, got)
+    _add(total, got_r)
+    del whole, resumed
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_pavrm(root, dev="cuda"):
+    """Phase 12: the PAVRM trainer at t2v-14B width (ce, the published
+    config) and i2v-14B width (bt), card against CPU, and the LRM handoff
+    to the PRFL trainer with checkpoint export, EMA and resume. Returns
+    the launches."""
+    import torch
+
+    dev = torch.device(dev)
+    cli = load_script("train_pavrm_torch")
+    total = {}
+
+    # 12a: configs/train_pavrm_t2v_480.yaml at t2v-14B width: the first 8
+    # blocks, 81 frames at 832*480 (32,760 tokens), batch 1, remat "attn",
+    # seeded weights, 3 steps over t 400, 500, 600 (the list cycled)
+    meta, null_dir = write_reward_cache(os.path.join(root, "c81"), 81, n=2, seed=41)
+    trainer, hist, got, peak = _pavrm_run(
+        cli, _config(PAVRM_CONFIG, root, meta, null_dir), 3, "12a t2v-14B 81 frames",
+        _add({}, expected_pavrm_launches(8, "ce"), 3), dev)
+    warm = min(h["step_time"] for h in hist[1:])
+    print(f"  12a: {CARD}: {warm:.3f} s/step (a warm step; the first "
+          f"{hist[0]['step_time']:.3f}), peak {peak / 2**30:.2f} GiB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; t2v-14B width, 8 "
+          f"blocks, 32,760 tokens, remat attn, no cut")
+    expect(peak < torch.cuda.get_device_properties(0).total_memory, "12a: peak over the card")
+    _add(total, got)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 12b: the i2v-14B width, Bradley-Terry (win and lose in one graph),
+    # 8 blocks, 257 image keys, 2 steps at 21 frames (9,360 tokens): at 81
+    # frames the two sides' activations (2 x 12a's) and the fp32 state do
+    # not fit one card
+    win, null_dir = write_reward_cache(os.path.join(root, "c21"), 21, n=2, i2v=True, seed=51)
+    lose, _ = write_reward_cache(os.path.join(root, "c21"), 21, n=3, i2v=True, seed=52)
+    trainer, hist, got, peak = _pavrm_run(
+        cli, _config(PAVRM_CONFIG_BT_I2V, root, win, null_dir,
+                     dataset__meta_file_lose_list=[lose]),
+        2, "12b i2v-14B bt 21 frames", _add({}, expected_pavrm_launches(8, "bt", i2v=True), 2),
+        dev)
+    print(f"  12b: {CARD}: {min(h['step_time'] for h in hist[1:]):.3f} s/step (the "
+          f"second), peak {peak / 2**30:.2f} GiB; i2v-14B width, 8 blocks, 9,360 tokens, "
+          f"257 image keys; cut: 21 frames, not 81")
+    _add(total, got)
+    del trainer
+    torch.cuda.empty_cache()
+
+    _add(total, _pavrm_card_vs_cpu(card=dev))
+    _add(total, _handoff(root, dev))
+    return total
+
+
 def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
@@ -2139,7 +2599,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -2190,8 +2652,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         i2v_launches = phase_i2v(results, root)
 
-    launches = _add(_add(_add(_add(_add(dict(serve_launches), train_launches), route_launches),
-                              probe_launches), unnormed_launches), i2v_launches)
+    print("phase 12: PAVRM and the LRM handoff (t2v-14B ce, i2v-14B bt, card against CPU, "
+          "the export to PRFL, checkpoints, EMA and resume)")
+    with tempfile.TemporaryDirectory() as root:
+        pavrm_launches = phase_pavrm(root)
+    print(f"  PAVRM launches {pavrm_launches}")
+
+    launches = {}
+    for part in (serve_launches, train_launches, route_launches, probe_launches,
+                 unnormed_launches, i2v_launches, pavrm_launches):
+        _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

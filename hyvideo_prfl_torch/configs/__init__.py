@@ -4,6 +4,8 @@ The constants are copies, not imports: the JAX package's configs module
 imports its flax model, and this package never imports JAX.
 """
 
+import dataclasses
+
 from ..models import wan_dit
 from .config import AttrDict, config_from_dict, default_config, load_config
 
@@ -59,8 +61,26 @@ def dit_config_for_task(task: str, **kw) -> wan_dit.WanConfig:
     raise ValueError(f"unknown task {task}")
 
 
+def dit_cfg_from(config) -> wan_dit.WanConfig:
+    """A training config's WanConfig: its task's, with
+    model.gradient_checkpointing (remat), model.remat_policy and
+    model.override applied (scripts/_common.py ``dit_cfg_from``)."""
+    cfg = dit_config_for_task(config.task)
+    gc = config.get_path("model.gradient_checkpointing")
+    if gc is not None:
+        cfg = dataclasses.replace(cfg, remat=bool(gc))
+    rp = config.get_path("model.remat_policy")
+    if rp:
+        cfg = dataclasses.replace(cfg, remat_policy=str(rp))
+    ov = config.get_path("model.override")
+    if ov:
+        cfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v
+                                          for k, v in ov.items()})
+    return cfg
+
+
 __all__ = [
     "SIZE_CONFIGS", "MAX_AREA_CONFIGS", "SUPPORTED_SIZES",
-    "SAMPLE_NEG_PROMPT", "dit_config_for_task", "AttrDict", "config_from_dict",
-    "default_config", "load_config",
+    "SAMPLE_NEG_PROMPT", "dit_config_for_task", "dit_cfg_from", "AttrDict",
+    "config_from_dict", "default_config", "load_config",
 ]

@@ -3,7 +3,8 @@
 
 The JAX package gives each data-parallel replica a contiguous block of
 the dataset; one GPU is one replica, whose block is the whole dataset.
-The resume offset is not ported, as resume is not. Batches are stacked
+A resumed run starts its first epoch at ``start_index`` (the resume step,
+wrapped into the block), as the JAX trainers pass it. Batches are stacked
 per key (string fields become lists); mixed-shape caches are bucketed so
 every batch is shape-uniform.
 """
@@ -17,25 +18,28 @@ import numpy as np
 
 class BlockDistributedSampler:
     """The one replica's index block: range(dataset_len), shuffled per
-    epoch when asked."""
+    epoch when asked, from ``start_index`` on (the BatchIterator resets it
+    to 0 after the first epoch)."""
 
-    def __init__(self, dataset_len: int, shuffle: bool = False, seed: int = 0):
+    def __init__(self, dataset_len: int, shuffle: bool = False, seed: int = 0,
+                 start_index: int = 0):
         self.dataset_len = dataset_len
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+        self.start_index = start_index % max(dataset_len, 1)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __len__(self):
-        return self.dataset_len
+        return self.dataset_len - self.start_index
 
     def __iter__(self) -> Iterator[int]:
         idxs = list(range(self.dataset_len))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idxs)
-        return iter(idxs)
+        return iter(idxs[self.start_index:])
 
 
 def stack_batch(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
@@ -73,6 +77,7 @@ class BatchIterator:
                 buckets.setdefault(key, []).append(sample)
                 if len(buckets[key]) == self.batch_size:
                     yield stack_batch(buckets.pop(key))
+            self.sampler.start_index = 0  # later epochs start at 0
             epoch += 1
             if not consumed:
                 raise RuntimeError("the data stream made no progress in a full epoch")

@@ -13,7 +13,11 @@ is the JAX package's optax chain step for step:
   (eps outside the sqrt), decoupled weight decay ``u += wd p`` on every
   parameter, ``p -= lr(count) u``; all in fp32;
 * accumulation over k micro-steps: a running mean ``acc += (g - acc) / n``
-  that feeds the clip + AdamW step on every k-th call.
+  that feeds the clip + AdamW step on every k-th call;
+* ``learning_rate_mlp``: the parameters under the ``head_keys`` prefixes
+  (the reward heads ``q_attn.*`` and ``mlp.*``) take their own learning
+  rate and schedule, after the one clip over all gradients (optax's
+  ``chain(clip_by_global_norm, multi_transform(...))``).
 
 ``TrainState.step`` counts every call (the PRFL loop makes two per outer
 step, refl and SFT); the LR schedule and the bias correction read the
@@ -92,12 +96,22 @@ class Optimizer:
     weight_decay: float = 0.01
     max_grad_norm: float = 1.0
     k: int = 1
+    # the heads' own schedule (learning_rate_mlp) and the name prefixes it serves
+    lr_head: Optional[Callable[[int], float]] = None
+    head_keys: Tuple[str, ...] = ("q_attn", "mlp")
 
-    def init(self, params: List[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
+    def init(self, params: List[torch.Tensor], names: Optional[List[str]] = None
+             ) -> Dict[str, List[torch.Tensor]]:
+        """Zero moments (and accumulator); with a head group, ``head`` marks
+        the parameters whose first name part is one of ``head_keys``."""
         zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         state = {"mu": zeros, "nu": [torch.zeros_like(z) for z in zeros]}
         if self.k > 1:
             state["acc"] = [torch.zeros_like(z) for z in zeros]
+        if self.lr_head is not None:
+            if names is None:
+                raise ValueError("a head learning rate needs the parameter names")
+            state["head"] = [n.split(".")[0] in self.head_keys for n in names]
         return state
 
     def update(self, params, grads, opt_state, step: int) -> None:
@@ -117,10 +131,21 @@ class Optimizer:
         if not bool(norm < self.max_grad_norm):
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
-        lr = self.lr(count)
         bc1 = 1.0 - self.b1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
-        mu, nu = opt_state["mu"], opt_state["nu"]
+        head = opt_state.get("head", [False] * len(params))
+        groups = [(False, self.lr(count))]
+        if self.lr_head is not None:
+            groups.append((True, self.lr_head(count)))
+        for group, lr in groups:
+            idx = [i for i, h in enumerate(head) if h == group]
+            self._adamw([params[i] for i in idx], [grads[i] for i in idx],
+                        [opt_state["mu"][i] for i in idx], [opt_state["nu"][i] for i in idx],
+                        lr, bc1, bc2)
+        if self.k > 1:
+            torch._foreach_zero_(opt_state["acc"])
+
+    def _adamw(self, params, grads, mu, nu, lr, bc1, bc2) -> None:
         for i in range(0, len(params), _CHUNK):
             p, g = params[i:i + _CHUNK], grads[i:i + _CHUNK]
             m, v = mu[i:i + _CHUNK], nu[i:i + _CHUNK]
@@ -135,8 +160,6 @@ class Optimizer:
             torch._foreach_div_(upd, denom)
             torch._foreach_add_(upd, p, alpha=self.weight_decay)
             torch._foreach_add_(p, upd, alpha=-lr)
-        if self.k > 1:
-            torch._foreach_zero_(opt_state["acc"])
 
 
 def make_optimizer(learning_rate: float = 5e-6, adam_beta1: float = 0.9,
@@ -144,13 +167,36 @@ def make_optimizer(learning_rate: float = 5e-6, adam_beta1: float = 0.9,
                    weight_decay: float = 0.01, lr_scheduler: str = "constant",
                    lr_warmup_steps: int = 0, lr_num_cycles: int = 1, lr_power: float = 1.0,
                    max_train_steps: int = 1_000_000, max_grad_norm: float = 1.0,
-                   gradient_accumulation_steps: int = 1) -> Optimizer:
-    """The JAX package's make_optimizer, one parameter group."""
+                   gradient_accumulation_steps: int = 1,
+                   learning_rate_mlp: Optional[float] = None,
+                   head_keys: Tuple[str, ...] = ("q_attn", "mlp")) -> Optimizer:
+    """The JAX package's make_optimizer: one parameter group, or two with
+    ``learning_rate_mlp`` (the heads under ``head_keys``)."""
+    def schedule(lr):
+        return _lr_schedule(lr, lr_scheduler, lr_warmup_steps, max_train_steps,
+                            lr_num_cycles=lr_num_cycles, lr_power=lr_power)
+
     return Optimizer(
-        lr=_lr_schedule(learning_rate, lr_scheduler, lr_warmup_steps, max_train_steps,
-                        lr_num_cycles=lr_num_cycles, lr_power=lr_power),
+        lr=schedule(learning_rate),
         b1=adam_beta1, b2=adam_beta2, eps=adam_epsilon, weight_decay=weight_decay,
-        max_grad_norm=max_grad_norm, k=max(1, int(gradient_accumulation_steps)))
+        max_grad_norm=max_grad_norm, k=max(1, int(gradient_accumulation_steps)),
+        lr_head=None if learning_rate_mlp is None else schedule(float(learning_rate_mlp)),
+        head_keys=tuple(head_keys))
+
+
+def optimizer_from_config(config, head_lr: bool = False) -> Optimizer:
+    """make_optimizer from a training config's optimizer.* and
+    train.gradient_accumulation_steps; with ``head_lr`` (the PAVRM trainer)
+    the heads take optimizer.learning_rate_mlp where it is set."""
+    opt = config.optimizer
+    return make_optimizer(
+        learning_rate=opt.learning_rate, adam_beta1=opt.adam_beta1, adam_beta2=opt.adam_beta2,
+        adam_epsilon=opt.get("adam_epsilon", 1e-8), weight_decay=opt.weight_decay,
+        lr_scheduler=opt.lr_scheduler, lr_warmup_steps=opt.lr_warmup_steps,
+        lr_num_cycles=int(opt.get("lr_num_cycles", 1)), lr_power=float(opt.get("lr_power", 1.0)),
+        max_train_steps=opt.max_train_steps, max_grad_norm=float(opt.get("max_grad_norm", 1.0)),
+        gradient_accumulation_steps=config.train.gradient_accumulation_steps,
+        learning_rate_mlp=opt.get("learning_rate_mlp") if head_lr else None)
 
 
 @dataclasses.dataclass
@@ -166,9 +212,8 @@ class TrainState:
 
 def init_train_state(module: torch.nn.Module, tx: Optimizer) -> TrainState:
     named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
-    params = [p for _, p in named]
-    return TrainState(names=[n for n, _ in named], params=params,
-                      opt_state=tx.init(params), step=0)
+    params, names = [p for _, p in named], [n for n, _ in named]
+    return TrainState(names=names, params=params, opt_state=tx.init(params, names), step=0)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -185,6 +230,12 @@ def apply_grads(state: TrainState, tx: Optimizer, grads: List[torch.Tensor]
         tx.update(state.params, grads, state.opt_state, state.step)
     state.step += 1
     return state, gnorm
+
+
+def step_generator(device, seed: int, step: int) -> torch.Generator:
+    """The generator of one training step's draws, seeded by (seed, step):
+    a resumed run draws at step n what an uninterrupted run draws there."""
+    return torch.Generator(device=device).manual_seed((seed * 1_000_003 + step) % 2 ** 63)
 
 
 def collect_grads(state: TrainState, finite: Optional[bool] = True) -> List[torch.Tensor]:

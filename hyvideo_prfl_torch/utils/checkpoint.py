@@ -27,13 +27,23 @@ the same int8 state from the port's own float state. For i2v and flf2v
 both also carry the image branch: ``img_emb`` (the CLIP projector) and each
 block's ``cross_attn.{k_img, v_img, norm_k_img}``; cross-attention rows
 keep their order (only the self-attention q/k move to the half layout).
+
+Back to the reference layout: ``to_reference_state`` inverts
+``from_reference_state`` and ``save_reference_dir`` writes a checkpoint
+directory (safetensors shards through ``safetensors_io``, which also reads
+them: the safetensors package is not needed); the reward heads go to and
+from the reference torch layout (``fc1..fc3``; ``queries`` and a fused
+``multihead_attn``). The trainers keep their own state as torch.save files
+(``save_trainable``, ``save_opt_state``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
-from typing import Dict
+import re
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,6 +52,7 @@ from ..models.rope import rope_permutation
 from ..models.wan_dit import CLIP_DIM, FIRST_LAST_FRAME_CONTEXT_TOKEN_NUMBER, WanConfig, \
     WanModel, is_i2v
 from ..ops.quant import quantize_weight
+from . import safetensors_io as st
 
 _TOP_DENSE = ("patch_embedding", "text_0", "text_2", "time_0", "time_2", "time_proj")
 _ATTN_DENSE = ("q", "k", "v", "o")
@@ -298,21 +309,229 @@ def from_reference_state(state: Dict[str, np.ndarray], cfg: WanConfig) -> Dict[s
         for dst, src in (("ffn_0", "ffn.0"), ("ffn_2", "ffn.2")):
             out[f"{pre}.{dst}.weight"] = _t(arr(f"{pre}.{src}.weight"))
             out[f"{pre}.{dst}.bias"] = _t(arr(f"{pre}.{src}.bias"))
-    out["head.modulation"] = _t(arr("head.modulation"))
-    out["head.head.weight"] = _t(arr("head.head.weight"))
-    out["head.head.bias"] = _t(arr("head.head.bias"))
+    if "head.modulation" in state:  # a trimmed reward-model tower has none
+        out["head.modulation"] = _t(arr("head.modulation"))
+        out["head.head.weight"] = _t(arr("head.head.weight"))
+        out["head.head.bias"] = _t(arr("head.head.bias"))
     return out
 
 
-def load_reference_dir(path: str, cfg: WanConfig) -> Dict[str, torch.Tensor]:
-    """A released checkpoint directory (all *.safetensors merged) -> port
-    state dict. Needs the safetensors package, imported here only (its
-    torch loader, since released weights are bf16)."""
-    from safetensors.torch import load_file
+def to_reference_state(state: Dict[str, torch.Tensor], cfg: WanConfig
+                       ) -> Dict[str, torch.Tensor]:
+    """Port state dict (``WanModel.state_dict()`` keys, fp32 or bf16; a
+    head-less tower has no ``head.*``) -> reference Wan state dict of fp32
+    CPU tensors, the inverse of ``from_reference_state``: self-attention q/k
+    rows and their norm scales go back to the adjacent-pair rope layout,
+    the patch-embedding matmul back to the Conv3d kernel [dim, C, pt, ph, pw]."""
+    if any(k.endswith(".weight_q") for k in state):
+        raise ValueError("an int8 state has no reference layout; export the float model")
 
-    state: Dict[str, torch.Tensor] = {}
-    for fname in sorted(f for f in os.listdir(path) if f.endswith(".safetensors")):
-        state.update(load_file(os.path.join(path, fname)))
-    if not state:
-        raise FileNotFoundError(f"no .safetensors files in {path}")
-    return from_reference_state(state, cfg)
+    def arr(key):
+        return state[key].detach().to("cpu", torch.float32)
+
+    out: Dict[str, torch.Tensor] = {}
+    pt, ph, pw = cfg.patch_size
+    w = arr("patch_embedding.weight")  # [dim, (pt, ph, pw, C)]
+    out["patch_embedding.weight"] = w.reshape(w.shape[0], pt, ph, pw, -1).permute(
+        0, 4, 1, 2, 3).contiguous()
+    out["patch_embedding.bias"] = arr("patch_embedding.bias")
+    for src, dst in (("text_0", "text_embedding.0"), ("text_2", "text_embedding.2"),
+                     ("time_0", "time_embedding.0"), ("time_2", "time_embedding.2"),
+                     ("time_proj", "time_projection.1")):
+        out[dst + ".weight"] = arr(src + ".weight")
+        out[dst + ".bias"] = arr(src + ".bias")
+
+    inv = torch.from_numpy(np.argsort(rope_perm_full(cfg.dim, cfg.head_dim)))
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}"
+        out[pre + ".modulation"] = arr(pre + ".modulation")
+        for attn, dense_names, norm_names in (
+                ("self_attn", _ATTN_DENSE, _norm_names(cfg)),
+                ("cross_attn", _cross_dense(cfg), _cross_norms(cfg))):
+            for name in dense_names:
+                wk, bk = arr(f"{pre}.{attn}.{name}.weight"), arr(f"{pre}.{attn}.{name}.bias")
+                if attn == "self_attn" and name in ("q", "k"):
+                    wk, bk = wk[inv], bk[inv]
+                out[f"{pre}.{attn}.{name}.weight"] = wk
+                out[f"{pre}.{attn}.{name}.bias"] = bk
+            for name in norm_names:
+                g = arr(f"{pre}.{attn}.{name}")
+                out[f"{pre}.{attn}.{name}.weight"] = g[inv] if attn == "self_attn" else g
+        if cfg.cross_attn_norm:
+            out[pre + ".norm3.weight"] = arr(pre + ".norm3_scale")
+            out[pre + ".norm3.bias"] = arr(pre + ".norm3_bias")
+        for src, dst in (("ffn_0", "ffn.0"), ("ffn_2", "ffn.2")):
+            out[f"{pre}.{dst}.weight"] = arr(f"{pre}.{src}.weight")
+            out[f"{pre}.{dst}.bias"] = arr(f"{pre}.{src}.bias")
+    if "head.modulation" in state:
+        out["head.modulation"] = arr("head.modulation")
+        out["head.head.weight"] = arr("head.head.weight")
+        out["head.head.bias"] = arr("head.head.bias")
+    if is_i2v(cfg):
+        for ln, idx in _IMG_LN:
+            out[f"img_emb.proj.{idx}.weight"] = arr(f"img_emb.{ln}_scale")
+            out[f"img_emb.proj.{idx}.bias"] = arr(f"img_emb.{ln}_bias")
+        for src, idx in (("fc1", 1), ("fc2", 3)):
+            out[f"img_emb.proj.{idx}.weight"] = arr(f"img_emb.{src}.weight")
+            out[f"img_emb.proj.{idx}.bias"] = arr(f"img_emb.{src}.bias")
+        if cfg.model_type == "flf2v":
+            out["img_emb.emb_pos"] = arr("img_emb.emb_pos")
+    return out
+
+
+def save_reference_dir(state: Dict[str, torch.Tensor], cfg: WanConfig, path: str,
+                       step: Optional[int] = None) -> str:
+    """Port state dict -> a reference checkpoint directory (``<path>/
+    checkpoint-<step>`` when ``step`` is given): 5 GB safetensors shards of
+    fp32 tensors and a config.json with the JAX ``save_wan_checkpoint``'s
+    keys (``num_layers`` is ``cfg``'s: a trimmed tower says how many blocks
+    it holds). Returns the directory."""
+    if step is not None:
+        path = os.path.join(path, f"checkpoint-{step}")
+    st.save_dir(to_reference_state(state, cfg), path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"_class_name": "WanModel", "model_type": cfg.model_type, "dim": cfg.dim,
+                   "ffn_dim": cfg.ffn_dim, "freq_dim": cfg.freq_dim, "in_dim": cfg.in_dim,
+                   "out_dim": cfg.out_dim, "num_heads": cfg.num_heads,
+                   "num_layers": cfg.num_layers, "text_len": cfg.text_len, "eps": cfg.eps},
+                  f, indent=2)
+    return path
+
+
+def load_reference_dir(path: str, cfg: WanConfig) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint directory (its safetensors shards merged) ->
+    port state dict of ``cfg.num_layers`` blocks, with the head where the
+    directory holds one."""
+    return from_reference_state(st.load_dir(path), cfg)
+
+
+def load_tower_dir(path: str, cfg: WanConfig, n_blocks: int) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint directory -> the head-less tower of its first
+    ``n_blocks`` blocks (the reward model's trimmed DiT). The directory may
+    hold a whole policy-shaped transformer or the trimmed tower the PAVRM
+    trainer exports: its config.json says how many blocks it has, as the
+    JAX PRFL trainer reads it."""
+    n_saved = cfg.num_layers
+    if os.path.exists(os.path.join(path, "config.json")):
+        with open(os.path.join(path, "config.json")) as f:
+            n_saved = int(json.load(f).get("num_layers", n_saved))
+    if n_saved < n_blocks:
+        raise ValueError(f"checkpoint at {path} has {n_saved} blocks, fewer than the "
+                         f"{n_blocks} the feature taps need")
+    full = load_reference_dir(path, dataclasses.replace(cfg, num_layers=n_saved))
+    return {k: v for k, v in full.items() if not k.startswith("head.")
+            and not (k.startswith("blocks.") and int(k.split(".")[1]) >= n_blocks)}
+
+
+def parse_resume_step(path: str) -> int:
+    """checkpoint-<step>[-ema|-opt] -> step (0 when the name has none)."""
+    m = re.search(r"checkpoint-(\d+)", os.path.basename(os.path.normpath(path)))
+    return int(m.group(1)) if m else 0
+
+
+# The reward heads in the reference torch layout (utils/network.py MLP and
+# QueryAttention; mlp_step_<n>.ckpt and query_attention_step_<n>.ckpt):
+# fc1..fc3 Linears, and learned queries with a fused nn.MultiheadAttention
+# (in_proj q, k, v stacked; out_proj). The port's pool keeps the JAX
+# orientation (``wq`` [in, out], x @ wq), so each weight transposes.
+
+
+def reward_mlp_to_reference(mlp_state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """RewardMLP state (``Dense_i.{weight,bias}``) -> fc1..fc3."""
+    return {f"fc{i + 1}.{leaf}": mlp_state[f"Dense_{i}.{leaf}"].detach().cpu().float()
+            for i in range(3) for leaf in ("weight", "bias")}
+
+
+def reward_mlp_from_reference(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"Dense_{i}.{leaf}": state[f"fc{i + 1}.{leaf}"].float()
+            for i in range(3) for leaf in ("weight", "bias")}
+
+
+def query_attention_to_reference(q_state: Dict[str, torch.Tensor]
+                                 ) -> Dict[str, torch.Tensor]:
+    """QueryAttention state (queries, w*/b*) -> queries and multihead_attn.*"""
+    q = {k: v.detach().cpu().float() for k, v in q_state.items()}
+    return {"queries": q["queries"],
+            "multihead_attn.in_proj_weight": torch.cat([q["wq"].T, q["wk"].T, q["wv"].T]),
+            "multihead_attn.in_proj_bias": torch.cat([q["bq"], q["bk"], q["bv"]]),
+            "multihead_attn.out_proj.weight": q["wo"].T.contiguous(),
+            "multihead_attn.out_proj.bias": q["bo"]}
+
+
+def query_attention_from_reference(state: Dict[str, torch.Tensor]
+                                   ) -> Dict[str, torch.Tensor]:
+    """The inverse. A ``text_proj`` (the reference's product_text option,
+    on in no shipped config) is not read: the pool has none, as the JAX
+    pool uses none without product_text."""
+    w_in, b_in = state["multihead_attn.in_proj_weight"].float(), \
+        state["multihead_attn.in_proj_bias"].float()
+    d = w_in.shape[1]
+    out = {"queries": state["queries"].float()}
+    for i, name in enumerate("qkv"):
+        out[f"w{name}"] = w_in[i * d:(i + 1) * d].T.contiguous()
+        out[f"b{name}"] = b_in[i * d:(i + 1) * d].contiguous()
+    out["wo"] = state["multihead_attn.out_proj.weight"].float().T.contiguous()
+    out["bo"] = state["multihead_attn.out_proj.bias"].float()
+    return out
+
+
+def load_reward_head(path: str, kind: str) -> Dict[str, torch.Tensor]:
+    """A reference reward-head checkpoint (``mlp_step_<n>.ckpt`` or
+    ``query_attention_step_<n>.ckpt``, a torch state dict) -> the state of
+    the port's RewardMLP (kind "mlp") or QueryAttention ("qattn")."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if kind == "mlp":
+        return reward_mlp_from_reference(state)
+    if kind == "qattn":
+        return query_attention_from_reference(state)
+    raise ValueError(f"unknown reward head kind {kind!r}")
+
+
+# The trainers' own state (torch.save files in the JAX package's directory
+# names): the trainable parameters by name, and the optimizer state with
+# its step. Loading copies into the live tensors, so they keep their device.
+
+TRAINABLE_FILE, OPT_STATE_FILE = "trainable.pt", "opt_state.pt"
+
+
+def save_trainable(path: str, names, params) -> None:
+    os.makedirs(path, exist_ok=True)
+    torch.save({n: p.detach().cpu() for n, p in zip(names, params)},
+               os.path.join(path, TRAINABLE_FILE))
+
+
+@torch.no_grad()
+def load_trainable(path: str, names, params) -> None:
+    saved = torch.load(os.path.join(path, TRAINABLE_FILE), map_location="cpu",
+                       weights_only=True)
+    if list(saved) != list(names):
+        raise ValueError(f"{path} holds other parameters than this model trains")
+    for n, p in zip(names, params):
+        p.copy_(saved[n])
+
+
+def save_opt_state(path: str, state) -> None:
+    """A TrainState's optimizer state and step -> <path>/opt_state.pt."""
+    os.makedirs(path, exist_ok=True)
+    opt = {k: [v.detach().cpu() if isinstance(v, torch.Tensor) else v for v in vals]
+           for k, vals in state.opt_state.items()}
+    torch.save({"names": list(state.names), "step": int(state.step), "opt_state": opt},
+               os.path.join(path, OPT_STATE_FILE))
+
+
+@torch.no_grad()
+def load_opt_state(path: str, state) -> int:
+    """<path>/opt_state.pt -> the TrainState's optimizer state, in place;
+    returns the saved step."""
+    saved = torch.load(os.path.join(path, OPT_STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    if saved["names"] != list(state.names) or set(saved["opt_state"]) != set(state.opt_state):
+        raise ValueError(f"{path} holds the optimizer state of another model or optimizer")
+    for key, vals in saved["opt_state"].items():
+        live = state.opt_state[key]
+        for i, v in enumerate(vals):
+            if isinstance(v, torch.Tensor):
+                live[i].copy_(v)
+            else:
+                live[i] = v
+    return int(saved["step"])

@@ -1,10 +1,11 @@
-"""Where the port spends its device time: one batched-CFG DiT forward, or
-one PRFL refl training step (PyTorch port).
+"""Where the port spends its device time: one batched-CFG DiT forward,
+one PRFL refl training step, or one PAVRM reward-model step (PyTorch port).
 
     python3 scripts/profile_torch_step.py --frame_num 21 81 [--quant int8] [--quant_attn int8]
     python3 scripts/profile_torch_step.py --task i2v-14B --frame_num 81
     python3 scripts/profile_torch_step.py --refl --frame_num 21 81 [--steps 8 --mid 3] \
         [--rollout_quant int8]
+    python3 scripts/profile_torch_step.py --pavrm --task t2v-14B --blocks 8 --frame_num 81
 
 Forward mode, for each frame count: builds the DiT of ``--task``
 (default t2v-1.3B) at 832*480 once (random weights, seeded non-zero head),
@@ -23,8 +24,15 @@ off and one under torch.profiler: ``mid`` no-grad rollout forwards, one
 forward and backward of the policy and of the LRM, and the optimizer;
 ``--rollout_quant int8`` runs the rollout through the int8 model.
 
-Each run prints one JSON line with both wall times, the device time by
-group (K1, K2, K3, K3s, K4, K5, K6, K7, K8, K9, K10, R, GEMM, other) from
+PAVRM mode (--pavrm): builds the reward model of ``--task`` (default
+t2v-1.3B) as the PAVRM trainer does (its first ``--blocks`` blocks and
+both heads as fp32 masters, frozen embeddings, remat "attn", AdamW with
+the heads' own rate), then for each frame count runs one warm-up, one
+timed and one traced "ce" step at batch 1 (t 500): the tower's forward
+and backward, the pool and the head, the optimizer.
+
+Each run prints one JSON line with both wall times, the device time and
+the kernel calls by group (K1, K2, K3, K3s, K4, K5, K6, K7, K8, K9, K10, R, GEMM, other) from
 the traced run, and the idle share: 1 - device busy time / untraced wall
 time. ``HYV_FLASH_BOUNDED=0`` profiles the shifted route (K2, K3s). Needs a
 CUDA device.
@@ -90,12 +98,14 @@ def _profile(run, label: dict) -> dict:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
+    calls: dict = {}
     kernels = []
     for evt in prof.key_averages():
         ms = evt.self_device_time_total / 1e3
         if evt.device_type != torch.autograd.DeviceType.CUDA or ms <= 0:
             continue
         groups[group_of(evt.key)] = groups.get(group_of(evt.key), 0.0) + ms
+        calls[group_of(evt.key)] = calls.get(group_of(evt.key), 0) + evt.count
         kernels.append((ms, evt.count, evt.key[:80]))
     if not groups:
         raise SystemExit("the profiler recorded no device time")
@@ -103,6 +113,7 @@ def _profile(run, label: dict) -> dict:
     return {**label, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
             "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "calls_by_group": calls,
             "top_kernels": [{"ms": ms, "calls": n, "name": name}
                             for ms, n, name in sorted(kernels, reverse=True)[:12]]}
 
@@ -173,12 +184,54 @@ def profile_refl(prfl, frame_num: int, dev) -> dict:
                           "rollout_quant": model.cfg.rollout_quant, "peak_gib": None})
 
 
+def build_pavrm(dev, task: str, blocks: int):
+    """The PAVRM trainer's model: the first ``blocks`` blocks of ``task``'s
+    DiT and both heads as fp32 masters (seeded JAX initialisers), frozen
+    embeddings, AdamW with the heads' own rate."""
+    from hyvideo_prfl_torch.schedulers import flow_match as fm
+    from hyvideo_prfl_torch.training import common
+    from hyvideo_prfl_torch.training.pavrm import PavrmConfig, PavrmModel, make_train_step
+
+    cfg = dataclasses.replace(dit_config_for_task(task), remat_policy="attn")
+    pc = PavrmConfig(feature_layer=(blocks,), trainable_blocks=tuple(range(blocks)),
+                     timesteps=(500,), task=task.lower())
+    model = PavrmModel(cfg, pc, device=dev, param_dtype=torch.float32)
+    model.init_params(torch.Generator(device=dev).manual_seed(0)).freeze_embeddings()
+    tx = common.make_optimizer(learning_rate=1e-5, learning_rate_mlp=1e-4)
+    return model, common.init_train_state(model, tx), make_train_step(
+        model, tx, fm.train_schedule(1000))
+
+
+def profile_pavrm(pavrm, frame_num: int, dev) -> dict:
+    model, state, step = pavrm
+    cfg = model.dit_cfg
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"latents": torch.randn(*_latent_shape(frame_num, 1), generator=g, device=dev),
+             "text": torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev),
+             "labels": torch.ones(1, device=dev)}
+    if wan_dit.is_i2v(cfg):
+        frames = 2 if cfg.model_type == "flf2v" else 1
+        batch["cond"] = torch.randn_like(batch["latents"])
+        batch["clip_fea"] = torch.randn(1, frames * wan_dit.CLIP_TOKENS, wan_dit.CLIP_DIM,
+                                        generator=g, device=dev)
+
+    def run():
+        step(state, batch, g)
+
+    return _profile(run, {"mode": "pavrm", "model_type": cfg.model_type, "dim": cfg.dim,
+                          "blocks": cfg.num_layers, "frame_num": frame_num,
+                          "trainable_params": sum(p.numel() for p in state.params),
+                          "peak_gib": None})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--task", default="t2v-1.3B",
                    help="forward: the model (t2v-1.3B, t2v-14B, i2v-14B, flf2v-14B, ...)")
     p.add_argument("--frame_num", type=int, nargs="+", default=[21, 81])
     p.add_argument("--refl", action="store_true", help="profile one PRFL refl step")
+    p.add_argument("--pavrm", action="store_true", help="profile one PAVRM ce step")
+    p.add_argument("--blocks", type=int, default=8, help="pavrm: the reward model's blocks")
     p.add_argument("--steps", type=int, default=8, help="refl: PRFL inference steps")
     p.add_argument("--mid", type=int, default=3, help="refl: rollout forwards before the step")
     p.add_argument("--quant", choices=("none", "int8"), default="none",
@@ -194,6 +247,14 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     dev = torch.device("cuda")
+    if args.pavrm:
+        pavrm = build_pavrm(dev, args.task, args.blocks)
+        for frame_num in args.frame_num:
+            torch.cuda.reset_peak_memory_stats()
+            out = profile_pavrm(pavrm, frame_num, dev)
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            print(json.dumps(out))
+        return 0
     if args.refl:
         prfl = build_prfl(dev, args.steps, args.mid,
                           None if args.rollout_quant == "none" else args.rollout_quant)

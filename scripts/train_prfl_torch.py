@@ -7,16 +7,27 @@ scripts/train_prfl.py).
 Every outer step runs one PRFL reward ("refl") step and then one
 flow-matching SFT step on the same batch, as the JAX loop does, and logs
 refl_loss, reward, grad_norm, sft_loss, t_refl and t_sft (wall seconds,
-each after a device synchronize) as one JSON line.
+each after a device synchronize) as one JSON line. Each outer step draws
+from a generator seeded by (train.seed, step), so a resumed run draws what
+an uninterrupted one does.
 
 ``build_trainer(config, device)`` and ``run(trainer, steps)`` are separate
 so a caller can give the trainer other weights between the two. Without a
 base checkpoint the policy and the LRM start from the JAX initialisers
-(seeded), as the JAX CLI does without weights. Options the port does not
-have yet raise NotImplementedError: LoRA, EMA, multi-device training,
-resume, checkpoint export (save_interval must exceed the steps run), LRM
-checkpoint loading and the VAE sanity decode. ``train.rollout_quant: int8``
-runs the no-grad rollout through the int8 serving path (W8A8 block
+(seeded), as the JAX CLI does without weights. The LRM comes from
+``model.lrm_transformer_path`` (a reference checkpoint directory: the
+PAVRM trainer's trimmed head-less export, or a whole transformer, sliced
+to the blocks the feature taps need) and the heads from
+``model.lrm_mlp_path`` and ``model.lrm_query_attention_path``. At every
+``train.save_interval`` the policy goes to ``<out>/checkpoint-<n>`` in the
+reference layout, with ``opt_state/`` (the AdamW moments and the step)
+under ``train.save_optimizer_state`` and the EMA (``model.ema.use_ema``)
+to ``<out>-ema/checkpoint-<n>``; ``model.resume_transformer_path`` resumes
+from such a directory (the policy, the moments and the step where
+``opt_state/`` is there, and the loader's start index). Options the port
+does not have yet raise NotImplementedError: LoRA, multi-device training,
+optimizer-state offload and the VAE sanity decode. ``train.rollout_quant:
+int8`` runs the no-grad rollout through the int8 serving path (W8A8 block
 matmuls, int8 q k^T self-attention), as the JAX trainer does. An i2v or
 flf2v task (``i2v-1.3b``, ``i2v-14b-480p``, ...) conditions every step on
 the cache's first-frame latent and CLIP features, as the JAX trainer does.
@@ -38,34 +49,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from hyvideo_prfl_torch.configs import dit_config_for_task, load_config  # noqa: E402
+from hyvideo_prfl_torch.configs import dit_cfg_from, load_config  # noqa: E402
 from hyvideo_prfl_torch.data.dataset import LatentCacheDataset  # noqa: E402
 from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
-from hyvideo_prfl_torch.training import common  # noqa: E402
+from hyvideo_prfl_torch.training import common, ema as ema_mod  # noqa: E402
 from hyvideo_prfl_torch.training.pavrm import PavrmConfig  # noqa: E402
 from hyvideo_prfl_torch.training.prfl import (  # noqa: E402
     PrflConfig, PrflModel, make_refl_step, make_sft_step,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
-
-
-def dit_cfg_from(config) -> wan_dit.WanConfig:
-    """task -> WanConfig, with model.gradient_checkpointing (remat),
-    model.remat_policy and model.override applied (scripts/_common.py)."""
-    cfg = dit_config_for_task(config.task)
-    gc = config.get_path("model.gradient_checkpointing")
-    if gc is not None:
-        cfg = dataclasses.replace(cfg, remat=bool(gc))
-    rp = config.get_path("model.remat_policy")
-    if rp:
-        cfg = dataclasses.replace(cfg, remat_policy=str(rp))
-    ov = config.get_path("model.override")
-    if ov:
-        cfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v
-                                          for k, v in ov.items()})
-    return cfg
 
 
 def _exists(path) -> bool:
@@ -76,18 +70,11 @@ def check_scope(config) -> None:
     """Raise NotImplementedError for a config option the port lacks."""
     asks = {
         "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora"),
-        "EMA (model.ema.use_ema)": config.get_path("model.ema.use_ema"),
         "multi-device training (dataset.sp_size > 1)":
             int(config.get_path("dataset.sp_size", 1) or 1) > 1,
         "optimizer-state offload (model.fsdp.use_cpu_offload, train.offload_opt_state)":
             config.get_path("model.fsdp.use_cpu_offload")
             or config.get_path("train.offload_opt_state"),
-        "resume (model.resume_transformer_path)":
-            config.get_path("model.resume_transformer_path"),
-        "optimizer-state export (train.save_optimizer_state)":
-            config.get_path("train.save_optimizer_state"),
-        "LRM checkpoint loading (model.lrm_transformer_path)":
-            _exists(config.get_path("model.lrm_transformer_path")),
         "the VAE sanity decode (extra_model.vae.params_path)":
             _exists(config.get_path("extra_model.vae.params_path")),
     }
@@ -105,8 +92,10 @@ class Trainer:
     loader: Any
     refl_fn: Any
     sft_fn: Any
-    generator: torch.Generator
     out_dir: str
+    seed: int
+    step: int = 0  # the next outer step
+    ema: Any = None  # fp32 copies of state.params under model.ema.use_ema
 
 
 def build_trainer(config, device="cuda") -> Trainer:
@@ -138,25 +127,38 @@ def build_trainer(config, device="cuda") -> Trainer:
         rollout_quant=config.train.get("rollout_quant"))
     model = PrflModel(dit_cfg, pc, prfl_cfg, device=device)
     seed = int(config.train.seed)
+    resume = config.model.resume_transformer_path
     base = config.model.init_transformer_path or config.model.base_path
-    if _exists(base):
+    start_step = 0
+    if _exists(resume):
+        logging.info("resuming the policy from %s", resume)
+        model.dit.load_state_dict(ck.load_reference_dir(resume, dit_cfg))
+        start_step = ck.parse_resume_step(resume)
+    elif _exists(base):
         logging.info("loading policy base from %s", base)
         model.dit.load_state_dict(ck.load_reference_dir(base, dit_cfg))
     else:
         logging.info("no base checkpoint; seeded JAX-initialiser weights")
         wan_dit.init_params(model.dit, torch.Generator(device=device).manual_seed(seed))
-    model.lrm.init_params(torch.Generator(device=device).manual_seed(1))
+    if _exists(config.model.lrm_transformer_path):
+        logging.info("loading the LRM from %s", config.model.lrm_transformer_path)
+        model.lrm.load_reference(config.model.lrm_transformer_path, config.model.lrm_mlp_path,
+                                 config.model.lrm_query_attention_path)
+    else:
+        logging.info("no LRM checkpoint; seeded JAX-initialiser weights")
+        model.lrm.init_params(torch.Generator(device=device).manual_seed(1))
 
-    opt = config.optimizer
-    tx = common.make_optimizer(
-        learning_rate=opt.learning_rate, adam_beta1=opt.adam_beta1, adam_beta2=opt.adam_beta2,
-        adam_epsilon=opt.get("adam_epsilon", 1e-8), weight_decay=opt.weight_decay,
-        lr_scheduler=opt.lr_scheduler, lr_warmup_steps=opt.lr_warmup_steps,
-        lr_num_cycles=int(opt.get("lr_num_cycles", 1)), lr_power=float(opt.get("lr_power", 1.0)),
-        max_train_steps=opt.max_train_steps,
-        max_grad_norm=float(opt.get("max_grad_norm", 1.0)),
-        gradient_accumulation_steps=config.train.gradient_accumulation_steps)
+    tx = common.optimizer_from_config(config)
     state = common.init_train_state(model.dit, tx)
+    if _exists(resume) and os.path.isdir(os.path.join(resume, "opt_state")):
+        # the moments of train.save_optimizer_state; the step counts the
+        # optimizer calls, two per outer step, as the JAX trainer resumes it
+        ck.load_opt_state(os.path.join(resume, "opt_state"), state)
+        state.step = 2 * start_step
+        logging.info("restored the optimizer state from %s/opt_state", resume)
+    ema = None
+    if config.model.ema.use_ema:
+        ema = ema_mod.ema_init(state.params)
 
     dataset = LatentCacheDataset(
         meta_file_list=list(config.dataset.meta_file_list),
@@ -164,15 +166,29 @@ def build_trainer(config, device="cuda") -> Trainer:
         text_len=config.extra_model.get_path("text_encoder.t5_text_len", 512),
         null_dir=config.dataset.null_dir, is_i2v=is_i2v, is_flf2v=is_flf2v, seed=seed)
     sampler = BlockDistributedSampler(len(dataset), shuffle=bool(config.dataset.get("shuffle")),
-                                      seed=seed)
+                                      seed=seed,
+                                      start_index=start_step * int(config.dataset.batch_size))
     loader = iter(BatchIterator(dataset, sampler, batch_size=config.dataset.batch_size))
     out_dir = os.path.join(config.save.output_dir, config.train_id)
     return Trainer(config=config, device=device, model=model, state=state,
                    loader=loader, refl_fn=make_refl_step(model, tx),
                    sft_fn=make_sft_step(model, tx, fm.train_schedule(
                        sched_cfg.num_train_timesteps)),
-                   generator=torch.Generator(device=device).manual_seed(seed + 2),
-                   out_dir=out_dir)
+                   out_dir=out_dir, seed=seed, step=start_step, ema=ema)
+
+
+def save_checkpoint(trainer: Trainer, step: int) -> None:
+    """The policy in the reference layout at <out>/checkpoint-<step>, its
+    optimizer state under train.save_optimizer_state, and the EMA at
+    <out>-ema/checkpoint-<step>."""
+    config, model, state = trainer.config, trainer.model, trainer.state
+    path = ck.save_reference_dir(model.dit.state_dict(), model.dit_cfg, trainer.out_dir, step)
+    if config.train.get("save_optimizer_state"):
+        ck.save_opt_state(os.path.join(path, "opt_state"), state)
+    if trainer.ema is not None:
+        ema_state = {**model.dit.state_dict(), **dict(zip(state.names, trainer.ema))}
+        ck.save_reference_dir(ema_state, model.dit_cfg, trainer.out_dir + "-ema", step)
+    logging.info("saved %s", path)
 
 
 def _sync(device):
@@ -183,11 +199,6 @@ def _sync(device):
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     """``steps`` more outer steps (refl then SFT); returns their metrics."""
     config = trainer.config
-    start = trainer.state.step // 2  # two optimizer calls per outer step
-    if int(config.train.save_interval) <= start + steps:
-        raise NotImplementedError(
-            f"checkpoint export is not ported yet: save_interval "
-            f"({config.train.save_interval}) must exceed the {start + steps} steps run")
     os.makedirs(trainer.out_dir, exist_ok=True)
     log_dir = config.save.log_dir or os.path.join(trainer.out_dir, "logs")
     os.makedirs(log_dir, exist_ok=True)
@@ -195,13 +206,14 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     interval = int(config.train.sanity_check_interval)
     dev = trainer.device
     history = []
-    for step in range(start, start + steps):
+    for step in range(trainer.step, trainer.step + steps):
         raw = next(trainer.loader)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
                  if not isinstance(v, list)}
+        gen = common.step_generator(dev, trainer.seed + 2, step)
         _sync(dev)
         t0 = time.perf_counter()
-        trainer.state, m_refl = trainer.refl_fn(trainer.state, batch, trainer.generator)
+        trainer.state, m_refl = trainer.refl_fn(trainer.state, batch, gen)
         _sync(dev)
         t_refl = time.perf_counter() - t0
         if interval > 0 and step <= 50 and step % interval == 0:
@@ -211,9 +223,12 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
                 np.save(os.path.join(sanity_dir, f"step{step}_{name}.npy"),
                         m_refl[name].float().cpu().numpy())
         t0 = time.perf_counter()
-        trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, trainer.generator)
+        trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, gen)
         _sync(dev)
         t_sft = time.perf_counter() - t0
+        if trainer.ema is not None:
+            ema_mod.ema_update(trainer.ema, trainer.state.params,
+                               float(config.model.ema.ema_decay))
         metrics = {"step": step, "refl_loss": float(m_refl["loss"]),
                    "reward": float(m_refl["reward"]), "grad_norm": float(m_refl["grad_norm"]),
                    "sft_loss": float(m_sft["loss"]), "mid": int(m_refl["mid"]),
@@ -226,7 +241,10 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
             health = common.validate_params(trainer.model.dit)
             if not health["finite"]:
                 logging.error("NON-FINITE PARAMS: %s", health["bad"][:5])
+        if (step + 1) % int(config.train.save_interval) == 0:
+            save_checkpoint(trainer, step + 1)
         history.append(metrics)
+    trainer.step += steps
     return history
 
 
@@ -239,7 +257,9 @@ def main(argv=None) -> List[Dict[str, float]]:
     logging.basicConfig(level=logging.INFO)
     config = load_config(args.config_path)
     trainer = build_trainer(config, args.device)
-    return run(trainer, args.max_steps or int(config.optimizer.max_train_steps))
+    # train up to step max_steps (a resumed run continues from its step)
+    total = args.max_steps or int(config.optimizer.max_train_steps)
+    return run(trainer, max(0, total - trainer.step))
 
 
 if __name__ == "__main__":

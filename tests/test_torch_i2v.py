@@ -477,7 +477,7 @@ def test_refl_step_matches_jax(kind):
 class _Identity:
     """p += g: the step's raw gradients land in the parameters."""
 
-    def init(self, params):
+    def init(self, params, names=None):
         return {}
 
     def update(self, params, grads, opt_state, step):

@@ -424,7 +424,7 @@ def test_cli_trains_two_steps_with_the_int8_rollout(tmp_path):
     cfg.dataset.meta_file_list = [os.path.join(REPO, p) for p in cfg.dataset.meta_file_list]
     cfg.dataset.null_dir = os.path.join(REPO, cfg.dataset.null_dir)
     cfg.save.output_dir = str(tmp_path)
-    cfg.model.ema.use_ema = False  # EMA is not ported; the smoke config asks for it
+    cfg.model.ema.use_ema = False  # the smoke config asks for EMA; not needed here
     cfg.train.rollout_quant = "int8"
     trainer = cli.build_trainer(cfg, "cpu")
     assert trainer.model.cfg.rollout_quant == "int8"

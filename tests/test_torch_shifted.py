@@ -284,7 +284,7 @@ def test_cli_trains_on_the_shifted_route(tmp_path, monkeypatch):
     cfg.dataset.meta_file_list = [os.path.join(REPO, p) for p in cfg.dataset.meta_file_list]
     cfg.dataset.null_dir = os.path.join(REPO, cfg.dataset.null_dir)
     cfg.save.output_dir = str(tmp_path)
-    cfg.model.ema.use_ema = False  # EMA is not ported; the smoke config asks for it
+    cfg.model.ema.use_ema = False  # the smoke config asks for EMA; not needed here
     trainer = cli.build_trainer(cfg, "cpu")
     before = trainer.model.dit.head.head.weight.detach().clone()
     (m,) = cli.run(trainer, 1)

@@ -128,7 +128,7 @@ def _assert_params(tstate, jparams, tcfg, old=None):
 class _Identity:
     """p += g: the step's raw gradients land in the parameters."""
 
-    def init(self, params):
+    def init(self, params, names=None):
         return {}
 
     def update(self, params, grads, opt_state, step):
@@ -379,7 +379,7 @@ def _smoke_config(tmp_path):
 def test_cli_trains_two_steps_on_the_smoke_config(tmp_path):
     cli = _load_script("train_prfl_torch", os.path.join(REPO, "scripts", "train_prfl_torch.py"))
     cfg = _smoke_config(tmp_path)
-    cfg.model.ema.use_ema = False  # EMA is not ported; the smoke config asks for it
+    cfg.model.ema.use_ema = False  # the smoke config asks for EMA; not needed here
     trainer = cli.build_trainer(cfg, "cpu")
     before = trainer.model.dit.head.head.weight.detach().clone()
     history = cli.run(trainer, 2)
@@ -396,18 +396,27 @@ def test_cli_trains_two_steps_on_the_smoke_config(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    # LoRA, multi-device training, optimizer-state offload and the VAE
+    # decode still raise; EMA, resume, optimizer-state export, LRM loading
+    # and a run past save_interval are ported (tests/test_torch_pavrm.py
+    # holds them to the JAX trainer)
     cli = _load_script("train_prfl_torch", os.path.join(REPO, "scripts", "train_prfl_torch.py"))
-    cfg = _smoke_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="EMA"):
-        cli.build_trainer(cfg, "cpu")
-    cfg.model.ema.use_ema = False
-    cfg.model.lora = {"use_lora": True}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        cli.build_trainer(cfg, "cpu")
-    cfg.model.lora = {"use_lora": False}
+    vae = tmp_path / "vae"
+    vae.mkdir()
+    for key, value, name in (("model.lora", {"use_lora": True}, "LoRA"),
+                             ("dataset.sp_size", 2, "multi-device"),
+                             ("train.offload_opt_state", True, "offload"),
+                             ("extra_model.vae", {"params_path": str(vae)}, "VAE")):
+        cfg = _smoke_config(tmp_path)
+        section, leaf = key.split(".")
+        cfg[section][leaf] = value
+        with pytest.raises(NotImplementedError, match=name):
+            cli.build_trainer(cfg, "cpu")
+    cfg = _smoke_config(tmp_path)  # asks for EMA; save_interval 4
     trainer = cli.build_trainer(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="save_interval"):
-        cli.run(trainer, int(cfg.train.save_interval))
+    cli.run(trainer, int(cfg.train.save_interval))
+    assert (tmp_path / "smoke_prfl" / "checkpoint-4" / "config.json").exists()
+    assert (tmp_path / "smoke_prfl-ema" / "checkpoint-4" / "config.json").exists()
 
 
 def test_port_imports_without_jax_or_yaml():
