@@ -109,7 +109,11 @@ Phases, each of which raises on failure:
    on a seeded cache with f1_black_path and imgclip_path): metrics finite,
    the policy's blocks, img_emb and k_img moved, launches as derived
    (expected_train_launches(..., i2v=True)).
-12. PAVRM through scripts/train_pavrm_torch.py, each run on a seeded
+12. PAVRM. First K1 and K3 (o, lse) and K4 (dq, dk, dv) at 40 heads x
+   32,760 queries over the 32,760 self-attention keys and the 512 text
+   keys, and K6-K9 at [1, 32,760, 5120], against their plain versions and
+   timed beside their bounds (the tile counts of 12a's persistent grids).
+   Then through scripts/train_pavrm_torch.py, each run on a seeded
    labelled cache with the counters set to 0 just before: (a) the
    published train_pavrm_t2v_480.yaml at t2v-14B width, its 8 blocks, 81
    frames at 832*480 (32,760 tokens), batch 1, remat "attn", 3 ce steps
@@ -124,8 +128,10 @@ Phases, each of which raises on failure:
    logits equal the trained tower's bit for bit), the PRFL trainer (policy
    cut to 8 blocks) loads it and trains 2 outer steps with EMA and the
    optimizer state saved, then one more; a trainer resumed from
-   checkpoint-2 repeats that step bit for bit (on the split backward,
-   whose dq is deterministic).
+   checkpoint-2 repeats that step, its weights and its EMA bit for bit (on
+   the split backward, whose dq is deterministic; every sample draws a
+   caption and a text drop, and the resumed step lies in the shuffle's
+   second epoch).
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
@@ -1187,6 +1193,65 @@ GRID_14B_1 = (1, 30, 52)    # one latent frame at 832*480 (1,560 tokens)
 GRID_BENCH = (8, 15, 26)    # bench.py's token grid (3,120)
 
 
+def _norm_kernels_at(results, tag, n, grid, g):
+    """K6-K9 against their plain versions at [1, prod(grid), 128 n] with n
+    heads, timed beside their byte bounds; recorded under ``tag``."""
+    import torch
+
+    from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
+    from hyvideo_prfl_torch.ops import qknorm_rope as qr
+    from hyvideo_prfl_torch.ops import stream
+
+    dev = torch.device("cuda")
+    # Bounds, as at width 1536 (phases 2 and 5): K8 one bf16 ulp of max|out|;
+    # K9 1e-5 of each output's max; K6 and K7's dx two bf16 ulps, K7's dw
+    # one. Byte bounds: each input read once, each output written once.
+    l, dim = math.prod(grid), n * 128
+    x32 = torch.randn(1, l, dim, device=dev, generator=g)
+    s_ = 1.0 + 0.1 * torch.randn(1, dim, device=dev, generator=g)
+    t_ = 0.1 * torch.randn(1, dim, device=dev, generator=g)
+    g32 = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
+    xb = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
+    w = 1.0 + 0.1 * torch.randn(dim, device=dev, generator=g)
+    c_tab, s_tab = (torch.from_numpy(a).to(dev) for a in rope_tables_rolled_np(grid, 128))
+    gh = torch.randn(1, n, l, 128, device=dev, generator=g).bfloat16()
+    tables = 2 * l * 128 * 4
+    cases = {
+        "K8": (lambda: stream._kernel(x32, s_, t_, 1e-6, torch.bfloat16),
+               lambda: stream.ln_scale_shift_plain(x32, s_, t_, 1e-6, torch.bfloat16),
+               (("out", 2.0 ** -7),), l * dim * (4 + 2)),
+        "K9": (lambda: stream.bwd_kernel(x32, s_, g32, 1e-6),
+               lambda: stream.ln_scale_shift_bwd_plain(x32, s_, g32, 1e-6),
+               (("dx", 1e-5), ("ds", 1e-5), ("dt", 1e-5)), l * dim * (4 + 2 + 4)),
+        "K6": (lambda: qr._kernel(xb, w, c_tab, s_tab, n, 1e-6, True),
+               lambda: qr.rmsnorm_rope_plain(xb, w, c_tab, s_tab, n, 1e-6, True),
+               (("out", 2.0 ** -6),), l * dim * (2 + 2) + tables),
+        "K7": (lambda: qr.bwd_kernel(xb, w, c_tab, s_tab, gh, n, 1e-6, True),
+               lambda: qr.rmsnorm_rope_bwd_plain(xb, w, c_tab, s_tab, gh, n, 1e-6, True),
+               (("dx", 2.0 ** -6), ("dw", 2.0 ** -7)), l * dim * 3 * 2 + tables),
+    }
+    for name, (kern, plain, outs, nbytes) in cases.items():
+        got, ref = kern(), plain()
+        got, ref = ((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))
+        worst = 0.0
+        for (out_name, rel_bound), a, b in zip(outs, got, ref):
+            err, rmax, fin = max_err(a, b)
+            print(f"  {name} [1, {l:,}, {dim}] {out_name}: max_abs_err {err:.3e} "
+                  f"(bound {rel_bound * rmax:.3e}, max|ref| {rmax:.3e})")
+            expect(fin and err <= rel_bound * rmax,
+                   f"{name} at [1, {l}, {dim}]: {out_name} error {err}")
+            worst = max(worst, err)
+        del got, ref
+        ms, pms = timed_pair(kern, plain)
+        bd = bound(nbytes)["bound_ms"]
+        print(f"  {name} [1, {l:,}, {dim}]: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bd:.4f} ms (bytes), {bd / ms:.3f} of the bound")
+        results[name].update({f"{tag}_ms": ms, f"{tag}_plain_ms": pms,
+                              f"{tag}_bound_ms": bd, f"{tag}_max_abs_err": worst})
+    del x32, g32, xb, gh, cases
+    torch.cuda.empty_cache()
+
+
 def phase_wide(results):
     """Phase 10: the 14B width. K6-K9 against their plain versions at
     [1, 75,600, 5120] with 40 heads (t2v-14B at 720*1280, 81 frames) and
@@ -1199,62 +1264,13 @@ def phase_wide(results):
     import torch
 
     from hyvideo_prfl_torch.models import wan_dit
-    from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
     from hyvideo_prfl_torch.ops import _build
     from hyvideo_prfl_torch.ops import flash_attention as fa
-    from hyvideo_prfl_torch.ops import qknorm_rope as qr
-    from hyvideo_prfl_torch.ops import stream
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9876)
-    # Bounds, as at width 1536 (phases 2 and 5): K8 one bf16 ulp of max|out|;
-    # K9 1e-5 of each output's max; K6 and K7's dx two bf16 ulps, K7's dw
-    # one. Byte bounds: each input read once, each output written once.
     for tag, n, grid in (("d5120", 40, GRID_14B_81), ("d1280", 10, GRID_BENCH)):
-        l, dim = math.prod(grid), n * 128
-        x32 = torch.randn(1, l, dim, device=dev, generator=g)
-        s_ = 1.0 + 0.1 * torch.randn(1, dim, device=dev, generator=g)
-        t_ = 0.1 * torch.randn(1, dim, device=dev, generator=g)
-        g32 = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
-        xb = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
-        w = 1.0 + 0.1 * torch.randn(dim, device=dev, generator=g)
-        c_tab, s_tab = (torch.from_numpy(a).to(dev) for a in rope_tables_rolled_np(grid, 128))
-        gh = torch.randn(1, n, l, 128, device=dev, generator=g).bfloat16()
-        tables = 2 * l * 128 * 4
-        cases = {
-            "K8": (lambda: stream._kernel(x32, s_, t_, 1e-6, torch.bfloat16),
-                   lambda: stream.ln_scale_shift_plain(x32, s_, t_, 1e-6, torch.bfloat16),
-                   (("out", 2.0 ** -7),), l * dim * (4 + 2)),
-            "K9": (lambda: stream.bwd_kernel(x32, s_, g32, 1e-6),
-                   lambda: stream.ln_scale_shift_bwd_plain(x32, s_, g32, 1e-6),
-                   (("dx", 1e-5), ("ds", 1e-5), ("dt", 1e-5)), l * dim * (4 + 2 + 4)),
-            "K6": (lambda: qr._kernel(xb, w, c_tab, s_tab, n, 1e-6, True),
-                   lambda: qr.rmsnorm_rope_plain(xb, w, c_tab, s_tab, n, 1e-6, True),
-                   (("out", 2.0 ** -6),), l * dim * (2 + 2) + tables),
-            "K7": (lambda: qr.bwd_kernel(xb, w, c_tab, s_tab, gh, n, 1e-6, True),
-                   lambda: qr.rmsnorm_rope_bwd_plain(xb, w, c_tab, s_tab, gh, n, 1e-6, True),
-                   (("dx", 2.0 ** -6), ("dw", 2.0 ** -7)), l * dim * 3 * 2 + tables),
-        }
-        for name, (kern, plain, outs, nbytes) in cases.items():
-            got, ref = kern(), plain()
-            got, ref = ((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))
-            worst = 0.0
-            for (out_name, rel_bound), a, b in zip(outs, got, ref):
-                err, rmax, fin = max_err(a, b)
-                print(f"  {name} [1, {l:,}, {dim}] {out_name}: max_abs_err {err:.3e} "
-                      f"(bound {rel_bound * rmax:.3e}, max|ref| {rmax:.3e})")
-                expect(fin and err <= rel_bound * rmax,
-                       f"{name} at [1, {l}, {dim}]: {out_name} error {err}")
-                worst = max(worst, err)
-            del got, ref
-            ms, pms = timed_pair(kern, plain)
-            bd = bound(nbytes)["bound_ms"]
-            print(f"  {name} [1, {l:,}, {dim}]: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bd:.4f} ms (bytes), {bd / ms:.3f} of the bound")
-            results[name].update({f"{tag}_ms": ms, f"{tag}_plain_ms": pms,
-                                  f"{tag}_bound_ms": bd, f"{tag}_max_abs_err": worst})
-        del x32, g32, xb, gh, cases
-        torch.cuda.empty_cache()
+        _norm_kernels_at(results, tag, n, grid, g)
 
     # K1 and K2 at the 14B self-attention's sequence-parallel shards: 40
     # heads x 18,900 tokens, and 10 or 5 heads x 75,600 (unit-variance q/k
@@ -2099,9 +2115,9 @@ PAVRM_CONFIG_BT_I2V = {
 
 def write_reward_cache(root, frames, n=2, i2v=False, seed=31):
     """A labelled latent cache in the reference's layout at 832*480: n clips
-    of latents [1, 16, F, 60, 104], one caption each (text_en_path [1, 20,
-    4096]: no caption is drawn, so a resumed run reads what an
-    uninterrupted one reads), motion_quality good and poor in turn; with
+    of latents [1, 16, F, 60, 104], a short and a long caption each
+    ([1, 20, 4096] and [1, 30, 4096]: every sample draws one), motion_quality
+    good and poor in turn; with
     ``i2v`` the first-frame condition latent and CLIP features [1, 257,
     1280]; the null dir's uncond embedding. Returns (meta list, null dir)."""
     rng = np.random.default_rng(seed)
@@ -2114,11 +2130,13 @@ def write_reward_cache(root, frames, n=2, i2v=False, seed=31):
     lines = []
     for i in range(n):
         stem = os.path.join(root, f"clip{frames}_{seed}_{i}")
-        meta = {"vae_latent_path": stem + ".npy", "text_en_path": stem + "_text.npy",
-                "prompt": f"clip {i}", "motion_quality": ["good", "poor"][i % 2]}
+        meta = {"vae_latent_path": stem + ".npy", "textshort_path": stem + "_short.npy",
+                "short_caption": f"clip {i}", "textlong_path": stem + "_long.npy",
+                "long_caption": f"the clip {i}", "motion_quality": ["good", "poor"][i % 2]}
         np.save(meta["vae_latent_path"],
                 rng.standard_normal((1, 16, lat_f, 60, 104), np.float32))
-        np.save(meta["text_en_path"], rng.standard_normal((1, 20, 4096), np.float32))
+        np.save(meta["textshort_path"], rng.standard_normal((1, 20, 4096), np.float32))
+        np.save(meta["textlong_path"], rng.standard_normal((1, 30, 4096), np.float32))
         if i2v:
             meta.update(f1_black_path=stem + "_cond.npy", imgclip_path=stem + "_clip.npy")
             np.save(meta["f1_black_path"],
@@ -2314,7 +2332,7 @@ def _handoff(root, dev):
     the trained tower's; the PRFL trainer (policy cut to 8 blocks) loads
     it and trains 2 outer steps with EMA and the optimizer state saved,
     then one more; a trainer resumed from checkpoint-2 takes that step
-    again, to the bit. Returns the launches."""
+    again, to the bit, EMA included. Returns the launches."""
     import torch
 
     from hyvideo_prfl_torch.ops import _build
@@ -2377,11 +2395,12 @@ def _handoff(root, dev):
 
     # PRFL from the export. The merged backward's dq adds in run order, so
     # the step's bits repeat only on the split backward (K5), whose dq is
-    # deterministic; the dataset's draws restart on resume, as in the JAX
-    # package, so the cache has one caption per clip and no text drop.
+    # deterministic. Every sample draws its caption and its text drop, the
+    # order is shuffled per epoch, and the resumed step (the third of two
+    # clips) lies in the second epoch: the resumed loader replays the first.
     prfl = load_script("train_prfl_torch")
     raw = {**TRAIN_CONFIG, "train_id": "prfl_handoff",
-           "dataset": {**TRAIN_CONFIG["dataset"], "uncond_prob": [0.0, 0.0]},
+           "dataset": {**TRAIN_CONFIG["dataset"], "shuffle": True},
            "model": {**TRAIN_CONFIG["model"], "override": {"num_layers": 8},
                      "ema": {"use_ema": True, "ema_decay": 0.99}}}
     kw = dict(train__save_interval=2, train__save_optimizer_state=True, **lrm)
@@ -2420,9 +2439,11 @@ def _handoff(root, dev):
     same = ({k: v for k, v in m.items() if k not in timing}
             == {k: v for k, v in hist[2].items() if k not in timing})
     bits = all(torch.equal(a, b) for a, b in zip(resumed.state.params, whole.state.params))
+    ema = all(torch.equal(a, b) for a, b in zip(resumed.ema, whole.ema))
     print(f"  12d: the resumed step against the uninterrupted step 3: metrics "
-          f"{'equal' if same else 'DIFFERENT'}, weights {'equal' if bits else 'DIFFERENT'}")
-    expect(same and bits and resumed.state.step == whole.state.step,
+          f"{'equal' if same else 'DIFFERENT'}, weights {'equal' if bits else 'DIFFERENT'}, "
+          f"EMA {'equal' if ema else 'DIFFERENT'}")
+    expect(same and bits and ema and resumed.state.step == whole.state.step,
            "12d: the resumed step is not the uninterrupted one")
     want = _add({}, per_step, 3)
     print(f"  12d: PRFL launches over 3 outer steps {got}, derived {want}; resumed {got_r}")
@@ -2434,7 +2455,93 @@ def _handoff(root, dev):
     return total
 
 
-def phase_pavrm(root, dev="cuda"):
+def _pavrm_kernels(results):
+    """12k: the kernels of the PAVRM step at the shapes 12a gives them
+    (t2v-14B, batch 1, 32,760 tokens, 40 heads) against their plain
+    versions, each timed beside its bound: K1 at the self-attention and K3
+    at the text cross-attention (o and lse), K4 at both (dq, dk and dv; the
+    cross-attention splits its q sweep), and K6-K9 at [1, 32,760, 5120].
+    Phases 2 and 5 hold these kernels at 12 heads and phase 10 K1 at 40
+    heads x 18,900; the persistent grids take other tile counts here."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1357)
+    n, d, lq = 40, 128, math.prod(GRID_81)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+
+    # Bounds, as phases 2 and 5: o within two bf16 ulps of max|o|, lse 1e-5
+    # max|lse|; dq, dk and dv each within two bf16 ulps of its largest entry
+    q = randn(1, n, lq, d)
+    for name, lk, label in (("K1", lq, "self-attention"),
+                            ("K3", TEXT_LEN, "text cross-attention")):
+        single = fa.uses_single_block(lk)
+        expect(single == (name == "K3"), f"{label}: lk {lk} takes the wrong forward")
+        expect(fa.uses_merged_bwd(lq, lk), f"{label}: the backward takes the split route")
+        k, v = randn(1, n, lk, d), randn(1, lk, n, d)
+        vt = v.movedim(1, 2).contiguous()
+        o, lse = fa.flash_fwd_kernel(q, k, v, single)
+        po, plse = fa.flash_attention_plain(q, k, v)
+        err, rmax, fin = max_err(o, po)
+        el, ml, fl = max_err(lse, plse)
+        del po, plse
+        expect(fin and err <= 2.0 ** -6 * rmax, f"{name} at 40 heads x {lq} x {lk}: error {err}")
+        expect(fl and el <= 1e-5 * ml, f"{name} at 40 heads x {lq} x {lk}: lse error {el}")
+        calls = 1 if name == "K1" else 10
+        t = timed_turns({"plain": lambda: fa.flash_attention_plain(q, k, v),
+                         "kernel": lambda: fa.flash_fwd_kernel(q, k, v, single),
+                         "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=calls)
+        flop = 4 * n * lq * lk * d
+        bnd = bound(2 * n * (lq + lk) * d * 2, bf16=flop)
+        print(f"  12k {name} [1, 40, {lq:,} x {lk:,}, 128] ({label}): max_abs_err {err:.3e} "
+              f"(bound {2.0 ** -6 * rmax:.3e}), lse {el:.3e} (bound {1e-5 * ml:.3e}); kernel "
+              f"{t['kernel']:.4f} ms ({flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
+              f"{bnd['bound_ms'] / t['kernel']:.3f} of the {bnd['bound_ms']:.4f} ms bound, "
+              f"{bnd['bound_by']}), plain {t['plain']:.4f} ms, SDPA flash "
+              f"{t['library']:.4f} ms; {CARD}")
+        tag = "pavrm_self" if name == "K1" else "pavrm_text"
+        results[name].update({f"{tag}_ms": t["kernel"], f"{tag}_plain_ms": t["plain"],
+                              f"{tag}_library_ms": t["library"],
+                              f"{tag}_bound_ms": bnd["bound_ms"], f"{tag}_max_abs_err": err})
+
+        # K4 on the same q, k, v, o and lse with a seeded cotangent
+        do = randn(*o.shape)
+        qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
+        vs = vt.clone().requires_grad_()
+        out = sdpa_flash(qs, ks, vs)
+        dot = do.movedim(1, 2).contiguous()
+        t = timed_turns({"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                         "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, True),
+                         "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                                retain_graph=True)},
+                        reps=3, calls=calls)
+        del qs, ks, vs, out, dot
+        got = fa.bwd_kernel(q, k, v, o, lse, do, True)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        checks = [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)]
+        flop = 10 * n * lq * lk * d
+        bnd = bound(n * d * 2 * (3 * lq + 4 * lk) + 8 * n * lq, bf16=flop)
+        splits = fa.q_splits(n * -(-lk // 128), -(-lq // 64), sms)
+        part = {}
+        report_many("K4", f"12k {label}, 40 heads x {lq:,} x {lk:,}", checks, part,
+                    (t["kernel"], t["plain"]), library_ms=t["library"], **bnd)
+        print(f"  12k K4 {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
+              f"{bnd['bound_ms'] / t['kernel']:.3f} of the bound, dk/dv q sweep split over "
+              f"{splits} block(s) per key tile; {CARD}")
+        results["K4"].update({f"{tag}_{key}": val for key, val in part["K4"].items()})
+        del k, v, vt, o, lse, do, got, ref, checks
+        torch.cuda.empty_cache()
+    del q
+    torch.cuda.empty_cache()
+    _norm_kernels_at(results, "pavrm_d5120", n, GRID_81, g)
+
+
+def phase_pavrm(results, root, dev="cuda"):
     """Phase 12: the PAVRM trainer at t2v-14B width (ce, the published
     config) and i2v-14B width (bt), card against CPU, and the LRM handoff
     to the PRFL trainer with checkpoint export, EMA and resume. Returns
@@ -2444,6 +2551,7 @@ def phase_pavrm(root, dev="cuda"):
     dev = torch.device(dev)
     cli = load_script("train_pavrm_torch")
     total = {}
+    _pavrm_kernels(results)
 
     # 12a: configs/train_pavrm_t2v_480.yaml at t2v-14B width: the first 8
     # blocks, 81 frames at 832*480 (32,760 tokens), batch 1, remat "attn",
@@ -2655,7 +2763,7 @@ def main() -> int:
     print("phase 12: PAVRM and the LRM handoff (t2v-14B ce, i2v-14B bt, card against CPU, "
           "the export to PRFL, checkpoints, EMA and resume)")
     with tempfile.TemporaryDirectory() as root:
-        pavrm_launches = phase_pavrm(root)
+        pavrm_launches = phase_pavrm(results, root)
     print(f"  PAVRM launches {pavrm_launches}")
 
     launches = {}

@@ -47,8 +47,9 @@ def _load_null_npy(path):
 
 
 def _to_thwc(lat_1cthw: np.ndarray) -> np.ndarray:
-    """[1, C, T, H, W] (reference layout) -> [T, H, W, C] fp32."""
-    return np.transpose(lat_1cthw[0], (1, 2, 3, 0)).astype(np.float32)
+    """[1, C, T, H, W] (reference layout) -> [T, H, W, C] fp32 (a view of
+    fp32 input)."""
+    return np.transpose(lat_1cthw[0], (1, 2, 3, 0)).astype(np.float32, copy=False)
 
 
 def _pad_text(t: np.ndarray, text_len: int) -> np.ndarray:
@@ -113,6 +114,7 @@ class LatentCacheDataset:
         self.is_i2v = is_i2v
         self.is_flf2v = is_flf2v
         self.rng = random.Random(seed)
+        self._mmap = None  # "r" while replay() maps the arrays rather than reading them
         self.meta_paths = _read_list(meta_file_list)
         self.meta_paths_lose = _read_list(meta_file_lose_list)
 
@@ -129,6 +131,20 @@ class LatentCacheDataset:
                 idx = self.rng.randrange(len(self.meta_paths))
                 last = e
         raise RuntimeError(f"Too many bad data: {last}")
+
+    def replay(self, idx: int) -> Dict[str, np.ndarray]:
+        """self[idx] with the latents, conditions and CLIP features memory-
+        mapped rather than read: the same draws and shapes, at the cost of
+        the meta and the text embedding. The loader replays with it the
+        batches a resumed run skips."""
+        self._mmap = "r"
+        try:
+            return self[idx]
+        finally:
+            self._mmap = None
+
+    def _npy(self, path: str) -> np.ndarray:
+        return np.load(path, mmap_mode=self._mmap)
 
     def _null_text(self, name: str) -> np.ndarray:
         return _load_null_npy(os.path.join(self.null_dir, f"wanx/{name}.npy"))[0]
@@ -152,13 +168,13 @@ class LatentCacheDataset:
         return lat, text, prompt, cond, clip
 
     def _load(self, lat, text, prompt, cond, clip) -> Dict:
-        out = {"latents": _to_thwc(np.load(lat)), "text": _pad_text(text, self.text_len),
+        out = {"latents": _to_thwc(self._npy(lat)), "text": _pad_text(text, self.text_len),
                "prompt": prompt}
         if cond is not None:
-            out["cond"] = _to_thwc(np.load(cond))
+            out["cond"] = _to_thwc(self._npy(cond))
         if clip is not None:
-            e = np.load(clip)  # [1, 257, 1280] or [b, s, d]
-            out["clip_fea"] = e.reshape(-1, e.shape[-1]).astype(np.float32)
+            e = self._npy(clip)  # [1, 257, 1280] or [b, s, d]
+            out["clip_fea"] = e.reshape(-1, e.shape[-1]).astype(np.float32, copy=False)
         return out
 
     def get_refl(self, idx: int) -> Dict[str, np.ndarray]:
@@ -167,7 +183,7 @@ class LatentCacheDataset:
         cond and clip_fea, where the meta names them."""
         lat, text_p, prompt, cond, clip = self._paths(idx)
         drop = self.rng.random() < self.uncond_prompt_prob
-        out = self._load(lat, self._null_text("null") if drop else np.load(text_p)[0],
+        out = self._load(lat, self._null_text("null") if drop else self._npy(text_p)[0],
                          prompt, cond, clip)
         out["uncond_text"] = _pad_text(
             self._null_text("uncond_flf2v" if self.is_flf2v else "uncond"), self.text_len)
@@ -176,7 +192,7 @@ class LatentCacheDataset:
     def get_refl_no_drop(self, idx: int) -> Dict[str, np.ndarray]:
         """A sample without the text drop and without uncond_text."""
         lat, text_p, prompt, cond, clip = self._paths(idx)
-        return self._load(lat, np.load(text_p)[0], prompt, cond, clip)
+        return self._load(lat, self._npy(text_p)[0], prompt, cond, clip)
 
     def get_lrm_ce(self, idx: int) -> Dict[str, np.ndarray]:
         """A pointwise reward sample: get_refl_no_drop and ``labels``, the
@@ -198,8 +214,8 @@ class LatentCacheDataset:
         i2v, its condition latent."""
         win = self.get_refl_no_drop(idx)
         d = _meta(self.meta_paths_lose[self.rng.randrange(len(self.meta_paths_lose))])
-        win["latents_lose"] = _to_thwc(np.load(_latent_path(d)))
+        win["latents_lose"] = _to_thwc(self._npy(_latent_path(d)))
         cond = _cond_path(d) if self.is_i2v else None
         if cond is not None:
-            win["cond_lose"] = _to_thwc(np.load(cond))
+            win["cond_lose"] = _to_thwc(self._npy(cond))
         return win

@@ -184,10 +184,10 @@ def make_optimizer(learning_rate: float = 5e-6, adam_beta1: float = 0.9,
         head_keys=tuple(head_keys))
 
 
-def optimizer_from_config(config, head_lr: bool = False) -> Optimizer:
+def optimizer_from_config(config) -> Optimizer:
     """make_optimizer from a training config's optimizer.* and
-    train.gradient_accumulation_steps; with ``head_lr`` (the PAVRM trainer)
-    the heads take optimizer.learning_rate_mlp where it is set."""
+    train.gradient_accumulation_steps; the reward heads take
+    optimizer.learning_rate_mlp where it is set (a PAVRM config's)."""
     opt = config.optimizer
     return make_optimizer(
         learning_rate=opt.learning_rate, adam_beta1=opt.adam_beta1, adam_beta2=opt.adam_beta2,
@@ -196,7 +196,7 @@ def optimizer_from_config(config, head_lr: bool = False) -> Optimizer:
         lr_num_cycles=int(opt.get("lr_num_cycles", 1)), lr_power=float(opt.get("lr_power", 1.0)),
         max_train_steps=opt.max_train_steps, max_grad_norm=float(opt.get("max_grad_norm", 1.0)),
         gradient_accumulation_steps=config.train.gradient_accumulation_steps,
-        learning_rate_mlp=opt.get("learning_rate_mlp") if head_lr else None)
+        learning_rate_mlp=opt.get("learning_rate_mlp"))
 
 
 @dataclasses.dataclass

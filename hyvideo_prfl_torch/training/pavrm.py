@@ -81,18 +81,16 @@ def pavrm_config_from(config, loss: Optional[str] = None) -> PavrmConfig:
         task=config.task)
 
 
-def labelled_dataset(config, meta_lists, seed: int, dataset_type: str = "lrm_ce",
-                     lose_lists=()) -> LatentCacheDataset:
+def labelled_dataset(config, pc: PavrmConfig, meta_lists, seed: int,
+                     dataset_type: str = "lrm_ce", lose_lists=()) -> LatentCacheDataset:
     """The reward model's dataset of a training config: labels from
     lrm.task, lose pairs (lrm_bt_online) from ``lose_lists``."""
-    task = config.task
     return LatentCacheDataset(
         meta_file_list=list(meta_lists), meta_file_lose_list=list(lose_lists),
         uncond_prob=list(config.dataset.uncond_prob),
         text_len=config.extra_model.get_path("text_encoder.t5_text_len", 512),
-        null_dir=config.dataset.null_dir, is_i2v="i2v" in task or "flf2v" in task,
-        is_flf2v="flf2v" in task, seed=seed, dataset_type=dataset_type,
-        label_key=config.lrm.task)
+        null_dir=config.dataset.null_dir, is_i2v=pc.is_i2v, is_flf2v=pc.is_flf2v,
+        seed=seed, dataset_type=dataset_type, label_key=config.lrm.task)
 
 
 def trimmed_config(cfg: wan_dit.WanConfig, num_blocks: int) -> wan_dit.WanConfig:
@@ -301,7 +299,9 @@ def batched_eval(eval_step, dataset, timesteps, seed: int, device, batch_size: i
 def evaluate(eval_step, dataset, timesteps, seed: int, device, batch_size: int = 8,
              max_samples: Optional[int] = None) -> Dict[str, Dict[str, float]]:
     """batched_eval's probabilities -> {"t=<t>": classification metrics and
-    the mean reward} per timestep."""
+    the mean reward} per timestep. The dataset's draws (captions) restart
+    from ``seed`` too, so every evaluation scores the same inputs."""
+    dataset.rng.seed(seed)
     per_t = batched_eval(eval_step, dataset, list(timesteps), seed, device,
                          batch_size=batch_size, max_samples=max_samples)
     out = {}

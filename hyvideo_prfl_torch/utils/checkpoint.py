@@ -520,9 +520,9 @@ def save_opt_state(path: str, state) -> None:
 
 
 @torch.no_grad()
-def load_opt_state(path: str, state) -> int:
-    """<path>/opt_state.pt -> the TrainState's optimizer state, in place;
-    returns the saved step."""
+def load_opt_state(path: str, state) -> None:
+    """<path>/opt_state.pt -> the TrainState's optimizer state and step, in
+    place."""
     saved = torch.load(os.path.join(path, OPT_STATE_FILE), map_location="cpu",
                        weights_only=True)
     if saved["names"] != list(state.names) or set(saved["opt_state"]) != set(state.opt_state):
@@ -534,4 +534,4 @@ def load_opt_state(path: str, state) -> int:
                 live[i].copy_(v)
             else:
                 live[i] = v
-    return int(saved["step"])
+    state.step = int(saved["step"])

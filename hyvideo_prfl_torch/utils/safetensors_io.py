@@ -7,9 +7,9 @@ raw little-endian bytes; offsets count from the end of the header and
 cover the byte buffer without holes. The dtypes are those the Wan and
 reward checkpoints use: BF16, F16, F32, F64, I8, I32 and I64.
 
-A checkpoint directory holds one ``<prefix>.safetensors`` or, past
-``max_shard_bytes``, the shards ``<prefix>-0000i-of-0000n.safetensors``
-and ``<prefix>.safetensors.index.json`` (``{"metadata": {"total_size"},
+A checkpoint directory holds one ``<PREFIX>.safetensors`` or, past
+``max_shard_bytes``, the shards ``<PREFIX>-0000i-of-0000n.safetensors``
+and ``<PREFIX>.safetensors.index.json`` (``{"metadata": {"total_size"},
 "weight_map": {name: shard}}``), as the JAX package's
 ``save_safetensors_sharded`` writes them (the reference's 5 GB shards).
 """
@@ -103,7 +103,7 @@ def load_dir(path: str) -> Dict[str, torch.Tensor]:
 
 
 def save_dir(state: Dict[str, torch.Tensor], path: str,
-             max_shard_bytes: int = MAX_SHARD_BYTES, prefix: str = PREFIX) -> None:
+             max_shard_bytes: int = MAX_SHARD_BYTES) -> None:
     """{name: tensor} -> a checkpoint directory, sharded at max_shard_bytes
     in insertion order as the JAX package shards it."""
     os.makedirs(path, exist_ok=True)
@@ -119,16 +119,16 @@ def save_dir(state: Dict[str, torch.Tensor], path: str,
     if cur:
         shards.append(cur)
     if len(shards) == 1:
-        write_file(shards[0], os.path.join(path, f"{prefix}.safetensors"))
+        write_file(shards[0], os.path.join(path, f"{PREFIX}.safetensors"))
         return
     index = {"metadata": {"total_size": sum(v.numel() * v.element_size()
                                             for v in state.values())},
              "weight_map": {}}
     n = len(shards)
     for i, shard in enumerate(shards):
-        fname = f"{prefix}-{i + 1:05d}-of-{n:05d}.safetensors"
+        fname = f"{PREFIX}-{i + 1:05d}-of-{n:05d}.safetensors"
         write_file(shard, os.path.join(path, fname))
         for k in shard:
             index["weight_map"][k] = fname
-    with open(os.path.join(path, f"{prefix}.safetensors.index.json"), "w") as f:
+    with open(os.path.join(path, f"{PREFIX}.safetensors.index.json"), "w") as f:
         json.dump(index, f, indent=2)

@@ -55,7 +55,7 @@ def main(config, max_samples=None, device="cuda") -> Dict[str, Dict]:
     model = load_lrm(config, device)
     meta_lists = (list(config.dataset.get("val_meta_file_list") or [])
                   or list(config.dataset.meta_file_list))
-    dataset = labelled_dataset(config, meta_lists, int(config.eval.seed))
+    dataset = labelled_dataset(config, model.pc, meta_lists, int(config.eval.seed))
     timesteps = list(config.eval.timestep)
     results = evaluate(make_eval_step(model), dataset, timesteps, int(config.eval.seed), device,
                        batch_size=int(config.eval.get("batch_size") or 8),

@@ -12,6 +12,8 @@ set), the embeddings stay frozen. lrm.loss "ce" reads a labelled cache
 random entry of dataset.meta_file_lose_list. Each step logs loss,
 grad_norm, acc and step_time (wall seconds after a device synchronize) as
 one JSON line, and draws from a generator seeded by (train.seed, step).
+A resumed run replays the data stream up to its step, so it reads and
+draws what an uninterrupted run does (hyvideo_prfl_torch/data/loader.py).
 
 ``build_trainer(config, device)`` and ``run(trainer, steps)`` are separate,
 as in scripts/train_prfl_torch.py. Base weights come from model.base_path
@@ -29,9 +31,7 @@ NotImplementedError.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import json
 import logging
 import os
 import sys
@@ -42,33 +42,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from hyvideo_prfl_torch.configs import dit_cfg_from, load_config  # noqa: E402
-from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler  # noqa: E402
+from hyvideo_prfl_torch.configs import dit_cfg_from  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
-from hyvideo_prfl_torch.training import common  # noqa: E402
+from hyvideo_prfl_torch.training import cli, common  # noqa: E402
 from hyvideo_prfl_torch.training.pavrm import (  # noqa: E402
     PavrmModel, evaluate, labelled_dataset, make_eval_step, make_train_step,
     pavrm_config_from,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
-
-
-def _exists(path) -> bool:
-    return bool(path) and os.path.exists(path)
-
-
-def check_scope(config) -> None:
-    """Raise NotImplementedError for a config option the port lacks."""
-    asks = {
-        "multi-device training (dataset.sp_size > 1)":
-            int(config.get_path("dataset.sp_size", 1) or 1) > 1,
-        "optimizer-state offload (model.fsdp.use_cpu_offload, train.offload_opt_state)":
-            config.get_path("model.fsdp.use_cpu_offload")
-            or config.get_path("train.offload_opt_state"),
-    }
-    missing = [name for name, on in asks.items() if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {'; '.join(missing)}")
 
 
 @dataclasses.dataclass
@@ -89,48 +70,39 @@ class Trainer:
 def build_trainer(config, device="cuda") -> Trainer:
     """Model (fp32 masters of the kept blocks and the heads, frozen
     embeddings), optimizer, data, steps."""
-    check_scope(config)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device is available (pass --device cpu for a CPU run)")
-    if config.train.get("debug_nans"):
-        torch.autograd.set_detect_anomaly(True)
+    device = cli.start(config, device)
     dit_cfg = dit_cfg_from(config)
     pc = pavrm_config_from(config)
     seed = int(config.train.seed)
     model = PavrmModel(dit_cfg, pc, device=device, param_dtype=torch.float32)
     model.init_params(torch.Generator(device=device).manual_seed(seed))
     base = config.model.base_path
-    if _exists(base):
+    if cli.exists(base):
         logging.info("loading the base DiT from %s", base)
         model.dit.load_state_dict(ck.load_tower_dir(base, dit_cfg, model.dit_cfg.num_layers))
     else:
         logging.info("no base checkpoint; seeded JAX-initialiser weights")
     model.freeze_embeddings()
 
-    tx = common.optimizer_from_config(config, head_lr=True)
+    tx = common.optimizer_from_config(config)
     state = common.init_train_state(model, tx)
     resume = config.model.get("resume_transformer_path")
     start_step = 0
-    if _exists(resume):
+    if cli.exists(resume):
         resume = os.path.normpath(resume)
         logging.info("resuming the PAVRM trainable state from %s", resume)
         ck.load_trainable(resume, state.names, state.params)
         start_step = ck.parse_resume_step(resume)
         if os.path.isdir(resume + "-opt"):
-            ck.load_opt_state(resume + "-opt", state)
-            state.step = start_step
+            ck.load_opt_state(resume + "-opt", state)  # the moments and the step
             logging.info("restored the optimizer state from %s-opt", resume)
 
     ds_type = "lrm_ce" if pc.loss == "ce" else "lrm_bt_online"
-    dataset = labelled_dataset(config, config.dataset.meta_file_list, seed, ds_type,
+    dataset = labelled_dataset(config, pc, config.dataset.meta_file_list, seed, ds_type,
                                config.dataset.get("meta_file_lose_list") or ())
-    sampler = BlockDistributedSampler(len(dataset), shuffle=bool(config.dataset.get("shuffle")),
-                                      seed=seed,
-                                      start_index=start_step * int(config.dataset.batch_size))
-    loader = iter(BatchIterator(dataset, sampler, batch_size=config.dataset.batch_size))
+    loader = cli.make_loader(dataset, config, seed, start_step)
     val_lists = list(config.dataset.get("val_meta_file_list") or [])
-    val_dataset = (labelled_dataset(config, val_lists, int(config.eval.seed))
+    val_dataset = (labelled_dataset(config, pc, val_lists, int(config.eval.seed))
                    if val_lists else None)
     return Trainer(config=config, device=device, model=model, state=state, loader=loader,
                    step_fn=make_train_step(model, tx, fm.train_schedule(
@@ -157,34 +129,24 @@ def export_lrm_artifacts(model: PavrmModel, out_dir: str, step: int) -> None:
                    os.path.join(mlp_dir, f"query_attention_step_{step}.ckpt"))
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     """``steps`` more steps; returns their metrics."""
     config = trainer.config
-    os.makedirs(trainer.out_dir, exist_ok=True)
-    log_dir = config.save.log_dir or os.path.join(trainer.out_dir, "logs")
-    os.makedirs(log_dir, exist_ok=True)
+    log = cli.log_path(config, trainer.out_dir)
     dev = trainer.device
     history = []
     for step in range(trainer.step, trainer.step + steps):
         raw = next(trainer.loader)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
                  if not isinstance(v, list)}
-        _sync(dev)
+        cli.sync(dev)
         t0 = time.perf_counter()
         trainer.state, m = trainer.step_fn(trainer.state, batch,
                                            common.step_generator(dev, trainer.seed, step))
-        _sync(dev)
+        cli.sync(dev)
         metrics = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                    "acc": float(m["acc"]), "step_time": time.perf_counter() - t0}
-        line = json.dumps(metrics)
-        print(line, flush=True)
-        with open(os.path.join(log_dir, "log.txt"), "a") as f:
-            f.write(line + "\n")
+        cli.log_line(log, metrics)
         if (step + 1) % 100 == 0:
             health = common.validate_params(trainer.model)
             if not health["finite"]:
@@ -201,27 +163,14 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
                 for key, val in evaluate(trainer.eval_fn, trainer.val_dataset,
                                          config.eval.timestep, int(config.eval.seed), dev,
                                          int(config.eval.get("batch_size") or 8)).items():
-                    line = json.dumps({"step": step + 1, "val": key, **val})
-                    print(line, flush=True)
-                    with open(os.path.join(log_dir, "log.txt"), "a") as f:
-                        f.write(line + "\n")
+                    cli.log_line(log, {"step": step + 1, "val": key, **val})
         history.append(metrics)
     trainer.step += steps
     return history
 
 
 def main(argv=None) -> List[Dict[str, float]]:
-    p = argparse.ArgumentParser()
-    p.add_argument("--config_path", required=True)
-    p.add_argument("--max_steps", type=int, default=None)
-    p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    config = load_config(args.config_path)
-    trainer = build_trainer(config, args.device)
-    # train up to step max_steps (a resumed run continues from its step)
-    total = args.max_steps or int(config.optimizer.max_train_steps)
-    return run(trainer, max(0, total - trainer.step))
+    return cli.main(build_trainer, run, argv)
 
 
 if __name__ == "__main__":

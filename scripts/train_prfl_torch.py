@@ -8,8 +8,9 @@ Every outer step runs one PRFL reward ("refl") step and then one
 flow-matching SFT step on the same batch, as the JAX loop does, and logs
 refl_loss, reward, grad_norm, sft_loss, t_refl and t_sft (wall seconds,
 each after a device synchronize) as one JSON line. Each outer step draws
-from a generator seeded by (train.seed, step), so a resumed run draws what
-an uninterrupted one does.
+from a generator seeded by (train.seed, step), and a resumed run replays
+the data stream up to its step, so it reads and draws what an
+uninterrupted one does.
 
 ``build_trainer(config, device)`` and ``run(trainer, steps)`` are separate
 so a caller can give the trainer other weights between the two. Without a
@@ -23,9 +24,9 @@ to the blocks the feature taps need) and the heads from
 reference layout, with ``opt_state/`` (the AdamW moments and the step)
 under ``train.save_optimizer_state`` and the EMA (``model.ema.use_ema``)
 to ``<out>-ema/checkpoint-<n>``; ``model.resume_transformer_path`` resumes
-from such a directory (the policy, the moments and the step where
-``opt_state/`` is there, and the loader's start index). Options the port
-does not have yet raise NotImplementedError: LoRA, multi-device training,
+from such a directory (the policy; the moments and the step where
+``opt_state/`` is there; the EMA where ``<out>-ema/checkpoint-<n>`` is).
+Options the port does not have yet raise NotImplementedError: LoRA, multi-device training,
 optimizer-state offload and the VAE sanity decode. ``train.rollout_quant:
 int8`` runs the no-grad rollout through the int8 serving path (W8A8 block
 matmuls, int8 q k^T self-attention), as the JAX trainer does. An i2v or
@@ -35,9 +36,7 @@ the cache's first-frame latent and CLIP features, as the JAX trainer does.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import json
 import logging
 import os
 import sys
@@ -49,38 +48,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from hyvideo_prfl_torch.configs import dit_cfg_from, load_config  # noqa: E402
+from hyvideo_prfl_torch.configs import dit_cfg_from  # noqa: E402
 from hyvideo_prfl_torch.data.dataset import LatentCacheDataset  # noqa: E402
-from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
-from hyvideo_prfl_torch.training import common, ema as ema_mod  # noqa: E402
+from hyvideo_prfl_torch.training import cli, common, ema as ema_mod  # noqa: E402
 from hyvideo_prfl_torch.training.pavrm import PavrmConfig  # noqa: E402
 from hyvideo_prfl_torch.training.prfl import (  # noqa: E402
     PrflConfig, PrflModel, make_refl_step, make_sft_step,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
-
-
-def _exists(path) -> bool:
-    return bool(path) and os.path.exists(path)
-
-
-def check_scope(config) -> None:
-    """Raise NotImplementedError for a config option the port lacks."""
-    asks = {
-        "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora"),
-        "multi-device training (dataset.sp_size > 1)":
-            int(config.get_path("dataset.sp_size", 1) or 1) > 1,
-        "optimizer-state offload (model.fsdp.use_cpu_offload, train.offload_opt_state)":
-            config.get_path("model.fsdp.use_cpu_offload")
-            or config.get_path("train.offload_opt_state"),
-        "the VAE sanity decode (extra_model.vae.params_path)":
-            _exists(config.get_path("extra_model.vae.params_path")),
-    }
-    missing = [name for name, on in asks.items() if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {'; '.join(missing)}")
 
 
 @dataclasses.dataclass
@@ -100,12 +77,10 @@ class Trainer:
 
 def build_trainer(config, device="cuda") -> Trainer:
     """Model (fp32 policy masters + frozen LRM), optimizer, data, steps."""
-    check_scope(config)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device is available (pass --device cpu for a CPU run)")
-    if config.train.get("debug_nans"):
-        torch.autograd.set_detect_anomaly(True)
+    device = cli.start(config, device, **{
+        "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora"),
+        "the VAE sanity decode (extra_model.vae.params_path)":
+            cli.exists(config.get_path("extra_model.vae.params_path"))})
     dit_cfg = dit_cfg_from(config)
     is_i2v = "i2v" in config.task or "flf2v" in config.task
     is_flf2v = "flf2v" in config.task
@@ -130,17 +105,17 @@ def build_trainer(config, device="cuda") -> Trainer:
     resume = config.model.resume_transformer_path
     base = config.model.init_transformer_path or config.model.base_path
     start_step = 0
-    if _exists(resume):
+    if cli.exists(resume):
         logging.info("resuming the policy from %s", resume)
         model.dit.load_state_dict(ck.load_reference_dir(resume, dit_cfg))
         start_step = ck.parse_resume_step(resume)
-    elif _exists(base):
+    elif cli.exists(base):
         logging.info("loading policy base from %s", base)
         model.dit.load_state_dict(ck.load_reference_dir(base, dit_cfg))
     else:
         logging.info("no base checkpoint; seeded JAX-initialiser weights")
         wan_dit.init_params(model.dit, torch.Generator(device=device).manual_seed(seed))
-    if _exists(config.model.lrm_transformer_path):
+    if cli.exists(config.model.lrm_transformer_path):
         logging.info("loading the LRM from %s", config.model.lrm_transformer_path)
         model.lrm.load_reference(config.model.lrm_transformer_path, config.model.lrm_mlp_path,
                                  config.model.lrm_query_attention_path)
@@ -150,25 +125,29 @@ def build_trainer(config, device="cuda") -> Trainer:
 
     tx = common.optimizer_from_config(config)
     state = common.init_train_state(model.dit, tx)
-    if _exists(resume) and os.path.isdir(os.path.join(resume, "opt_state")):
-        # the moments of train.save_optimizer_state; the step counts the
-        # optimizer calls, two per outer step, as the JAX trainer resumes it
+    if cli.exists(resume) and os.path.isdir(os.path.join(resume, "opt_state")):
+        # the moments of train.save_optimizer_state and the step, which
+        # counts the optimizer calls, two per outer step
         ck.load_opt_state(os.path.join(resume, "opt_state"), state)
-        state.step = 2 * start_step
         logging.info("restored the optimizer state from %s/opt_state", resume)
     ema = None
     if config.model.ema.use_ema:
         ema = ema_mod.ema_init(state.params)
+        # a resumed run from <out>/checkpoint-<n> continues <out>-ema/checkpoint-<n>
+        head, tail = os.path.split(os.path.normpath(resume or "."))
+        ema_dir = os.path.join(head + "-ema", tail)
+        if cli.exists(resume) and os.path.isdir(ema_dir):
+            saved = ck.load_reference_dir(ema_dir, dit_cfg)
+            for name, e in zip(state.names, ema):
+                e.copy_(saved[name])
+            logging.info("restored the EMA from %s", ema_dir)
 
     dataset = LatentCacheDataset(
         meta_file_list=list(config.dataset.meta_file_list),
         uncond_prob=list(config.dataset.uncond_prob),
         text_len=config.extra_model.get_path("text_encoder.t5_text_len", 512),
         null_dir=config.dataset.null_dir, is_i2v=is_i2v, is_flf2v=is_flf2v, seed=seed)
-    sampler = BlockDistributedSampler(len(dataset), shuffle=bool(config.dataset.get("shuffle")),
-                                      seed=seed,
-                                      start_index=start_step * int(config.dataset.batch_size))
-    loader = iter(BatchIterator(dataset, sampler, batch_size=config.dataset.batch_size))
+    loader = cli.make_loader(dataset, config, seed, start_step)
     out_dir = os.path.join(config.save.output_dir, config.train_id)
     return Trainer(config=config, device=device, model=model, state=state,
                    loader=loader, refl_fn=make_refl_step(model, tx),
@@ -191,17 +170,10 @@ def save_checkpoint(trainer: Trainer, step: int) -> None:
     logging.info("saved %s", path)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     """``steps`` more outer steps (refl then SFT); returns their metrics."""
     config = trainer.config
-    os.makedirs(trainer.out_dir, exist_ok=True)
-    log_dir = config.save.log_dir or os.path.join(trainer.out_dir, "logs")
-    os.makedirs(log_dir, exist_ok=True)
+    log = cli.log_path(config, trainer.out_dir)
     sanity_dir = config.save.sanity_check_dir or os.path.join(trainer.out_dir, "sanity_check")
     interval = int(config.train.sanity_check_interval)
     dev = trainer.device
@@ -211,10 +183,10 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
         batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
                  if not isinstance(v, list)}
         gen = common.step_generator(dev, trainer.seed + 2, step)
-        _sync(dev)
+        cli.sync(dev)
         t0 = time.perf_counter()
         trainer.state, m_refl = trainer.refl_fn(trainer.state, batch, gen)
-        _sync(dev)
+        cli.sync(dev)
         t_refl = time.perf_counter() - t0
         if interval > 0 and step <= 50 and step % interval == 0:
             # the sanity dumps, as latents (the VAE decode is not ported)
@@ -224,7 +196,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
                         m_refl[name].float().cpu().numpy())
         t0 = time.perf_counter()
         trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, gen)
-        _sync(dev)
+        cli.sync(dev)
         t_sft = time.perf_counter() - t0
         if trainer.ema is not None:
             ema_mod.ema_update(trainer.ema, trainer.state.params,
@@ -233,10 +205,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
                    "reward": float(m_refl["reward"]), "grad_norm": float(m_refl["grad_norm"]),
                    "sft_loss": float(m_sft["loss"]), "mid": int(m_refl["mid"]),
                    "t_refl": t_refl, "t_sft": t_sft}
-        line = json.dumps(metrics)
-        print(line, flush=True)
-        with open(os.path.join(log_dir, "log.txt"), "a") as f:
-            f.write(line + "\n")
+        cli.log_line(log, metrics)
         if (step + 1) % 100 == 0:
             health = common.validate_params(trainer.model.dit)
             if not health["finite"]:
@@ -249,17 +218,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
 
 
 def main(argv=None) -> List[Dict[str, float]]:
-    p = argparse.ArgumentParser()
-    p.add_argument("--config_path", required=True)
-    p.add_argument("--max_steps", type=int, default=None)
-    p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    config = load_config(args.config_path)
-    trainer = build_trainer(config, args.device)
-    # train up to step max_steps (a resumed run continues from its step)
-    total = args.max_steps or int(config.optimizer.max_train_steps)
-    return run(trainer, max(0, total - trainer.step))
+    return cli.main(build_trainer, run, argv)
 
 
 if __name__ == "__main__":

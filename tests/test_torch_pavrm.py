@@ -704,11 +704,10 @@ def test_ema_matches_jax():
 # -- the trainers: resume, LRM handoff, refusals ----------------------------------
 
 
-def _resume_cache(root, n=3):
-    """A labelled t2v cache with one caption per sample (text_en_path): the
-    dataset's caption draws restart on resume, as in the JAX package, so
-    a resumed run sees the uninterrupted run's samples only where no
-    caption is drawn."""
+def _resume_cache(root, n=2):
+    """A labelled t2v cache whose samples each hold a short and a long
+    caption, so every sample draws from the dataset's random.Random; two
+    samples, so the 2 + 1 steps of the resume test cross an epoch."""
     rng = np.random.RandomState(31)
     null = root / "null" / "wanx"
     null.mkdir(parents=True)
@@ -717,10 +716,12 @@ def _resume_cache(root, n=3):
     lines = []
     for i in range(n):
         meta = {"vae_latent_path": str(root / f"lat{i}.npy"),
-                "text_en_path": str(root / f"txt{i}.npy"), "prompt": f"p{i}",
+                "textshort_path": str(root / f"short{i}.npy"), "short_caption": f"s{i}",
+                "textlong_path": str(root / f"long{i}.npy"), "long_caption": f"l{i}",
                 "motion_quality": ["good", "poor"][i % 2]}
         np.save(meta["vae_latent_path"], rng.randn(1, 16, 3, 8, 8).astype(np.float32))
-        np.save(meta["text_en_path"], rng.randn(1, 6, 64).astype(np.float32))
+        np.save(meta["textshort_path"], rng.randn(1, 6, 64).astype(np.float32))
+        np.save(meta["textlong_path"], rng.randn(1, 9, 64).astype(np.float32))
         (root / f"m{i}.json").write_text(json.dumps(meta))
         lines.append(str(root / f"m{i}.json"))
     (root / "list.txt").write_text("\n".join(lines) + "\n")
@@ -749,11 +750,22 @@ def _state_equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a.params, b.params))
 
 
-@pytest.mark.parametrize("trainer", ["prfl", "pavrm"])
+@pytest.mark.parametrize("trainer", ["prfl", "pavrm", "pavrm_bt"])
 def test_resume_equals_an_uninterrupted_run(tmp_path, trainer):
+    # every sample draws its caption from the dataset's random.Random, the
+    # PRFL one also its text drop and the bt one its lose pair; the order
+    # is shuffled per epoch, and the resumed step lies in a later epoch
+    # than the checkpoint's first
+    bt = trainer == "pavrm_bt"
+    trainer = trainer.split("_")[0]
     cli = _load_script(f"train_{trainer}_torch")
     name = "smoke_prfl" if trainer == "prfl" else "smoke_pavrm"
-    extra = {"model__ema": {"use_ema": True, "ema_decay": 0.9}} if trainer == "prfl" else {}
+    extra = ({"model__ema": {"use_ema": True, "ema_decay": 0.9},
+              "dataset__uncond_prob": [0.5, 0.0]} if trainer == "prfl" else {})
+    if bt:
+        meta, _ = _resume_cache(tmp_path)
+        extra = {"lrm__loss": "bt", "dataset__meta_file_lose_list": [meta]}
+    extra["dataset__shuffle"] = True
     whole = cli.build_trainer(_cli_config(name, tmp_path, tmp_path / "a", **extra), "cpu")
     hist = cli.run(whole, 3)
     timing = ("t_refl", "t_sft", "step_time")
@@ -780,6 +792,8 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, trainer):
     assert resumed.state.step == whole.state.step and _state_equal(resumed.state, whole.state)
     for a, b in zip(resumed.state.opt_state["mu"], whole.state.opt_state["mu"]):
         assert torch.equal(a, b)
+    if trainer == "prfl":
+        assert all(torch.equal(a, b) for a, b in zip(resumed.ema, whole.ema))
 
 
 def test_pavrm_cli_refuses_what_is_not_ported(tmp_path):
