@@ -7,12 +7,14 @@ Phases, each of which raises on failure:
 
 1. Print the card's name and power limit; build the Hopper kernels from
    hyvideo_prfl_torch/csrc (one nvcc per source, all at once) and print the
-   build time, each slice kernel's registers and spills (K1-K5, K3s, K10
-   and the norm kernels' wide instances must have none), the shared memory
-   of the forward, K4 (and K5's dk/dv pass), K5's dq pass and K10, and the
-   warpgroup MMA and TMA load instructions in the disassembly of K1, K2,
-   K3, K3s, K4, both K5 passes (HGMMA, UTMALDG) and K10 (IGMMA for the
-   int8 score, HGMMA for p v, UTMALDG): all must be there.
+   build time, each slice kernel's registers and spills (K1-K5, K3s, K7,
+   K10, the probes and the norm kernels' wide instances must have none),
+   the shared memory of the forward, K4 (and K5's dk/dv pass), K5's dq pass
+   and K10, and the warpgroup MMA and TMA load instructions in the
+   disassembly of K1, K2, K3, K3s, K4, both K5 passes (HGMMA, UTMALDG), K10
+   and the int8 probe (IGMMA, UTMALDG), the bf16 probe (HGMMA, UTMALDG) and
+   K7 (UTMALDG; K7 and the probes without global atomics): all must be
+   there.
 2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
    streaming and K3 single-block flash forward, K10 int8-score flash
    forward) against its plain PyTorch version at the t2v-1.3B 832*480
@@ -61,8 +63,9 @@ Phases, each of which raises on failure:
    (a CPU run at fp32 compute measures each gradient's bf16 noise), with
    each backward kernel's launch count equal to its derivation.
 7. Train through the CLI path (scripts/train_prfl_torch.py) on a seeded
-   latent cache: the train_prfl_t2v_480.yaml config at t2v-1.3B (8 PRFL
-   steps, fixed_mid 3, no accumulation, remat "attn"), two outer steps at
+   latent cache: configs/train_prfl_t2v_480.yaml as load_config reads it,
+   changed to t2v-1.3B (8 PRFL steps, fixed_mid 3, no accumulation, no
+   weights; remat "attn" as published), two outer steps at
    21 frames and one at 81; then, from the same weights and draws, one at
    21 and one at 81 with train.rollout_quant int8, one at 21 on the
    shifted route, and one at 21 with every backward on K5
@@ -73,7 +76,8 @@ Phases, each of which raises on failure:
    the bf16 run's; prints seconds per refl and SFT step and the peak device
    memory.
 8. The int8 probes P1 and P2 through their scripts
-   (scripts/probe_int8_{rate,mosaic}_torch.py): exact against their plain
+   (scripts/probe_int8_{rate,mosaic}_torch.py): wgmma int8 against bf16,
+   the reps split over a thread-block cluster; exact against their plain
    versions, int8 and bf16 TOPS beside torch._int_mm's and torch.matmul's.
 9. The un-normed DiT (qk_norm off, the shifted route by nature, R for its
    rope): 2 blocks (and no norm3) card against CPU, output and every
@@ -83,15 +87,19 @@ Phases, each of which raises on failure:
 10. The 14B width: K6-K9 against their plain versions at [1, 75,600, 5120]
    with 40 heads (t2v-14B at 720*1280, 81 frames; the norm kernels' wide
    row layout) and at [1, 3,120, 1280] with 10 heads (bench.py's shape),
-   timed beside their byte bounds; K1 and K2 against their plain versions
-   at the 14B self-attention's sequence-parallel shards (40 heads x 18,900
-   tokens; 10 and 5 heads x 75,600), timed beside SDPA's flash forward; a 2-block t2v-14B model, output and
-   every gradient card against CPU at one latent frame of 832*480 (1,560
-   tokens), as phases 3 and 6; the same blocks forward and backward at
-   720*1280 and 81 frames on the card, gradients finite and launches as
-   derived, with seconds and peak memory.
+   timed beside their byte bounds, K7 bitwise equal on a second call, K8
+   (fp32 out) and K9 in turns with F.layer_norm and its backward; K1 and
+   K2 against their plain versions at the 14B self-attention's
+   sequence-parallel shards (40 heads x 18,900 tokens; 10 and 5 heads x
+   75,600), timed beside SDPA's flash forward; a 2-block t2v-14B model,
+   output and every gradient card against CPU at one latent frame of
+   832*480 (1,560 tokens), as phases 3 and 6; the same blocks forward and
+   backward at 720*1280 and 81 frames on the card, gradients finite and
+   launches as derived, with seconds and peak memory.
 11. i2v and flf2v: K3 at the image cross-attention (2 x 40 heads x 32,760
-   queries over 257 CLIP keys for i2v and 514 for flf2v) and K4 at the
+   queries over 257 CLIP keys for i2v and 514 for flf2v), K10 at the
+   i2v-14B int8 self-attention (2 x 40 x 9,360; in turns with K1) and K4 at
+   the
    i2v-1.3B training shape (12 heads, 9,360 x 257) against their plain
    versions, timed beside SDPA and their bounds; 2 i2v-14B blocks card
    against CPU at 1,560 tokens, output and every gradient (the image
@@ -105,17 +113,20 @@ Phases, each of which raises on failure:
    kernel's launches as derived (dit_launches(..., i2v=True)), s/step and
    peak memory per request, each pipeline freed before the next is built;
    then one i2v PRFL outer step at i2v-1.3B, 21 frames, through
-   scripts/train_prfl_torch.py (configs/train_prfl_i2v_480.yaml's settings
-   on a seeded cache with f1_black_path and imgclip_path): metrics finite,
+   scripts/train_prfl_torch.py (configs/train_prfl_i2v_480.yaml as read,
+   with phase 7's changes, on a seeded cache with f1_black_path and
+   imgclip_path): metrics finite,
    the policy's blocks, img_emb and k_img moved, launches as derived
    (expected_train_launches(..., i2v=True)).
-12. PAVRM. First K1 and K3 (o, lse) and K4 (dq, dk, dv) at 40 heads x
-   32,760 queries over the 32,760 self-attention keys and the 512 text
-   keys, and K6-K9 at [1, 32,760, 5120], against their plain versions and
-   timed beside their bounds (the tile counts of 12a's persistent grids).
-   Then through scripts/train_pavrm_torch.py, each run on a seeded
-   labelled cache with the counters set to 0 just before: (a) the
-   published train_pavrm_t2v_480.yaml at t2v-14B width, its 8 blocks, 81
+12. PAVRM. First K1 and K3 (o, lse) and K4 and K5 (dq, dk, dv; K5's
+   bitwise equal on a second call) at 40 heads x 32,760 queries over the
+   32,760 self-attention keys and the 512 text keys, and K6-K9 at [1,
+   32,760, 5120] as in phase 10, against their plain versions and timed
+   beside their bounds (the tile counts of 12a's persistent grids). Then
+   through scripts/train_pavrm_torch.py, each run on a seeded labelled
+   cache with the counters set to 0 just before, each config read from
+   configs/ by load_config with no weights: (a) the published
+   train_pavrm_t2v_480.yaml at t2v-14B width, its 8 blocks, 81
    frames at 832*480 (32,760 tokens), batch 1, remat "attn", 3 ce steps
    over the t list; (b) its i2v-14B Bradley-Terry form (win and lose in
    one graph, 257 image keys), 2 steps at 21 frames (81 do not fit); each
@@ -124,8 +135,9 @@ Phases, each of which raises on failure:
    ce step of 2 t2v-14B blocks with the heads at 1,560 tokens, the loss and
    every gradient card against CPU at phases 3 and 6's bounds; (d) the
    handoff at t2v-1.3B width: 2 PAVRM steps export the LRM, which
-   scripts/inference_pavrm_torch.py scores as the trained model does (its
-   logits equal the trained tower's bit for bit), the PRFL trainer (policy
+   scripts/inference_pavrm_torch.py's main scores from a --config_path
+   that the phase writes as YAML, as the trained model does (its logits
+   equal the trained tower's bit for bit), the PRFL trainer (policy
    cut to 8 blocks) loads it and trains 2 outer steps with EMA and the
    optimizer state saved, then one more; a trainer resumed from
    checkpoint-2 repeats that step, its weights and its EMA bit for bit (on
@@ -305,8 +317,10 @@ def max_err(got, ref):
 def timed_turns(fns, reps=5, calls=10):
     """Median ms per call of each named function, in turns (forward order,
     then reversed, ...) after a warm-up. Each turn times `calls`
-    back-to-back calls between two CUDA events, so the queue stays full and
-    the host's launch cost is hidden behind the device's work."""
+    back-to-back calls between two CUDA events, queued behind a device
+    sleep, so the events time the device alone even where a call takes less
+    device time than its host work (the norm kernels at width 1280: a few
+    microseconds)."""
     import torch
 
     for fn in fns.values():
@@ -318,6 +332,7 @@ def timed_turns(fns, reps=5, calls=10):
         for name, fn in (order if i % 2 == 0 else order[::-1]):
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(5_000_000)  # some ms: the turn's calls queue behind it
             ev0.record()
             for _ in range(calls):
                 fn()
@@ -1195,8 +1210,12 @@ GRID_BENCH = (8, 15, 26)    # bench.py's token grid (3,120)
 
 def _norm_kernels_at(results, tag, n, grid, g):
     """K6-K9 against their plain versions at [1, prod(grid), 128 n] with n
-    heads, timed beside their byte bounds; recorded under ``tag``."""
+    heads, timed beside their byte bounds, K7's outputs bitwise equal on a
+    second call, and K8 (fp32 out) and K9 in turns with F.layer_norm and its
+    backward, the one PyTorch call of their function at batch 1; recorded
+    under ``tag``."""
     import torch
+    import torch.nn.functional as F
 
     from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
     from hyvideo_prfl_torch.ops import qknorm_rope as qr
@@ -1233,6 +1252,12 @@ def _norm_kernels_at(results, tag, n, grid, g):
     for name, (kern, plain, outs, nbytes) in cases.items():
         got, ref = kern(), plain()
         got, ref = ((got, ref) if isinstance(got, tuple) else ((got,), (ref,)))
+        if name == "K7":
+            # dw is summed in a fixed order: the same bits on a second call
+            # (a bitwise resume on the card relies on it)
+            same = all(torch.equal(a, b) for a, b in zip(got, kern()))
+            print(f"  K7 [1, {l:,}, {dim}]: dx and dw bitwise equal on a second call: {same}")
+            expect(same, f"K7 at [1, {l}, {dim}] is not deterministic")
         worst = 0.0
         for (out_name, rel_bound), a, b in zip(outs, got, ref):
             err, rmax, fin = max_err(a, b)
@@ -1248,7 +1273,39 @@ def _norm_kernels_at(results, tag, n, grid, g):
               f"bound {bd:.4f} ms (bytes), {bd / ms:.3f} of the bound")
         results[name].update({f"{tag}_ms": ms, f"{tag}_plain_ms": pms,
                               f"{tag}_bound_ms": bd, f"{tag}_max_abs_err": worst})
-    del x32, g32, xb, gh, cases
+
+    # The library call at batch 1: F.layer_norm with weight s[0] and bias
+    # t[0] computes K8's function (fp32 in, fp32 out: timed beside K8's
+    # fp32-out instance), and its autograd backward K9's (dx, ds, dt; it
+    # takes the cotangent in fp32, K9 reads it in bf16). Neither is used by
+    # the port; their outputs are held to the plain versions' at K8's and
+    # K9's bounds, so the time is of the same function.
+    xr = x32.clone().requires_grad_()
+    sr, tr = s_[0].clone().requires_grad_(), t_[0].clone().requires_grad_()
+    yr = F.layer_norm(xr, (dim,), sr, tr, 1e-6)
+    g32f = g32.float()
+    lib8 = F.layer_norm(x32, (dim,), s_[0], t_[0], 1e-6)
+    ref8 = stream.ln_scale_shift_plain(x32, s_, t_, 1e-6, torch.float32)
+    e8, m8, _ = max_err(lib8, ref8)
+    lib9 = torch.autograd.grad(yr, (xr, sr, tr), g32f, retain_graph=True)
+    ref9 = stream.ln_scale_shift_bwd_plain(x32, s_, g32, 1e-6)
+    e9 = [max_err(a, b.reshape(a.shape)) for a, b in zip(lib9, ref9)]
+    del lib8, ref8, lib9, ref9
+    expect(e8 <= 2.0 ** -7 * m8 and all(e <= 1e-5 * m for e, m, _ in e9),
+           f"F.layer_norm at [1, {l}, {dim}] computes another function: {e8}, {e9}")
+    t8 = timed_turns({"kernel": lambda: stream._kernel(x32, s_, t_, 1e-6, torch.float32),
+                      "library": lambda: F.layer_norm(x32, (dim,), s_[0], t_[0], 1e-6)})
+    t9 = timed_turns({"kernel": cases["K9"][0],
+                      "library": lambda: torch.autograd.grad(yr, (xr, sr, tr), g32f,
+                                                             retain_graph=True)})
+    b8 = bound(l * dim * 8)["bound_ms"]
+    print(f"  K8 [1, {l:,}, {dim}] fp32 out: kernel {t8['kernel']:.4f} ms, F.layer_norm "
+          f"{t8['library']:.4f} ms (bound {b8:.4f} ms); K9: kernel {t9['kernel']:.4f} ms, "
+          f"F.layer_norm's backward {t9['library']:.4f} ms; {CARD}")
+    results["K8"].update({f"{tag}_fp32_ms": t8["kernel"], f"{tag}_fp32_bound_ms": b8,
+                          f"{tag}_library_ms": t8["library"]})
+    results["K9"][f"{tag}_library_ms"] = t9["library"]
+    del x32, g32, g32f, xb, gh, cases, xr, sr, tr, yr
     torch.cuda.empty_cache()
 
 
@@ -1459,52 +1516,58 @@ def phase_unnormed():
     return launches
 
 
-TRAIN_CONFIG = {  # configs/train_prfl_t2v_480.yaml, with the smoke's changes marked
-    "train_id": "prfl_t2v_480",
-    "task": "t2v-1.3b",                      # changed from t2v-14b
-    "prfl_inference_steps": 8,               # added: 8 steps
-    "model": {
-        "base_path": None,                    # no weights in the repository
-        "patch_size": [1, 2, 2],
-        "lora": {"use_lora": False, "lora_rank": 128,
-                 "target_modules": ["q", "k", "v", "o"]},
-        "ema": {"use_ema": False, "ema_decay": 0.99},
-        "fsdp": {"fsdp_sharding_startegy": "full", "use_cpu_offload": False},
-        "gradient_checkpointing": True,
-        "remat_policy": "attn",
-        "selective_checkpointing": 1.0,
-    },
-    "extra_model": {"scheduler": {"flow_shift": 5.0, "num_train_timesteps": 1000,
-                                  "weighting_scheme": "uniform", "logit_mean": 0,
-                                  "logit_std": 1, "mode_scale": 1.29}},
-    "dataset": {"uncond_prob": [0.1, 0.0], "sp_size": 1, "batch_size": 1},
-    "optimizer": {"learning_rate": 5e-6, "adam_beta1": 0.9, "adam_beta2": 0.999,
-                  "weight_decay": 0.01, "lr_scheduler": "constant", "lr_warmup_steps": 0,
-                  "max_train_steps": 1000000},
-    "train": {"seed": 110221, "precision": "bf16", "save_interval": 100,
-              "sanity_check_interval": 100,
-              "gradient_accumulation_steps": 1,  # changed from 5
-              "fixed_mid": 3},                   # added
-    "lrm": {"query_attention": {"num_queries": 1, "num_heads": 8, "dropout": 0.0,
-                                "return_type": "query"},
-            "feature_layer": [8], "pool": "q_attn", "mlp_dim": 5120,
-            "task": "motion_quality", "trainable_blocks": [0, 1, 2, 3, 4, 5, 6, 7]},
-}
+def published(name, changes=None):
+    """configs/<name> as the CLIs read it (load_config: the port's own YAML
+    reader, merged over the defaults), with ``changes`` ({"section.key":
+    value}) applied on top."""
+    from hyvideo_prfl_torch.configs import load_config
+
+    config = load_config(os.path.join(REPO, "configs", name))
+    for path, value in (changes or {}).items():
+        *parents, leaf = path.split(".")
+        node = config
+        for part in parents:
+            node = node.setdefault(part, type(config)())
+        node[leaf] = value
+    return config
 
 
-TRAIN_CONFIG_I2V = {  # configs/train_prfl_i2v_480.yaml, with the smoke's changes marked
-    "train_id": "prfl_i2v_480",
-    "task": "i2v-1.3b",                      # changed from i2v-14b-480p
+# The smoke's changes to configs/train_prfl_{t2v,i2v}_480.yaml: the 1.3B
+# width, 8 PRFL steps with a fixed mid step, no accumulation, no weights
+PRFL_CHANGES = {
     "prfl_inference_steps": 8,               # added: 8 steps
-    "model": {**TRAIN_CONFIG["model"]},      # base_path None: no weights in the repository
-    "extra_model": {"scheduler": {"flow_shift": 3.0, "num_train_timesteps": 1000,
-                                  "weighting_scheme": "uniform", "logit_mean": 0,
-                                  "logit_std": 1, "mode_scale": 1.29}},
-    "dataset": {"uncond_prob": [0.1, 0.0], "sp_size": 1, "batch_size": 1},
-    "optimizer": {**TRAIN_CONFIG["optimizer"]},
-    "train": {**TRAIN_CONFIG["train"]},      # accumulation 1 (changed from 5), fixed_mid 3
-    "lrm": {**TRAIN_CONFIG["lrm"]},
+    "model.base_path": None,                 # no weights in the repository
+    "train.gradient_accumulation_steps": 1,  # changed from 5
+    "train.fixed_mid": 3,                    # added
 }
+PRFL_T2V = ("train_prfl_t2v_480.yaml", {**PRFL_CHANGES, "task": "t2v-1.3b"})  # from t2v-14b
+PRFL_I2V = ("train_prfl_i2v_480.yaml", {**PRFL_CHANGES, "task": "i2v-1.3b"})  # from i2v-14b-480p
+
+
+def yaml_text(tree, indent=0) -> str:
+    """A config tree as YAML in the subset the configs use (block mappings;
+    scalars and flow lists; strings JSON-quoted, floats with a dot), for a
+    CLI's --config_path."""
+    def scalar(v):
+        if isinstance(v, list):
+            return "[" + ", ".join(scalar(x) for x in v) + "]"
+        if v is None or isinstance(v, bool):
+            return {None: "null", True: "true", False: "false"}[v]
+        if isinstance(v, float):
+            if math.isinf(v) or math.isnan(v):
+                return {math.inf: ".inf", -math.inf: "-.inf"}.get(v, ".nan")
+            mant, _, exp = repr(v).partition("e")
+            return mant + ("" if "." in mant else ".0") + (f"e{exp}" if exp else "")
+        return str(v) if isinstance(v, int) else json.dumps(v)
+
+    lines = []
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            expect(bool(value), f"yaml_text: the empty mapping {key} has no block form")
+            lines += [" " * indent + f"{key}:", yaml_text(value, indent + 2)]
+        else:
+            lines.append(" " * indent + f"{key}: {scalar(value)}")
+    return "\n".join(lines)
 
 
 def write_latent_cache(root, frame_counts, i2v=False):
@@ -1554,15 +1617,12 @@ def load_script(name):
     return mod
 
 
-def _build_trainer(cli, raw, dev):
-    """The trainer of a raw config, with the head seeded as the JAX
+def _build_trainer(cli, config, dev):
+    """The trainer of a config, with the head seeded as the JAX
     initialisers would not (a zero head gives every block a zero gradient
     in the first refl step)."""
     import torch
 
-    from hyvideo_prfl_torch.configs import config_from_dict
-
-    config = config_from_dict(json.loads(json.dumps(raw)))
     t0 = time.perf_counter()
     trainer = cli.build_trainer(config, "cuda")
     with torch.no_grad():
@@ -1586,11 +1646,11 @@ def phase_train(root):
 
     cli = load_script("train_prfl_torch")
     lists, null_dir = write_latent_cache(root, (21, 81))
-    raw = json.loads(json.dumps(TRAIN_CONFIG))
-    raw["dataset"].update(meta_file_list=[lists[21]], null_dir=null_dir)
-    raw["save"] = {"output_dir": os.path.join(root, "out")}
+    cfg_name, changes = PRFL_T2V
+    changes = {**changes, "dataset.meta_file_list": [lists[21]], "dataset.null_dir": null_dir,
+               "save.output_dir": os.path.join(root, "out")}
     dev = torch.device("cuda")
-    trainer, config, build_s = _build_trainer(cli, raw, dev)
+    trainer, config, build_s = _build_trainer(cli, published(cfg_name, changes), dev)
     model = trainer.model
     cfg = model.dit_cfg
     n_lrm = model.lrm.dit_cfg.num_layers
@@ -1654,8 +1714,8 @@ def phase_train(root):
 
     # The int8 rollout, from the same weights and draws: one outer step at
     # 21 frames and one at 81, each with the counters set to 0 just before.
-    raw["train"]["rollout_quant"] = "int8"
-    trainer, config, build_s = _build_trainer(cli, raw, dev)
+    trainer, config, build_s = _build_trainer(
+        cli, published(cfg_name, {**changes, "train.rollout_quant": "int8"}), dev)
     print(f"  int8-rollout trainer built in {build_s:.2f} s")
     per_step8 = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
                                         cfg.remat_policy, rollout_quant="int8")
@@ -1694,10 +1754,9 @@ def phase_train(root):
     # the first reward: the routes differ only in where bf16 rounds p, so
     # the reward moves far less than under the int8 rollout (bound 0.05
     # above): 0.01.
-    del raw["train"]["rollout_quant"]
     fa.FLASH_BOUNDED = False
     try:
-        trainer, config, build_s = _build_trainer(cli, raw, dev)
+        trainer, config, build_s = _build_trainer(cli, published(cfg_name, changes), dev)
         per_step_s = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
                                              cfg.remat_policy, shifted=True)
         name = "blocks.29.self_attn.q.weight"
@@ -1732,7 +1791,7 @@ def phase_train(root):
     # grad norm stays within 1% of the bf16 run's.
     fa.FLASH_MERGED_BWD = False
     try:
-        trainer, config, build_s = _build_trainer(cli, raw, dev)
+        trainer, config, build_s = _build_trainer(cli, published(cfg_name, changes), dev)
         per_step_k5 = expected_train_launches(cfg.num_layers, n_lrm, int(config.train.fixed_mid),
                                               cfg.remat_policy, merged_bwd=False)
         torch.cuda.synchronize()
@@ -1777,7 +1836,8 @@ def phase_probes(results):
         launches[name] = _build.LAUNCHES[name]
         for r in res:
             print(f"  {name} {r['probe']} [{r['m']}, {r['k']}] x [{r['k']}, {r['n_cols']}] x "
-                  f"{r['nblocks']} blocks x {r['reps']} reps: int8 {r['int8_ms']:.4f} ms "
+                  f"{r['nblocks']} blocks x {r['reps']} reps (clusters of {r['cluster']}): "
+                  f"int8 {r['int8_ms']:.4f} ms "
                   f"{r['int8_tops']:.1f} TOPS (torch._int_mm {r['int8_library_tops']:.1f}), "
                   f"bf16 {r['bf16_ms']:.4f} ms {r['bf16_tops']:.1f} TFLOP/s (torch.matmul "
                   f"{r['bf16_library_tops']:.1f}), int8 {r['int8_over_bf16']:.2f}x bf16; exact "
@@ -1850,6 +1910,38 @@ def phase_i2v(results, root):
                               f"{tag}_bound_ms": bnd["bound_ms"], f"{tag}_max_abs_err": err})
         del k, v, vt
     del q
+    torch.cuda.empty_cache()
+
+    # K10 at the i2v-14B int8 self-attention (--quant_attn int8, 21 frames,
+    # CFG 2: 2 x 40 heads x 9,360), against its plain version at phase 2's
+    # bounds (o two bf16 ulps of max|o|, lse 1e-5 max|lse|), timed in turns
+    # with K1 on the same bf16 q/k/v
+    b, lq = 2, 9360
+    q, k, v = randn(b, n, lq, d), randn(b, n, lq, d), randn(b, lq, n, d)
+    q8, sq = fa.quantize_bn(q)
+    k8, sk = fa.quantize_bn(k)
+    c = fa.qk8_scale(sq, sk, d)
+    o, lse = fa.flash_qk8_kernel(q8, k8, v, c)
+    po, plse = fa.flash_attention_qk8_plain(q8, k8, v, c)
+    err, rmax, fin = max_err(o, po)
+    el, ml, fl = max_err(lse, plse)
+    del o, lse, po, plse
+    t = timed_turns({"plain": lambda: fa.flash_attention_qk8_plain(q8, k8, v, c),
+                     "kernel": lambda: fa.flash_qk8_kernel(q8, k8, v, c),
+                     "K1": lambda: fa.flash_fwd_kernel(q, k, v, False)}, reps=3, calls=2)
+    ops = 2 * b * n * lq * lq * d  # of each product
+    bnd = bound(2 * b * n * lq * d + 2 * b * n * lq * d * 2 + b * n * 4, int8=ops, bf16=ops)
+    print(f"  K10 [2, 40, {lq:,}, 128]: max_abs_err {err:.3e} (bound {2.0 ** -6 * rmax:.3e}), "
+          f"lse {el:.3e} (bound {1e-5 * ml:.3e}); kernel {t['kernel']:.4f} ms "
+          f"({2 * ops / (t['kernel'] * 1e9):.1f} TOPS, {bnd['bound_ms'] / t['kernel']:.3f} of "
+          f"the {bnd['bound_ms']:.4f} ms bound), K1 {t['K1']:.4f} ms in the same turns, plain "
+          f"{t['plain']:.4f} ms; {CARD}")
+    expect(fin and err <= 2.0 ** -6 * rmax, f"K10 at 40 heads x {lq}: error {err}")
+    expect(fl and el <= 1e-5 * ml, f"K10 at 40 heads x {lq}: lse error {el}")
+    results["K10"].update({"h40_l9360_ms": t["kernel"], "h40_l9360_plain_ms": t["plain"],
+                           "h40_l9360_k1_ms": t["K1"], "h40_l9360_bound_ms": bnd["bound_ms"],
+                           "h40_l9360_max_abs_err": err})
+    del q, k, v, q8, k8
     torch.cuda.empty_cache()
 
     # K4 at the i2v-1.3B training shape (batch 1, 12 heads, 21 frames:
@@ -2026,10 +2118,10 @@ def _train_i2v(root, dev):
 
     cli = load_script("train_prfl_torch")
     lists, null_dir = write_latent_cache(root, (21,), i2v=True)
-    raw = json.loads(json.dumps(TRAIN_CONFIG_I2V))
-    raw["dataset"].update(meta_file_list=[lists[21]], null_dir=null_dir)
-    raw["save"] = {"output_dir": os.path.join(root, "out")}
-    trainer, config, build_s = _build_trainer(cli, raw, dev)
+    cfg_name, changes = PRFL_I2V
+    trainer, config, build_s = _build_trainer(cli, published(cfg_name, {
+        **changes, "dataset.meta_file_list": [lists[21]], "dataset.null_dir": null_dir,
+        "save.output_dir": os.path.join(root, "out")}), dev)
     model = trainer.model
     cfg = model.dit_cfg
     n_lrm = model.lrm.dit_cfg.num_layers
@@ -2071,46 +2163,12 @@ def _train_i2v(root, dev):
 
 
 
-PAVRM_CONFIG = {  # configs/train_pavrm_t2v_480.yaml, with the smoke's changes marked
-    "train_id": "pavrm_t2v_480",
-    "task": "t2v-14b",
-    "model": {
-        "base_path": None,                    # changed: no weights in the repository
-        "resume_transformer_path": None,
-        "patch_size": [1, 2, 2],
-        "ema": {"use_ema": False, "ema_decay": 0.99},
-        "fsdp": {"fsdp_sharding_startegy": "full", "use_cpu_offload": False},
-        "gradient_checkpointing": True,
-        "remat_policy": "attn",
-        "selective_checkpointing": 1.0,
-    },
-    "extra_model": {"scheduler": {"flow_shift": 5.0, "num_train_timesteps": 1000,
-                                  "weighting_scheme": "logit_normal", "logit_mean": 0,
-                                  "logit_std": 1}},
-    "dataset": {"val_meta_file_list": [], "uncond_prob": [0.0, 0.0], "sp_size": 1,
-                "batch_size": 1, "sp_batch_size": 1},
-    "optimizer": {"learning_rate": 1e-5, "learning_rate_mlp": 1e-4, "adam_beta1": 0.9,
-                  "adam_beta2": 0.999, "weight_decay": 0.01, "lr_scheduler": "constant",
-                  "lr_warmup_steps": 0, "max_train_steps": 1000000},
-    "train": {"seed": 110221, "precision": "bf16", "allow_tf32": False, "save_interval": 500,
-              "gradient_accumulation_steps": 1},
-    "eval": {"seed": 42, "timestep": [100, 300, 500, 700, 900]},
-    "save": {"output_dir": "outputs", "log_dir": None},
-    "lrm": {"query_attention": {"num_queries": 1, "num_heads": 8, "dropout": 0.0,
-                                "return_type": "query"},
-            "feature_layer": [8], "pool": "q_attn", "mlp_dim": 5120, "loss": "ce",
-            "task": "motion_quality", "trainable_blocks": [0, 1, 2, 3, 4, 5, 6, 7],
-            "timestep": [400, 500, 600, 700]},
-}
-
+# configs/train_pavrm_t2v_480.yaml as published, with no weights
+PAVRM_T2V = ("train_pavrm_t2v_480.yaml", {"model.base_path": None})
 # configs/train_pavrm_i2v_480.yaml with the loss and the lose list of
 # configs/train_pavrm_bt_i2v_720.yaml (its 480p Bradley-Terry form)
-PAVRM_CONFIG_BT_I2V = {
-    **PAVRM_CONFIG, "train_id": "pavrm_bt_i2v_480", "task": "i2v-14b-480p",
-    "extra_model": {"scheduler": {**PAVRM_CONFIG["extra_model"]["scheduler"],
-                                  "flow_shift": 3.0}},
-    "lrm": {**PAVRM_CONFIG["lrm"], "loss": "bt"},
-}
+PAVRM_BT_I2V = ("train_pavrm_i2v_480.yaml", {"model.base_path": None, "lrm.loss": "bt",
+                                             "train_id": "pavrm_bt_i2v_480"})
 
 
 def write_reward_cache(root, frames, n=2, i2v=False, seed=31):
@@ -2151,16 +2209,15 @@ def write_reward_cache(root, frames, n=2, i2v=False, seed=31):
     return path, null_dir
 
 
-def _config(raw, root, meta, null_dir, **paths):
-    from hyvideo_prfl_torch.configs import config_from_dict
-
-    raw = json.loads(json.dumps(raw))
-    raw["dataset"].update(meta_file_list=[meta], null_dir=null_dir)
-    raw["save"] = {"output_dir": os.path.join(root, "out")}
-    for key, value in paths.items():
-        section, leaf = key.split("__")
-        raw.setdefault(section, {})[leaf] = value
-    return config_from_dict(raw)
+def _config(published_config, root, meta, null_dir, extra=None, **paths):
+    """A published config (name, changes) on a cache under root: its meta
+    list and null dir, the output under root/out, and ``paths``
+    ({section__key: value}) and ``extra`` ({"section.key": value}) on top."""
+    name, changes = published_config
+    return published(name, {**changes, "dataset.meta_file_list": [meta],
+                            "dataset.null_dir": null_dir,
+                            "save.output_dir": os.path.join(root, "out"), **(extra or {}),
+                            **{k.replace("__", "."): v for k, v in paths.items()}})
 
 
 def _pavrm_run(cli, config, steps, label, want, dev="cuda"):
@@ -2342,8 +2399,8 @@ def _handoff(root, dev):
     total = {}
     meta, null_dir = write_reward_cache(os.path.join(root, "cache"), 21, n=2)
     pav = load_script("train_pavrm_torch")
-    pcfg = _config({**PAVRM_CONFIG, "task": "t2v-1.3b", "train_id": "pavrm_t2v_1_3b"},
-                   root, meta, null_dir, train__save_interval=2,
+    pcfg = _config(PAVRM_T2V, root, meta, null_dir,
+                   {"task": "t2v-1.3b", "train_id": "pavrm_t2v_1_3b"}, train__save_interval=2,
                    train__save_optimizer_state=True, dataset__val_meta_file_list=[meta])
     n_eval = len(pcfg.eval.timestep)  # one batch of both clips per eval timestep
     eval_fwd = _add({}, dit_launches(8, False, head=False), n_eval)
@@ -2362,13 +2419,19 @@ def _handoff(root, dev):
     for path in ("checkpoint-2", "checkpoint-2-opt"):
         expect(os.path.isdir(os.path.join(out, path)), f"12d: no {path}")
 
+    # the eval CLI's own main on a --config_path: the phase writes the
+    # config as YAML text, which the CLI reads with the port's reader
     infer = load_script("inference_pavrm_torch")
-    icfg = _config({**PAVRM_CONFIG, "task": "t2v-1.3b"}, root, meta, null_dir, **lrm)
+    icfg = _config(PAVRM_T2V, root, meta, null_dir, {"task": "t2v-1.3b"}, **lrm)
+    ipath = os.path.join(root, "infer_pavrm_t2v_1_3b.yaml")
+    with open(ipath, "w") as f:
+        f.write(yaml_text(icfg) + "\n")
     _build.reset_launches()
-    res = infer.main(icfg, device=dev)
+    res = infer.main(["--config_path", ipath, "--device", str(dev)])
     torch.cuda.synchronize()
     got = dict(_build.LAUNCHES)
-    print(f"  12d: inference_pavrm_torch launches {got}, derived {eval_fwd}")
+    print(f"  12d: inference_pavrm_torch main(['--config_path', {os.path.basename(ipath)!r}]) "
+          f"launches {got}, derived {eval_fwd}")
     expect(got == eval_fwd, f"12d: eval launches {got}, expected {eval_fwd}")
     _add(total, got)
     mine = tpavrm.evaluate(trainer.eval_fn, trainer.val_dataset, icfg.eval.timestep,
@@ -2399,16 +2462,14 @@ def _handoff(root, dev):
     # order is shuffled per epoch, and the resumed step (the third of two
     # clips) lies in the second epoch: the resumed loader replays the first.
     prfl = load_script("train_prfl_torch")
-    raw = {**TRAIN_CONFIG, "train_id": "prfl_handoff",
-           "dataset": {**TRAIN_CONFIG["dataset"], "shuffle": True},
-           "model": {**TRAIN_CONFIG["model"], "override": {"num_layers": 8},
-                     "ema": {"use_ema": True, "ema_decay": 0.99}}}
+    cfg_name, changes = PRFL_T2V
+    handoff = (cfg_name, {**changes, "train_id": "prfl_handoff", "dataset.shuffle": True,
+                      "model.override": {"num_layers": 8}, "model.ema.use_ema": True})
     kw = dict(train__save_interval=2, train__save_optimizer_state=True, **lrm)
-    per_step = expected_train_launches(8, 8, int(TRAIN_CONFIG["train"]["fixed_mid"]),
-                                       merged_bwd=False)
+    per_step = expected_train_launches(8, 8, int(changes["train.fixed_mid"]), merged_bwd=False)
     fa.FLASH_MERGED_BWD = False
     try:
-        whole = prfl.build_trainer(_config(raw, root, meta, null_dir, **kw), dev)
+        whole = prfl.build_trainer(_config(handoff, root, meta, null_dir, **kw), dev)
         expect(torch.equal(whole.model.lrm.mlp.Dense_1.weight.float().cpu(),
                            torch.load(lrm["model__lrm_mlp_path"])["fc2.weight"]),
                "12d: the PRFL trainer did not load the exported head")
@@ -2421,7 +2482,7 @@ def _handoff(root, dev):
         for path in (os.path.join(ckpt, "config.json"), os.path.join(ckpt, "opt_state"),
                      os.path.join(pout + "-ema", "checkpoint-2", "config.json")):
             expect(os.path.exists(path), f"12d: no {path}")
-        resumed = prfl.build_trainer(_config(raw, root, meta, null_dir,
+        resumed = prfl.build_trainer(_config(handoff, root, meta, null_dir,
                                              model__resume_transformer_path=ckpt, **kw), dev)
         _build.reset_launches()
         (m,) = prfl.run(resumed, 1)
@@ -2459,8 +2520,9 @@ def _pavrm_kernels(results):
     """12k: the kernels of the PAVRM step at the shapes 12a gives them
     (t2v-14B, batch 1, 32,760 tokens, 40 heads) against their plain
     versions, each timed beside its bound: K1 at the self-attention and K3
-    at the text cross-attention (o and lse), K4 at both (dq, dk and dv; the
-    cross-attention splits its q sweep), and K6-K9 at [1, 32,760, 5120].
+    at the text cross-attention (o and lse), K4 and K5 at both (dq, dk and
+    dv; K5's bitwise equal on a second call), and K6-K9 at [1, 32,760,
+    5120].
     Phases 2 and 5 hold these kernels at 12 heads and phase 10 K1 at 40
     heads x 18,900; the persistent grids take other tile counts here."""
     import torch
@@ -2534,6 +2596,29 @@ def _pavrm_kernels(results):
               f"{bnd['bound_ms'] / t['kernel']:.3f} of the bound, dk/dv q sweep split over "
               f"{splits} block(s) per key tile; {CARD}")
         results["K4"].update({f"{tag}_{key}": val for key, val in part["K4"].items()})
+        del got
+
+        # K5, the split backward (HYV_FLASH_MERGED_BWD=0 sends a 14B-wide
+        # training step there: the route to a bitwise resume), on the same
+        # tensors at phase 5's bounds, timed in turns with K4; its dq is
+        # written once per q tile, so a second call gives the same bits
+        got = fa.bwd_kernel(q, k, v, o, lse, do, False)
+        again = fa.bwd_kernel(q, k, v, o, lse, do, False)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        t5 = timed_turns({"k4": lambda: fa.bwd_kernel(q, k, v, o, lse, do, True),
+                          "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, False)},
+                         reps=3, calls=calls)
+        part = {}
+        report_many("K5", f"12k {label}, 40 heads x {lq:,} x {lk:,}",
+                    [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)],
+                    part, (t5["kernel"], t["plain"]), library_ms=t["library"], k4_ms=t5["k4"],
+                    **bnd)
+        print(f"  12k K5 {label}: {flop / (t5['kernel'] * 1e9):.1f} TFLOP/s, "
+              f"{bnd['bound_ms'] / t5['kernel']:.3f} of the bound (K4 {t5['k4']:.4f} ms in "
+              f"the same turns); dq, dk, dv bitwise equal on a second call: {same}; {CARD}")
+        expect(same, f"12k K5 {label}: not deterministic")
+        results["K5"].update({f"{tag}_{key}": val for key, val in part["K5"].items()})
         del k, v, vt, o, lse, do, got, ref, checks
         torch.cuda.empty_cache()
     del q
@@ -2558,7 +2643,7 @@ def phase_pavrm(results, root, dev="cuda"):
     # seeded weights, 3 steps over t 400, 500, 600 (the list cycled)
     meta, null_dir = write_reward_cache(os.path.join(root, "c81"), 81, n=2, seed=41)
     trainer, hist, got, peak = _pavrm_run(
-        cli, _config(PAVRM_CONFIG, root, meta, null_dir), 3, "12a t2v-14B 81 frames",
+        cli, _config(PAVRM_T2V, root, meta, null_dir), 3, "12a t2v-14B 81 frames",
         _add({}, expected_pavrm_launches(8, "ce"), 3), dev)
     warm = min(h["step_time"] for h in hist[1:])
     print(f"  12a: {CARD}: {warm:.3f} s/step (a warm step; the first "
@@ -2577,7 +2662,7 @@ def phase_pavrm(results, root, dev="cuda"):
     win, null_dir = write_reward_cache(os.path.join(root, "c21"), 21, n=2, i2v=True, seed=51)
     lose, _ = write_reward_cache(os.path.join(root, "c21"), 21, n=3, i2v=True, seed=52)
     trainer, hist, got, peak = _pavrm_run(
-        cli, _config(PAVRM_CONFIG_BT_I2V, root, win, null_dir,
+        cli, _config(PAVRM_BT_I2V, root, win, null_dir,
                      dataset__meta_file_lose_list=[lose]),
         2, "12b i2v-14B bt 21 frames", _add({}, expected_pavrm_launches(8, "bt", i2v=True), 2),
         dev)
@@ -2601,7 +2686,8 @@ def print_ptxas(log: str, smem: dict) -> None:
     norm kernels' instances: narrow rows (a warp each) under a ceiling of
     12 (K8/K9) or 6 (K6/K7) chunks a lane, filled exactly at D 1536 / 12
     heads (a compile-time count) and not at D 1280 / 10 heads, and wide
-    rows (a block each) at D 5120 / 40 heads."""
+    rows (a block each) at D 5120 / 40 heads; K7 one ring kernel for every
+    width, with rope and without."""
     wanted = {"flash_fwd_kernelILb0ELb1E": "K1",
               "flash_fwd_kernelILb0ELb0E": "K3",
               "flash_fwd_kernelILb1ELb1E": "K2",
@@ -2613,11 +2699,8 @@ def print_ptxas(log: str, smem: dict) -> None:
               "flash_bwd_prologue_kernelILb1E": "K5 prologue",
               "flash_bwd_dkv_kernel": "K5 dk/dv",
               "flash_bwd_dq_kernel": "K5 dq",
-              "rmsnorm_rope_bwd_kernelILi1ELi6ELb1ELb1": "K7 narrow 12 heads rope",
-              "rmsnorm_rope_bwd_kernelILi1ELi6ELb1ELb0": "K7 narrow 12 heads norm-only",
-              "rmsnorm_rope_bwd_kernelILi1ELi6ELb0ELb1": "K7 narrow 10 heads rope",
-              "rmsnorm_rope_bwd_kernelILi8ELi4ELb0ELb1": "K7 wide rope",
-              "rmsnorm_rope_bwd_kernelILi8ELi4ELb0ELb0": "K7 wide norm-only",
+              "rmsnorm_rope_bwd_kernelILb1E": "K7 rope",
+              "rmsnorm_rope_bwd_kernelILb0E": "K7 norm-only",
               "ln_scale_shift_bwd_kernelILi1ELi12ELb1E13__nv_bfloat16": "K9 narrow D=1536 bf16-g",
               "ln_scale_shift_bwd_kernelILi1ELi12ELb1Ef": "K9 narrow D=1536 fp32-g",
               "ln_scale_shift_bwd_kernelILi1ELi12ELb0E13__nv_bfloat16": "K9 narrow D=1280 bf16-g",
@@ -2647,10 +2730,10 @@ def print_ptxas(log: str, smem: dict) -> None:
             print(f"  ptxas note on {named}: {line.split(':', 1)[-1].split(' in function')[0].strip()}")
         elif current and ("registers" in line or "spill" in line):
             print(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
-            # the TMA/wgmma kernels and the norm kernels' wide row layout
-            # must not spill
-            if current in ("K1", "K2", "K3", "K3s", "K10") or current[:2] in ("K4", "K5") \
-                    or "wide" in current:
+            # the TMA/wgmma kernels (K7's ring and the probes too) and the
+            # norm kernels' wide row layout must not spill
+            if current in ("K1", "K2", "K3", "K3s", "K10") or current[:2] in ("K4", "K5", "K7") \
+                    or "wide" in current or current.startswith("P1/P2"):
                 expect("spill" not in line or " 0 bytes spill stores" in line,
                        f"ptxas: {current} spills: {line.strip()}")
     print("  dynamic shared memory per block: "
@@ -2658,17 +2741,22 @@ def print_ptxas(log: str, smem: dict) -> None:
 
 
 def check_sass(lib_path) -> None:
-    """The forward's four instances, K4's and K5's main kernels and K10,
-    disassembled from the built library, must load by TMA (UTMALDG) and
-    multiply on wgmma: HGMMA (bf16), and for K10's int8 score also IGMMA;
-    the forward and K10 store o by TMA (UTMASTG), K4 adds dq by TMA
-    reductions (UTMAREDG), K5's dq pass needs neither."""
+    """The forward's four instances, K4's and K5's main kernels, K10, K7
+    and the probes, disassembled from the built library, must load by TMA
+    (UTMALDG); all but K7 multiply on wgmma: HGMMA (bf16), and for K10's
+    int8 score and the int8 probe IGMMA; the forward and K10 store o by
+    TMA (UTMASTG), K4 adds dq by TMA reductions (UTMAREDG), K5's dq pass
+    needs neither; K7 and the probes use no global atomics (ATOM, RED)."""
     from hyvideo_prfl_torch.ops import _build
 
     kernels = {"flash_fwd_kernelILb0ELb1E": "K1", "flash_fwd_kernelILb1ELb1E": "K2",
                "flash_fwd_kernelILb0ELb0E": "K3", "flash_fwd_kernelILb1ELb0E": "K3s",
                "flash_bwd_merged_kernel": "K4", "flash_bwd_dkv_kernel": "K5 dk/dv",
-               "flash_bwd_dq_kernel": "K5 dq", "flash_fwd_qk8_kernel": "K10"}
+               "flash_bwd_dq_kernel": "K5 dq", "flash_fwd_qk8_kernel": "K10",
+               "rmsnorm_rope_bwd_kernelILb1E": "K7 rope", "rmsnorm_rope_bwd_kernelILb0E": "K7",
+               "probe_kernelILb1E": "P int8", "probe_kernelILb0E": "P bf16"}
+    # the wgmma opcode each kernel needs
+    gmma = {"K10": "IGMMA", "P int8": "IGMMA", "K7 rope": None, "K7": None}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -2677,14 +2765,20 @@ def check_sass(lib_path) -> None:
         if "Function :" in line:
             current = next((v for k, v in kernels.items() if k in line), None)
         elif current:
-            for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG", "ATOM", "RED."):
+            for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG"):
                 if op in line:
                     counts[current][op] = counts[current].get(op, 0) + 1
+            # the instruction's mnemonic, after its address and predicate
+            words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
+            if words and words[0].startswith(("ATOMG", "ATOM.", "RED.")):
+                counts[current]["global atomic"] = counts[current].get("global atomic", 0) + 1
     for name, c in counts.items():
         print(f"  {name} SASS instruction counts: {c}")
-        expect(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
-               f"{name}'s kernel lacks HGMMA or UTMALDG: {c}")
-        expect(name != "K10" or c.get("IGMMA", 0) > 0, f"K10's kernel lacks IGMMA: {c}")
+        op = gmma.get(name, "HGMMA")
+        expect(c.get("UTMALDG", 0) > 0 and (op is None or c.get(op, 0) > 0),
+               f"{name}'s kernel lacks UTMALDG or {op}: {c}")
+        expect(name not in ("K7 rope", "K7", "P int8", "P bf16") or not c.get("global atomic"),
+               f"{name}'s kernel uses global atomics: {c}")
 
 
 def main() -> int:
@@ -2714,7 +2808,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     print("phase 1: build")
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.lib()
     print(f"  kernels built in {_build.build_seconds:.2f} s "
           f"(loaded in {time.perf_counter() - t0:.2f} s)")
@@ -2771,6 +2865,7 @@ def main() -> int:
                  unnormed_launches, i2v_launches, pavrm_launches):
         _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; {CARD}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name]}

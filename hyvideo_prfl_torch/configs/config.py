@@ -2,16 +2,19 @@
 package's configs module imports JAX).
 
 The same YAML files load unchanged, with attribute-style access
-(cfg.model.lora.use_lora) over plain pyyaml, including the reference's
-misspelled key `fsdp_sharding_startegy` [sic]. ``load_config`` imports
-yaml inside the function, so the package imports where yaml is missing;
-``config_from_dict`` is the same merge without a file.
+(cfg.model.lora.use_lora), including the reference's misspelled key
+`fsdp_sharding_startegy` [sic]. ``load_config`` reads the file with the
+port's own reader (``yaml_lite``: the subset the configs use, typed as
+``yaml.safe_load`` types it), so no pyyaml is needed; ``config_from_dict``
+is the same merge without a file.
 """
 
 from __future__ import annotations
 
 import copy
 from typing import Any, Dict
+
+from . import yaml_lite
 
 
 class AttrDict(dict):
@@ -166,10 +169,7 @@ def config_from_dict(raw: Dict) -> AttrDict:
 
 
 def load_config(path: str) -> AttrDict:
-    import yaml
-
-    with open(path) as f:
-        return config_from_dict(yaml.safe_load(f))
+    return config_from_dict(yaml_lite.load(path))
 
 
 def default_config() -> AttrDict:

@@ -1,4 +1,4 @@
-// The row layouts of the normalisation kernels K6-K9 (qknorm_rope*.cu,
+// The row layouts of the normalisation kernels K6, K8 and K9 (qknorm_rope.cu,
 // ln_scale_shift*.cu): which threads hold a feature row, and their row sums.
 //
 // A narrow row is one warp's: a block of 4 warps works on 4 rows at once

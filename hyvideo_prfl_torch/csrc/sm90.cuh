@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the warp-specialised kernels
-// (flash_fwd.cu, flash_fwd_qk8.cu, flash_bwd.cu): mbarriers, TMA tensor
-// loads, stores and reduce-adds, bulk copies, wgmma (bf16 with the A
-// operand in registers or in shared memory, int8 with both in shared
-// memory), register reallocation between warpgroups, and the host-side
-// tensor-map encode.
+// (flash_fwd.cu, flash_fwd_qk8.cu, flash_bwd.cu, qknorm_rope_bwd.cu,
+// int8_probe.cu): mbarriers, TMA tensor loads, stores and reduce-adds, bulk
+// copies, wgmma (bf16 with the A operand in registers or in shared memory,
+// int8 with both in shared memory), register reallocation between
+// warpgroups, thread-block clusters and their distributed shared memory,
+// and the host-side tensor-map encode.
 //
 // Shared-memory tiles that TMA fills or drains use the 128-byte swizzle:
 // rows of 128 B, 16 B chunk c of row r stored at chunk c ^ (r & 7), every
@@ -61,6 +62,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: box at coordinates (c0, c1) of a rank-2 map -> shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -140,6 +151,38 @@ __device__ __forceinline__ void reg_alloc() {
 template <int kRegs>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: the shared-memory writes
+// before it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `addr` (a shared::cta address of this
+// block's layout) in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 B from distributed shared memory (an address from mapa)
+__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -304,15 +347,14 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(uint32_t (&d)[64], uint64
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// cuTensorMapEncodeTiled for a tensor addressed as rank 4 (features, rows,
-// heads, batch): 128 contiguous features, the other three by element
-// strides in any order; boxes of box_inner features (128 B) x box_rows rows
-// with the 128-byte swizzle. The encode function is looked up through the
-// CUDA runtime, so the library links no libcuda.
-inline cudaError_t encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-                               const void* base, int rows, int heads, int batch, long long s_row,
-                               long long s_head, long long s_batch, int box_inner,
-                               int box_rows) {
+// cuTensorMapEncodeTiled: a tensor of `rank` dimensions (dims[0]
+// contiguous; strides in bytes of dimensions 1 .. rank-1), boxes of `box`
+// elements, elements out of bounds read as zeros. The encode function is
+// looked up through the CUDA runtime, so the library links no libcuda.
+inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                const void* base, const cuuint64_t* dims,
+                                const cuuint64_t* strides, const cuuint32_t* box,
+                                CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -332,17 +374,35 @@ inline cudaError_t encode_rows(CUtensorMap* map, CUtensorMapDataType type, int e
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
+  // The encode fails without a current context, and a thread that has made
+  // no CUDA call yet (PyTorch's autograd workers may not) has none: make
+  // the current device's primary context current.
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return err;
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor addressed as rank 4 (features, rows, heads, batch): 128
+// contiguous features, the other three by element strides in any order;
+// boxes of box_inner features (128 B) x box_rows rows with the 128-byte
+// swizzle.
+inline cudaError_t encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                               const void* base, int rows, int heads, int batch, long long s_row,
+                               long long s_head, long long s_batch, int box_inner,
+                               int box_rows) {
   const cuuint64_t dims[4] = {128, (cuuint64_t)rows, (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)(s_row * elem_bytes),
                                  (cuuint64_t)(s_head * elem_bytes),
                                  (cuuint64_t)(s_batch * elem_bytes)};
   const cuuint32_t box[4] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, type, 4, const_cast<void*>(base),
-                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tiled(map, type, 4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // bf16 rows: boxes of 64 features

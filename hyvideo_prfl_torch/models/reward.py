@@ -54,17 +54,21 @@ class QueryAttention(nn.Module):
         return self
 
     def forward(self, x):
+        # Every product is a 2D one: torch.matmul picks the kernel of a
+        # batched product by whether an operand requires grad, so the trained
+        # tower (whose weights do) and the same weights loaded for scoring
+        # would round apart.
         x = x.float()
         b, l, d = x.shape
         nh, nq = self.num_heads, self.num_queries
         hd = d // nh
-        q = (self.queries[None].expand(b, nq, d) @ self.wq + self.bq).reshape(b, nq, nh, hd)
-        k = (x @ self.wk + self.bk).reshape(b, l, nh, hd)
-        v = (x @ self.wv + self.bv).reshape(b, l, nh, hd)
+        q = (self.queries @ self.wq + self.bq)[None].expand(b, nq, d).reshape(b, nq, nh, hd)
+        k = (x.reshape(b * l, d) @ self.wk + self.bk).reshape(b, l, nh, hd)
+        v = (x.reshape(b * l, d) @ self.wv + self.bv).reshape(b, l, nh, hd)
         logits = torch.einsum("bqnd,bknd->bnqk", q, k) / math.sqrt(hd)
         probs = torch.softmax(logits, dim=-1)
-        attended = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, nq, d)
-        attended = attended @ self.wo + self.bo
+        attended = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b * nq, d)
+        attended = (attended @ self.wo + self.bo).reshape(b, nq, d)
         out = attended.mean(dim=1) if nq > 1 else attended[:, 0]
         if self.return_type == "query":
             out = out + self.queries.mean(dim=0)[None]

@@ -44,8 +44,10 @@ _SIGNATURES = {
     "hyv_flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 21 + [_F, _F, _P],
     "hyv_flash_bwd_merged": [_P] * 13 + [_I] * 5 + [_LL] * 21 + [_F, _F, _P],
     "hyv_flash_fwd_qk8": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_P],
-    "hyv_probe_rate": [_P, _P, _P] + [_I] * 7 + [_P],
-    "hyv_probe_chain": [_P, _P, _P] + [_I] * 6 + [_P],
+    "hyv_rmsnorm_rope_bwd_parts": [_I] * 4,
+    "hyv_probe_rate": [_P, _P, _P] + [_I] * 6 + [_P],
+    "hyv_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],
+    "hyv_probe_cluster": [_I] * 5,
     "hyv_rope": [_P] * 4 + [_LL, _I, _I, _I, _P],
     "hyv_flash_fwd_smem": [],
     "hyv_flash_bwd_merged_smem": [],

@@ -6,12 +6,13 @@ Both compute
     out = sum over reps r and b-blocks nb of a @ b_nb^T
 
 with a [M, K] and bt [nblocks * n_cols, K] (b stored transposed, K
-contiguous, the layout the int8 tensor-core path reads), int8 -> int32 or
-bf16 -> fp32. P1 (``probe_rate``) is the TPU grid (reps, nblocks) at its
-two shapes; P2 (``probe_chain``) is ``steps`` chained products of one pair
-(nblocks = 1). On a CUDA tensor both launch csrc/int8_probe.cu; the plain
-versions below are exact integer arithmetic: int64 on the CPU and fp64 on
-the card (every value is an integer far inside fp64's 2^53).
+contiguous, the layout wgmma reads), int8 -> int32 or bf16 -> fp32. P1
+(``probe_rate``) is the TPU grid (reps, nblocks) at its two shapes; P2
+(``probe_chain``) is ``steps`` chained products of one pair (nblocks = 1).
+On a CUDA tensor both launch csrc/int8_probe.cu (wgmma, the reps split
+over a thread-block cluster); the plain versions below are exact integer
+arithmetic: int64 on the CPU and fp64 on the card (every value is an
+integer far inside fp64's 2^53).
 """
 
 from __future__ import annotations
@@ -32,10 +33,14 @@ def probe_plain(a, bt, nblocks: int, reps: int):
     return (a.to(acc) @ bsum.t()) * reps
 
 
-def _splits(device, tiles: int, reps: int) -> int:
-    """Blocks per output tile: the reps are split so the grid fills the SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(reps, sms // tiles))
+def cluster_size(a, n_cols: int, reps: int) -> int:
+    """The blocks of one thread-block cluster that share an output tile's
+    reps in a probe call on ``a``'s shapes (1 to 8)."""
+    m, k = a.shape
+    c = _build.lib().hyv_probe_cluster(m, k * a.element_size(), n_cols, reps,
+                                       int(a.dtype == torch.int8))
+    _build.require(c > 0, f"the probe's cluster size query failed: cudaError {-c}")
+    return c
 
 
 def _launch(entry: str, name: str, a, bt, n_cols: int, nblocks: int, reps: int):
@@ -49,20 +54,20 @@ def _launch(entry: str, name: str, a, bt, n_cols: int, nblocks: int, reps: int):
     _build.require(a.is_contiguous() and bt.is_contiguous() and _build.aligned16(a, bt),
                    "a and bt must be contiguous and 16-byte aligned")
     k_bytes = k * a.element_size()
-    _build.require(m % 256 == 0 and n_cols % 128 == 0 and k_bytes % 128 == 0,
-                   f"the probe tiles take M % 256, n_cols % 128 and K bytes % 128 == 0; "
+    _build.require(m % 64 == 0 and n_cols % 128 == 0 and k_bytes % 128 == 0,
+                   f"the probe tiles take M % 64, n_cols % 128 and K bytes % 128 == 0; "
                    f"got {m}, {n_cols}, {k_bytes}")
     int8 = a.dtype == torch.int8
-    out = torch.zeros((m, n_cols), dtype=torch.int32 if int8 else torch.float32,
+    # every element is written once: no zeroing
+    out = torch.empty((m, n_cols), dtype=torch.int32 if int8 else torch.float32,
                       device=a.device)
-    splits = _splits(a.device, (m // 256) * (n_cols // 128), reps)
     fn = getattr(_build.lib(), entry)
     if entry == "hyv_probe_rate":
         err = fn(a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, k_bytes, n_cols, nblocks,
-                 reps, splits, int(int8), _build.stream_ptr(a.device))
+                 reps, int(int8), _build.stream_ptr(a.device))
     else:
         err = fn(a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, k_bytes, n_cols, reps,
-                 splits, int(int8), _build.stream_ptr(a.device))
+                 int(int8), _build.stream_ptr(a.device))
     _build.check(err, name)
     return out
 
@@ -92,18 +97,30 @@ def ternary(shape, generator, device):
 
 
 def _ms(fn, reps: int = 3) -> float:
-    """Median ms of one call of fn between CUDA events, after a warm-up."""
+    """Median device ms of one call of fn, after a warm-up. Each turn queues
+    ``calls`` back-to-back calls behind a device sleep and times them
+    between CUDA events, so the host's launch cost stays out of the time
+    (a P2 call takes microseconds, less than its wrapper's host work)."""
     fn()
     torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    calls = 1 if ev0.elapsed_time(ev1) > 1.0 else 20
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(5_000_000)  # some ms of device time: the calls queue behind it
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         ev0.record()
-        fn()
+        for _ in range(calls):
+            fn()
         ev1.record()
         torch.cuda.synchronize()
-        times.append(ev0.elapsed_time(ev1))
+        times.append(ev0.elapsed_time(ev1) / calls)
     return statistics.median(times)
 
 
@@ -125,7 +142,7 @@ def measure(tag: str, shape, kernel, generator) -> dict:
     ops = 2.0 * m * k * n_cols * nblocks * reps
     lib_ops = 2.0 * m * k * n_cols * nblocks
     out = {"probe": tag, "m": m, "k": k, "n_cols": n_cols, "nblocks": nblocks, "reps": reps,
-           "max_partial_sum": partial}
+           "max_partial_sum": partial, "cluster": cluster_size(a8, n_cols, reps)}
     for name, a, bt, library in (("int8", a8, b8, lambda: torch._int_mm(a8, b8.t())),
                                  ("bf16", a16, b16, lambda: torch.matmul(a16, b16.t()))):
         out[f"{name}_exact"] = bool(torch.equal(kernel(a, bt).double(), ref.double()))

@@ -125,15 +125,16 @@ def bwd_kernel(x, w, c_tab, s_tab, g, num_heads, eps, do_rope):
         c_ptr, s_ptr = c_tab.data_ptr(), s_tab.data_ptr()
     else:
         c_ptr = s_ptr = None
-    n_tiles = (l + 31) // 32
+    lib = _build.lib()
+    parts = lib.hyv_rmsnorm_rope_bwd_parts(b, l, n, int(do_rope))  # the grid
     dx = torch.empty_like(x)
-    dw_part = torch.empty((b, n_tiles, m), dtype=torch.float32, device=x.device)
-    err = _build.lib().hyv_rmsnorm_rope_bwd(
+    dw_part = torch.empty((parts, m), dtype=torch.float32, device=x.device)
+    err = lib.hyv_rmsnorm_rope_bwd(
         x.data_ptr(), w.data_ptr(), c_ptr, s_ptr, g.data_ptr(), dx.data_ptr(),
         dw_part.data_ptr(), b, l, n, d, float(eps), int(do_rope), _build.stream_ptr(x.device))
     _build.check(err, "K7")
-    # the second pass over the per-tile partials, in a fixed order
-    return dx, dw_part.sum(dim=(0, 1))
+    # the second pass over the per-block partials, in a fixed order
+    return dx, dw_part.sum(dim=0)
 
 
 class _RmsNormRope(torch.autograd.Function):

@@ -8,11 +8,16 @@ into its own ``build/`` directory, and calls both through their C entry
 points (whose signatures K6-K9 share across checkouts) on the same inputs:
 K6 (rope) and K8 (bf16 out) at [2, 32,760, 1536], as the 81-frame CFG-2
 forward calls them, and K7 (rope) and K9 (bf16 cotangent) at [1, 32,760,
-1536], as the training backward does. Each pair is checked to agree: the
-per-tile partials of K7 and K9 summed as the wrappers sum them, and every
-output within 1e-5 of its max (fp32) or one bf16 ulp of it (bf16), since
-two builds may sum in another order. Then each pair is timed in turns
-(other, this, this, other, ...) with CUDA events over 20 calls a turn.
+1536], as the training backward does; K7 also at the 14B width, [1, 32,760,
+5120] (the PAVRM step) and [1, 75,600, 5120] with 40 heads, and at
+bench.py's [1, 3,120, 1280] with 10 heads (tags K7_d5120, K7_d5120_l75600,
+K7_d1280). Each pair is checked to agree: the dw and ds/dt partials
+summed as the wrappers sum them (K7's are per 32-row tile or, where the
+library has hyv_rmsnorm_rope_bwd_parts, per block), and every output
+within 1e-5 of its max (fp32) or one bf16 ulp of it (bf16; K7's dx two),
+since two builds may sum in another order. Then each pair is timed in
+turns (other, this, this, other, ...) with CUDA events over 20 calls a
+turn.
 Prints each library's ptxas register and spill lines for the instances it
 launches, then one JSON line per kernel: the median ms of each library, the
 minimum and maximum over its turns, and this/other. Needs a CUDA device.
@@ -120,17 +125,35 @@ def main(argv=None) -> int:
     s1 = s2[:1].contiguous()
     gb = torch.randn(1, lq, dim, device=dev, generator=g).bfloat16()
     n_tiles = (lq + 31) // 32
+    # K7 at the other widths: tag -> (rows, heads), batch 1, with rope
+    k7_wide = {"K7_d5120": (32760, 40), "K7_d5120_l75600": (75600, 40), "K7_d1280": (3120, 10)}
+    wide_in = {}
+    for tag, (rows, heads) in k7_wide.items():
+        wide_in[tag] = (
+            torch.randn(1, rows, heads * d, device=dev, generator=g).bfloat16(),
+            1.0 + 0.1 * torch.randn(heads * d, device=dev, generator=g),
+            torch.randn(rows, d, device=dev, generator=g),
+            torch.randn(rows, d, device=dev, generator=g),
+            torch.randn(1, heads, rows, d, device=dev, generator=g).bfloat16())
+
+    def k7_parts(lib, rows, heads):
+        """K7's dw partials: one per block where the library says so, else
+        one per 32-row tile"""
+        try:
+            return lib.hyv_rmsnorm_rope_bwd_parts(1, rows, heads, 1)
+        except AttributeError:
+            return (rows + 31) // 32
 
     def outputs(label):
         """Fresh outputs per library, and each kernel's call on them."""
+        lib = libs[label]
         o6 = torch.empty(2, n, lq, d, dtype=torch.bfloat16, device=dev)
         o8 = torch.empty(2, lq, dim, dtype=torch.bfloat16, device=dev)
         dx7 = torch.empty_like(x1)
-        dw7 = torch.empty(1, n_tiles, dim, device=dev)
+        dw7 = torch.empty(k7_parts(lib, lq, n), dim, device=dev)
         dx9 = torch.empty_like(xf1)
         ds9 = torch.empty(1, n_tiles, dim, device=dev)
         dt9 = torch.empty_like(ds9)
-        lib = libs[label]
 
         def check(err):
             if err != 0:
@@ -151,23 +174,38 @@ def main(argv=None) -> int:
                 dt9.data_ptr(), 1, lq, dim, 1e-6, 1, stream)),
         }
         results = {"K6": (o6,), "K7": (dx7, dw7), "K8": (o8,), "K9": (dx9, ds9, dt9)}
+        for tag, (rows, heads) in k7_wide.items():
+            xw, ww, cw, sw, gw = wide_in[tag]
+            dxw = torch.empty_like(xw)
+            dww = torch.empty(k7_parts(lib, rows, heads), heads * d, device=dev)
+            calls[tag] = (lambda xw=xw, ww=ww, cw=cw, sw=sw, gw=gw, dxw=dxw, dww=dww,
+                          rows=rows, heads=heads: check(lib.hyv_rmsnorm_rope_bwd(
+                              xw.data_ptr(), ww.data_ptr(), cw.data_ptr(), sw.data_ptr(),
+                              gw.data_ptr(), dxw.data_ptr(), dww.data_ptr(), 1, rows, heads, d,
+                              1e-6, 1, stream)))
+            results[tag] = (dxw, dww)
         return calls, results
 
     runs = {label: outputs(label) for label in libs}
     ok = True
-    for name in ("K6", "K7", "K8", "K9"):
+    for name in ("K6", "K7", "K8", "K9", *k7_wide):
         for label in libs:
             runs[label][0][name]()
         torch.cuda.synchronize()
-        for a, b in zip(runs["this"][1][name], runs["other"][1][name]):
-            if a.dtype == torch.float32 and a.dim() == 3 and a.shape[1] == n_tiles:
-                a, b = a.sum(dim=1), b.sum(dim=1)  # per-tile partials, summed as the wrappers do
-            rel = 2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-5
+        outs = {label: runs[label][1][name] for label in libs}
+        if name.startswith("K7"):  # the partials, summed as the wrapper sums them
+            outs = {label: (o[0], o[1].sum(dim=0)) for label, o in outs.items()}
+        elif name == "K9":
+            outs = {label: (o[0], o[1].sum(dim=1), o[2].sum(dim=1)) for label, o in outs.items()}
+        for a, b in zip(outs["this"], outs["other"]):
+            rel = 1e-5 if a.dtype == torch.float32 else 2.0 ** -7
+            if name.startswith("K7"):
+                rel = 2.0 ** -6 if a.dtype == torch.bfloat16 else 2.0 ** -7
             err = (a.float() - b.float()).abs().max().item()
             agree = err <= rel * b.float().abs().max().item()
             ok &= agree
             if not agree:
-                print(f"{name}: the two libraries disagree")
+                print(f"{name}: the two libraries disagree ({err:.3e})")
         t = timed_turns({"other": runs["other"][0][name], "this": runs["this"][0][name]})
         med = {label: statistics.median(v) for label, v in t.items()}
         print(json.dumps({"kernel": name, "other_ms": med["other"], "this_ms": med["this"],

@@ -48,7 +48,8 @@ def load_lrm(config, device) -> PavrmModel:
     return model.eval().requires_grad_(False)
 
 
-def main(config, max_samples=None, device="cuda") -> Dict[str, Dict]:
+def evaluate_config(config, max_samples=None, device="cuda") -> Dict[str, Dict]:
+    """Score the val set of a loaded config: the CLI's work."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available (pass --device cpu for a CPU run)")
@@ -68,11 +69,16 @@ def main(config, max_samples=None, device="cuda") -> Dict[str, Dict]:
     return results
 
 
-if __name__ == "__main__":
+def main(argv=None) -> Dict[str, Dict]:
     p = argparse.ArgumentParser()
     p.add_argument("--config_path", required=True)
     p.add_argument("--max_samples", type=int, default=None)
     p.add_argument("--device", default="cuda")
-    args = p.parse_args()
+    args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    main(load_config(args.config_path), max_samples=args.max_samples, device=args.device)
+    return evaluate_config(load_config(args.config_path), max_samples=args.max_samples,
+                           device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,8 +10,8 @@ P1 (hyvideo_prfl_torch/csrc/int8_probe.cu) runs the TPU probe's grid
   - qk:    a [512, 128] x b [128, 2048], 16 b-blocks, 4,096 reps (the flash
            score tile: K = head_dim)
 
-each with int8 operands (mma.sync m16n8k32, the instruction of K10's score)
-and bf16 ones (m16n8k16, K1's), on the same ternary values. For each it
+each with int8 operands (wgmma m64n128k32 s32.s8.s8, the instruction of
+K10's score) and bf16 ones (m64n128k16, K1's), on the same ternary values. For each it
 prints one JSON line: whether the result equals the exact plain version,
 ms and TOPS, and the library's rate for the product of one rep
 (torch._int_mm for int8, torch.matmul for bf16).

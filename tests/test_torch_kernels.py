@@ -451,6 +451,49 @@ def test_k6_k7_at_every_head_count(cuda, n, l):
         _close(dw, rdw, 1)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", range(1, 65))
+def test_k7_ring_at_every_head_count(cuda, n):
+    # the persistent ring kernel at every head count, with and without rope,
+    # at a ragged L (no tile size divides 2 x 45 rows of 8, 4, 2 or 1 but
+    # the last) and at fewer rows than a tile holds
+    g = torch.Generator(device=cuda).manual_seed(100 + n)
+    m = n * 128
+    w = 1 + 0.1 * torch.randn(m, device=cuda, generator=g)
+    for l in (45, 3):
+        x = torch.randn(2, l, m, device=cuda, generator=g).bfloat16()
+        gy = torch.randn(2, n, l, 128, device=cuda, generator=g).bfloat16()
+        c, s = (torch.from_numpy(a).to(cuda) for a in rope_tables_rolled_np((1, 1, l), 128))
+        for rope in (True, False):
+            cc, ss = (c, s) if rope else (None, None)
+            before = _build.LAUNCHES["K7"]
+            dx, dw = tqr.bwd_kernel(x, w, cc, ss, gy, n, 1e-6, rope)
+            assert _build.LAUNCHES["K7"] == before + 1
+            rdx, rdw = tqr.rmsnorm_rope_bwd_plain(x, w, cc, ss, gy, n, do_rope=rope)
+            _close(dx, rdx, 2)
+            _close(dw, rdw, 1)
+            # dw is summed in a fixed order: the same bits on a second call
+            dx2, dw2 = tqr.bwd_kernel(x, w, cc, ss, gy, n, 1e-6, rope)
+            assert torch.equal(dw, dw2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 128, 2048, 16, 4096), (512, 1024, 2048, 16, 512),
+                                   (512, 512, 512, 1, 64)], ids=["P1qk", "P1bigK", "P2"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_probes_exact_at_their_shapes(cuda, shape, dtype):
+    # P1's two shapes and P2's, as the probe scripts run them
+    m, k, n_cols, nblocks, reps = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a8, a16 = int8_probe.ternary((m, k), g, cuda)
+    b8, b16 = int8_probe.ternary((nblocks * n_cols, k), g, cuda)
+    a, bt = (a8, b8) if dtype == torch.int8 else (a16, b16)
+    got = (int8_probe.probe_chain(a, bt, reps) if nblocks == 1
+           else int8_probe.probe_rate(a, bt, nblocks, reps))
+    assert torch.equal(got.double(), int8_probe.probe_plain(a8, b8, nblocks, reps))
+    assert 1 <= int8_probe.cluster_size(a, n_cols, reps) <= 8
+
+
 def _k4_case(cuda, seed, b, n, lq, lk, valid=None, wide_rows=False, merged=True,
              dq_splits=None):
     """K4 (or K5: merged=False) called directly against the plain backward

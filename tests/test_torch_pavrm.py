@@ -820,7 +820,14 @@ def test_pavrm_handoff_through_the_clis(tmp_path):
            "model__lrm_query_attention_path": str(out / "mlp" / "query_attention_step_2.ckpt")}
     infer = _load_script("inference_pavrm_torch")
     ecfg = _cli_config("smoke_pavrm", tmp_path, tmp_path / "e", **lrm)
-    res = infer.main(ecfg, device="cpu")
+    # the CLI's own main on a --config_path, written as chip_smoke's 12d
+    # writes it and read back by the port's YAML reader
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    (tmp_path / "eval.yaml").write_text(smoke.yaml_text(ecfg) + "\n")
+    res = infer.main(["--config_path", str(tmp_path / "eval.yaml"), "--device", "cpu"])
     want = tpavrm.evaluate(trainer.eval_fn, trainer.val_dataset, ecfg.eval.timestep,
                            int(ecfg.eval.seed), "cpu")
     for key, val in want.items():
@@ -880,9 +887,29 @@ def test_pavrm_launch_derivation(monkeypatch, kind, loss):
     assert counts == smoke.expected_pavrm_launches(2, loss, i2v=kind != "t2v")
 
 
+@pytest.mark.parametrize("num_queries", [1, 3])
+def test_query_attention_scores_alike_with_and_without_grad(num_queries):
+    # The trained tower's pool (weights that require grad) and the same
+    # weights loaded for scoring must give the same bits: chip_smoke's 12d
+    # holds the exported LRM to the trained tower's scores exactly.
+    from hyvideo_prfl_torch.models import reward as trw
+
+    g = torch.Generator().manual_seed(num_queries)
+    pool = trw.QueryAttention(256, num_queries, 8, "query").init_params(g)
+    with torch.no_grad():
+        for p in pool.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=g))
+    for _ in range(5):
+        x = torch.randn(2, 300, 256, generator=g)
+        with torch.no_grad():
+            trained = pool.requires_grad_(True)(x)
+            loaded = pool.requires_grad_(False)(x)
+        assert torch.equal(trained, loaded)
+
+
 def test_port_imports_no_jax_nor_safetensors(tmp_path):
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|hyvideo_prfl_tpu|safetensors)\b",
-                         re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|hyvideo_prfl_tpu|safetensors|yaml)\b", re.M)
     files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(REPO, "hyvideo_prfl_torch"))
              for f in fs if f.endswith(".py")]
     files += [os.path.join(REPO, "scripts", f) for f in os.listdir(os.path.join(REPO, "scripts"))
@@ -897,6 +924,10 @@ def test_port_imports_no_jax_nor_safetensors(tmp_path):
         "from hyvideo_prfl_torch.models import wan_dit\n"
         "from hyvideo_prfl_torch.training import ema, pavrm\n"
         "from hyvideo_prfl_torch.utils import checkpoint as ck\n"
+        "from hyvideo_prfl_torch.configs import load_config\n"
+        "pcfg = load_config('configs/train_pavrm_t2v_480.yaml')\n"
+        "assert pcfg.lrm.timestep == [400, 500, 600, 700]\n"
+        "assert pcfg.optimizer.learning_rate == 1e-5\n"
         "for name in ('train_pavrm_torch', 'inference_pavrm_torch', 'train_prfl_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
