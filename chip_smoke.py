@@ -8,13 +8,14 @@ Phases, each of which raises on failure:
 1. Print the card's name and power limit; build the Hopper kernels from
    hyvideo_prfl_torch/csrc (one nvcc per source, all at once) and print the
    build time, each slice kernel's registers and spills (K1-K5, K3s, K7,
-   K10, the probes and the norm kernels' wide instances must have none),
+   K9, K10, the probes and the norm kernels' wide instances must have
+   none),
    the shared memory of the forward, K4 (and K5's dk/dv pass), K5's dq pass
    and K10, and the warpgroup MMA and TMA load instructions in the
    disassembly of K1, K2, K3, K3s, K4, both K5 passes (HGMMA, UTMALDG), K10
-   and the int8 probe (IGMMA, UTMALDG), the bf16 probe (HGMMA, UTMALDG) and
-   K7 (UTMALDG; K7 and the probes without global atomics): all must be
-   there.
+   and the int8 probe (IGMMA, UTMALDG), the bf16 probe (HGMMA, UTMALDG),
+   K7 (UTMALDG; K7 and the probes without global atomics) and K9's two
+   instances (UBLKCP, the bulk copies of its ring): all must be there.
 2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
    streaming and K3 single-block flash forward, K10 int8-score flash
    forward) against its plain PyTorch version at the t2v-1.3B 832*480
@@ -48,7 +49,11 @@ Phases, each of which raises on failure:
    qk-norm+rope backward, K9 LayerNorm+modulate backward) against its
    plain PyTorch version at the training shapes (81 frames, batch 1), with
    a stated bound, and time each with its plain version and, for K4/K5,
-   the flash backward of PyTorch's scaled_dot_product_attention; K4 at
+   the flash backward of PyTorch's scaled_dot_product_attention, and K9
+   (dx, ds and dt bitwise equal on a second call, with either cotangent)
+   in turns with F.layer_norm's autograd backward, its function at batch
+   1 (and K8's fp32-out instance with F.layer_norm: d1536_*; K9 must not
+   be the slower); K4 at
    the self-attention and at the text cross-attention (lk 512: cross_*);
    K5 at the self-attention (in turns with K4 too, as k4_ms) and at lq
    1,024 (short_q_*: the split route through the autograd op, the dq
@@ -87,8 +92,9 @@ Phases, each of which raises on failure:
 10. The 14B width: K6-K9 against their plain versions at [1, 75,600, 5120]
    with 40 heads (t2v-14B at 720*1280, 81 frames; the norm kernels' wide
    row layout) and at [1, 3,120, 1280] with 10 heads (bench.py's shape),
-   timed beside their byte bounds, K7 bitwise equal on a second call, K8
-   (fp32 out) and K9 in turns with F.layer_norm and its backward; K1 and
+   timed beside their byte bounds, K7 and K9 bitwise equal on a second
+   call, K8 (fp32 out) and K9 in turns with F.layer_norm and its backward
+   (K9 must not be the slower); K1 and
    K2 against their plain versions at the 14B self-attention's
    sequence-parallel shards (40 heads x 18,900 tokens; 10 and 5 heads x
    75,600), timed beside SDPA's flash forward; a 2-block t2v-14B model,
@@ -332,7 +338,10 @@ def timed_turns(fns, reps=5, calls=10):
         for name, fn in (order if i % 2 == 0 else order[::-1]):
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(5_000_000)  # some ms: the turn's calls queue behind it
+            # ~10 ms, so the turn's calls are all queued before the device
+            # reaches them: one call of F.layer_norm's autograd backward
+            # takes ~0.2 ms of host time
+            torch.cuda._sleep(20_000_000)
             ev0.record()
             for _ in range(calls):
                 fn()
@@ -1039,23 +1048,30 @@ def phase_bwd_kernels(results):
 
     # K9 with the blocks' bf16 cotangent and the head's fp32 one. Bound:
     # fp32 throughout; the row sums and the 32,760-row ds/dt sums run in
-    # another order: 1e-5 of each output's max.
+    # another order: 1e-5 of each output's max. ds and dt are summed in a
+    # fixed order: dx, ds and dt the same bits on a second call. At batch 1,
+    # F.layer_norm(x, (D,), s[0], t[0])'s autograd backward computes the
+    # same function: the library call, timed in turns with K9 (and K8's
+    # fp32-out instance with F.layer_norm itself).
     x = randn(1, lq, dim, dtype=torch.float32)
     s = 1.0 + 0.1 * torch.randn(1, dim, device=dev, generator=g)
+    t_ = 0.1 * torch.randn(1, dim, device=dev, generator=g)
     for label, gdt in (("fp32 g (head)", torch.float32), ("bf16 g (blocks)", torch.bfloat16)):
         gg = randn(1, lq, dim, dtype=gdt)
         got = stream.bwd_kernel(x, s, gg, 1e-6)
         ref = stream.ln_scale_shift_bwd_plain(x, s, gg, 1e-6)
+        _k9_same_twice(got, lambda: stream.bwd_kernel(x, s, gg, 1e-6), f"[1, {lq:,}, {dim}] "
+                       f"{label}")
         timing = (timed_pair(lambda: stream.bwd_kernel(x, s, gg, 1e-6),
                              lambda: stream.ln_scale_shift_bwd_plain(x, s, gg, 1e-6))
                   if gdt == torch.bfloat16 else None)
-        # x (fp32) and g in, dx (fp32) out; no single PyTorch call computes
-        # the LayerNorm-with-modulation backward
         report_many("K9", label, [(o_, a, b, 1e-5)
                                   for o_, a, b in zip(("dx", "ds", "dt"), got, ref)],
                     results, timing,
-                    **bound(lq * dim * (4 + gg.element_size() + 4), fp32=12 * lq * dim),
-                    library_ms=None)
+                    **bound(lq * dim * (4 + gg.element_size() + 4), fp32=12 * lq * dim))
+        if timing is not None:
+            results["K9"]["library_ms"] = _layer_norm_library(results, "d1536", x, s, t_,
+                                                              gg)["K9"]
         del gg, got, ref
     del x
     torch.cuda.empty_cache()
@@ -1210,12 +1226,11 @@ GRID_BENCH = (8, 15, 26)    # bench.py's token grid (3,120)
 
 def _norm_kernels_at(results, tag, n, grid, g):
     """K6-K9 against their plain versions at [1, prod(grid), 128 n] with n
-    heads, timed beside their byte bounds, K7's outputs bitwise equal on a
-    second call, and K8 (fp32 out) and K9 in turns with F.layer_norm and its
-    backward, the one PyTorch call of their function at batch 1; recorded
-    under ``tag``."""
+    heads, timed beside their byte bounds, K7's and K9's outputs bitwise
+    equal on a second call, and K8 (fp32 out) and K9 in turns with
+    F.layer_norm and its backward, the one PyTorch call of their function
+    at batch 1; recorded under ``tag``."""
     import torch
-    import torch.nn.functional as F
 
     from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
     from hyvideo_prfl_torch.ops import qknorm_rope as qr
@@ -1258,6 +1273,8 @@ def _norm_kernels_at(results, tag, n, grid, g):
             same = all(torch.equal(a, b) for a, b in zip(got, kern()))
             print(f"  K7 [1, {l:,}, {dim}]: dx and dw bitwise equal on a second call: {same}")
             expect(same, f"K7 at [1, {l}, {dim}] is not deterministic")
+        elif name == "K9":
+            _k9_same_twice(got, kern, f"[1, {l:,}, {dim}]")
         worst = 0.0
         for (out_name, rel_bound), a, b in zip(outs, got, ref):
             err, rmax, fin = max_err(a, b)
@@ -1274,39 +1291,69 @@ def _norm_kernels_at(results, tag, n, grid, g):
         results[name].update({f"{tag}_ms": ms, f"{tag}_plain_ms": pms,
                               f"{tag}_bound_ms": bd, f"{tag}_max_abs_err": worst})
 
-    # The library call at batch 1: F.layer_norm with weight s[0] and bias
-    # t[0] computes K8's function (fp32 in, fp32 out: timed beside K8's
-    # fp32-out instance), and its autograd backward K9's (dx, ds, dt; it
-    # takes the cotangent in fp32, K9 reads it in bf16). Neither is used by
-    # the port; their outputs are held to the plain versions' at K8's and
-    # K9's bounds, so the time is of the same function.
+    _layer_norm_library(results, tag, x32, s_, t_, g32)
+    del x32, g32, xb, gh, cases
+    torch.cuda.empty_cache()
+
+
+def _k9_same_twice(got, kern, label):
+    """K9 sums ds and dt in an order fixed by the shapes and the SM count:
+    dx, ds and dt the same bits on a second call (a bitwise resume on the
+    card relies on it)."""
+    import torch
+
+    same = all(torch.equal(a, b) for a, b in zip(got, kern()))
+    print(f"  K9 {label}: dx, ds and dt bitwise equal on a second call: {same}")
+    expect(same, f"K9 at {label} is not deterministic")
+
+
+def _layer_norm_library(results, tag, x32, s_, t_, g):
+    """K8's fp32-out instance and K9 in turns with their library call at
+    batch 1, recorded under ``tag``: F.layer_norm with weight s[0] and
+    bias t[0] computes K8's function (fp32 in, fp32 out), and its autograd
+    backward K9's (dx, ds, dt; it takes the cotangent in fp32, K9 reads
+    g as given). Neither is used by the port; their outputs are held to the
+    plain versions' at K8's and K9's bounds, so the time is of the same
+    function. Returns {"K8": ms, "K9": ms} of the library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from hyvideo_prfl_torch.ops import stream
+
+    l, dim = x32.shape[1:]
     xr = x32.clone().requires_grad_()
     sr, tr = s_[0].clone().requires_grad_(), t_[0].clone().requires_grad_()
     yr = F.layer_norm(xr, (dim,), sr, tr, 1e-6)
-    g32f = g32.float()
+    gf = g.float()
     lib8 = F.layer_norm(x32, (dim,), s_[0], t_[0], 1e-6)
     ref8 = stream.ln_scale_shift_plain(x32, s_, t_, 1e-6, torch.float32)
     e8, m8, _ = max_err(lib8, ref8)
-    lib9 = torch.autograd.grad(yr, (xr, sr, tr), g32f, retain_graph=True)
-    ref9 = stream.ln_scale_shift_bwd_plain(x32, s_, g32, 1e-6)
+    lib9 = torch.autograd.grad(yr, (xr, sr, tr), gf, retain_graph=True)
+    ref9 = stream.ln_scale_shift_bwd_plain(x32, s_, g, 1e-6)
     e9 = [max_err(a, b.reshape(a.shape)) for a, b in zip(lib9, ref9)]
     del lib8, ref8, lib9, ref9
     expect(e8 <= 2.0 ** -7 * m8 and all(e <= 1e-5 * m for e, m, _ in e9),
            f"F.layer_norm at [1, {l}, {dim}] computes another function: {e8}, {e9}")
     t8 = timed_turns({"kernel": lambda: stream._kernel(x32, s_, t_, 1e-6, torch.float32),
                       "library": lambda: F.layer_norm(x32, (dim,), s_[0], t_[0], 1e-6)})
-    t9 = timed_turns({"kernel": cases["K9"][0],
-                      "library": lambda: torch.autograd.grad(yr, (xr, sr, tr), g32f,
+    t9 = timed_turns({"kernel": lambda: stream.bwd_kernel(x32, s_, g, 1e-6),
+                      "library": lambda: torch.autograd.grad(yr, (xr, sr, tr), gf,
                                                              retain_graph=True)})
     b8 = bound(l * dim * 8)["bound_ms"]
+    b9 = bound(l * dim * (4 + g.element_size() + 4))["bound_ms"]
     print(f"  K8 [1, {l:,}, {dim}] fp32 out: kernel {t8['kernel']:.4f} ms, F.layer_norm "
-          f"{t8['library']:.4f} ms (bound {b8:.4f} ms); K9: kernel {t9['kernel']:.4f} ms, "
-          f"F.layer_norm's backward {t9['library']:.4f} ms; {CARD}")
-    results["K8"].update({f"{tag}_fp32_ms": t8["kernel"], f"{tag}_fp32_bound_ms": b8,
-                          f"{tag}_library_ms": t8["library"]})
-    results["K9"][f"{tag}_library_ms"] = t9["library"]
-    del x32, g32, g32f, xb, gh, cases, xr, sr, tr, yr
-    torch.cuda.empty_cache()
+          f"{t8['library']:.4f} ms (bound {b8:.4f} ms); K9: kernel {t9['kernel']:.4f} ms "
+          f"({b9 / t9['kernel']:.3f} of its bound), F.layer_norm's backward "
+          f"{t9['library']:.4f} ms; {CARD}")
+    expect(t9["kernel"] <= t9["library"],
+           f"K9 at [1, {l}, {dim}] is slower than F.layer_norm's backward: {t9}")
+    results.setdefault("K8", {}).update({f"{tag}_fp32_ms": t8["kernel"],
+                                         f"{tag}_fp32_bound_ms": b8,
+                                         f"{tag}_library_ms": t8["library"]})
+    results.setdefault("K9", {}).update({f"{tag}_library_ms": t9["library"],
+                                         f"{tag}_in_library_turns_ms": t9["kernel"]})
+    del xr, sr, tr, yr, gf
+    return {"K8": t8["library"], "K9": t9["library"]}
 
 
 def phase_wide(results):
@@ -2683,11 +2730,12 @@ def print_ptxas(log: str, smem: dict) -> None:
     ptxas warning about them (a serialised wgmma pipeline, an ignored
     setmaxnreg), and the dynamic shared memory per block of the TMA/wgmma
     kernels (``smem``: name -> bytes). The
-    norm kernels' instances: narrow rows (a warp each) under a ceiling of
-    12 (K8/K9) or 6 (K6/K7) chunks a lane, filled exactly at D 1536 / 12
-    heads (a compile-time count) and not at D 1280 / 10 heads, and wide
+    norm kernels' instances: K6/K8's narrow rows (a warp each) under a
+    ceiling of 12 (K8) or 6 (K6) chunks a lane, filled exactly at D 1536 /
+    12 heads (a compile-time count) and not at D 1280 / 10 heads, and wide
     rows (a block each) at D 5120 / 40 heads; K7 one ring kernel for every
-    width, with rope and without."""
+    width, with rope and without; K9 one ring kernel for every width, per g
+    type."""
     wanted = {"flash_fwd_kernelILb0ELb1E": "K1",
               "flash_fwd_kernelILb0ELb0E": "K3",
               "flash_fwd_kernelILb1ELb1E": "K2",
@@ -2701,11 +2749,8 @@ def print_ptxas(log: str, smem: dict) -> None:
               "flash_bwd_dq_kernel": "K5 dq",
               "rmsnorm_rope_bwd_kernelILb1E": "K7 rope",
               "rmsnorm_rope_bwd_kernelILb0E": "K7 norm-only",
-              "ln_scale_shift_bwd_kernelILi1ELi12ELb1E13__nv_bfloat16": "K9 narrow D=1536 bf16-g",
-              "ln_scale_shift_bwd_kernelILi1ELi12ELb1Ef": "K9 narrow D=1536 fp32-g",
-              "ln_scale_shift_bwd_kernelILi1ELi12ELb0E13__nv_bfloat16": "K9 narrow D=1280 bf16-g",
-              "ln_scale_shift_bwd_kernelILi8ELi8ELb0E13__nv_bfloat16": "K9 wide bf16-g",
-              "ln_scale_shift_bwd_kernelILi8ELi8ELb0Ef": "K9 wide fp32-g",
+              "ln_scale_shift_bwd_kernelI13__nv_bfloat16E": "K9 bf16-g",
+              "ln_scale_shift_bwd_kernelIfE": "K9 fp32-g",
               "ln_scale_shift_kernelILi1ELi12ELb1E13__nv_bfloat16": "K8 narrow D=1536 bf16-out",
               "ln_scale_shift_kernelILi1ELi12ELb1Ef": "K8 narrow D=1536 fp32-out",
               "ln_scale_shift_kernelILi1ELi12ELb0E13__nv_bfloat16": "K8 narrow D=1280 bf16-out",
@@ -2732,7 +2777,8 @@ def print_ptxas(log: str, smem: dict) -> None:
             print(f"  ptxas {current}: {line.split(':', 1)[-1].strip()}")
             # the TMA/wgmma kernels (K7's ring and the probes too) and the
             # norm kernels' wide row layout must not spill
-            if current in ("K1", "K2", "K3", "K3s", "K10") or current[:2] in ("K4", "K5", "K7") \
+            if current in ("K1", "K2", "K3", "K3s", "K10") \
+                    or current[:2] in ("K4", "K5", "K7", "K9") \
                     or "wide" in current or current.startswith("P1/P2"):
                 expect("spill" not in line or " 0 bytes spill stores" in line,
                        f"ptxas: {current} spills: {line.strip()}")
@@ -2743,10 +2789,12 @@ def print_ptxas(log: str, smem: dict) -> None:
 def check_sass(lib_path) -> None:
     """The forward's four instances, K4's and K5's main kernels, K10, K7
     and the probes, disassembled from the built library, must load by TMA
-    (UTMALDG); all but K7 multiply on wgmma: HGMMA (bf16), and for K10's
-    int8 score and the int8 probe IGMMA; the forward and K10 store o by
-    TMA (UTMASTG), K4 adds dq by TMA reductions (UTMAREDG), K5's dq pass
-    needs neither; K7 and the probes use no global atomics (ATOM, RED)."""
+    (UTMALDG), and K9's two instances by bulk copy (UBLKCP); all but K7
+    and K9 multiply on wgmma: HGMMA (bf16), and for K10's int8 score and
+    the int8 probe IGMMA; the forward and K10 store o by TMA (UTMASTG), K4
+    adds dq by TMA reductions (UTMAREDG), K5's dq pass needs neither; K7
+    and the probes use no global atomics (ATOM, RED; K9 takes its grid's
+    ticket by one, on a counter, never on the data)."""
     from hyvideo_prfl_torch.ops import _build
 
     kernels = {"flash_fwd_kernelILb0ELb1E": "K1", "flash_fwd_kernelILb1ELb1E": "K2",
@@ -2754,9 +2802,14 @@ def check_sass(lib_path) -> None:
                "flash_bwd_merged_kernel": "K4", "flash_bwd_dkv_kernel": "K5 dk/dv",
                "flash_bwd_dq_kernel": "K5 dq", "flash_fwd_qk8_kernel": "K10",
                "rmsnorm_rope_bwd_kernelILb1E": "K7 rope", "rmsnorm_rope_bwd_kernelILb0E": "K7",
-               "probe_kernelILb1E": "P int8", "probe_kernelILb0E": "P bf16"}
+               "probe_kernelILb1E": "P int8", "probe_kernelILb0E": "P bf16",
+               "ln_scale_shift_bwd_kernelI13__nv_bfloat16E": "K9 bf16-g",
+               "ln_scale_shift_bwd_kernelIfE": "K9 fp32-g"}
     # the wgmma opcode each kernel needs
-    gmma = {"K10": "IGMMA", "P int8": "IGMMA", "K7 rope": None, "K7": None}
+    gmma = {"K10": "IGMMA", "P int8": "IGMMA", "K7 rope": None, "K7": None,
+            "K9 bf16-g": None, "K9 fp32-g": None}
+    # the load: TMA tensor copies, but K9's rows are plain bulk copies
+    load = {"K9 bf16-g": "UBLKCP", "K9 fp32-g": "UBLKCP"}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -2765,7 +2818,7 @@ def check_sass(lib_path) -> None:
         if "Function :" in line:
             current = next((v for k, v in kernels.items() if k in line), None)
         elif current:
-            for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG"):
+            for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG", "UBLKCP"):
                 if op in line:
                     counts[current][op] = counts[current].get(op, 0) + 1
             # the instruction's mnemonic, after its address and predicate
@@ -2774,9 +2827,9 @@ def check_sass(lib_path) -> None:
                 counts[current]["global atomic"] = counts[current].get("global atomic", 0) + 1
     for name, c in counts.items():
         print(f"  {name} SASS instruction counts: {c}")
-        op = gmma.get(name, "HGMMA")
-        expect(c.get("UTMALDG", 0) > 0 and (op is None or c.get(op, 0) > 0),
-               f"{name}'s kernel lacks UTMALDG or {op}: {c}")
+        op, ld = gmma.get(name, "HGMMA"), load.get(name, "UTMALDG")
+        expect(c.get(ld, 0) > 0 and (op is None or c.get(op, 0) > 0),
+               f"{name}'s kernel lacks {ld} or {op}: {c}")
         expect(name not in ("K7 rope", "K7", "P int8", "P bf16") or not c.get("global atomic"),
                f"{name}'s kernel uses global atomics: {c}")
 

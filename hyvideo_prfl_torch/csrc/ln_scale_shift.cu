@@ -25,7 +25,8 @@
 // of 128 takes one of a few instances; a width that fills its narrow
 // ceiling (512, 1024, 1536, 2048) takes an instance with the count fixed
 // at compile time (kExact), whose guards fold away: the runtime guards
-// cost K9 and K7 14-19% at width 1536 on an H100. Guards are predicates,
+// cost the backward kernels 14-19% at width 1536 on an H100 when they took
+// these layouts too. Guards are predicates,
 // not branches, so a pass's loads issue together. Loads are 16 B per lane
 // on neighbouring addresses.
 #include "row_norm.cuh"

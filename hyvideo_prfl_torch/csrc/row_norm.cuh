@@ -1,5 +1,8 @@
-// The row layouts of the normalisation kernels K6, K8 and K9 (qknorm_rope.cu,
-// ln_scale_shift*.cu): which threads hold a feature row, and their row sums.
+// The row layouts of the forward normalisation kernels K6 and K8
+// (qknorm_rope.cu, ln_scale_shift.cu): which threads hold a feature row, and
+// their row sums. Their backward kernels K7 and K9 (qknorm_rope_bwd.cu,
+// ln_scale_shift_bwd.cu) take none of these layouts: each runs on a
+// persistent grid fed by a bulk-copy ring, S warps a row.
 //
 // A narrow row is one warp's: a block of 4 warps works on 4 rows at once
 // and a row sum is a warp shuffle. A wide row is a whole block's (8 warps):

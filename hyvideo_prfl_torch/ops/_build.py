@@ -39,7 +39,7 @@ _SIGNATURES = {
     "hyv_ln_scale_shift": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "hyv_rmsnorm_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "hyv_flash_fwd": [_P] * 6 + [_I] * 4 + [_LL] * 12 + [_F, _I, _I, _P],
-    "hyv_ln_scale_shift_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "hyv_ln_scale_shift_bwd": [_P] * 8 + [_I, _I, _I, _F] + [_I] * 6 + [_P],
     "hyv_rmsnorm_rope_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "hyv_flash_bwd": [_P] * 14 + [_I] * 6 + [_LL] * 21 + [_F, _F, _P],
     "hyv_flash_bwd_merged": [_P] * 13 + [_I] * 5 + [_LL] * 21 + [_F, _F, _P],

@@ -13,12 +13,16 @@ math as the JAX package's ``_xla_ref`` and ``_bwd_kernel``.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from . import _build
 
 # K8 and K9 take every multiple of 128 up to this width (the JAX kernels
-# take every multiple of 128); narrow rows are a warp's, wide ones a block's
+# take every multiple of 128). K8: narrow rows are a warp's, wide ones a
+# block's (csrc/row_norm.cuh); K9: S warps a row on a persistent grid
 MAX_DIM = 8192
 
 
@@ -81,6 +85,99 @@ def _kernel(x, s, t, eps, out_dtype):
     return out
 
 
+# K9's persistent grid (csrc/ln_scale_shift_bwd.cu), computed here so the
+# wrapper allocates from it and a CPU test can check it; the kernel checks
+# what it is given against the same limits
+K9_WARPS = 8            # consumer warps a block; a ninth issues the copies
+K9_MAX_GROUPS = 8       # 128-feature groups a lane takes per row
+K9_MAX_STAGES = 8
+K9_SMEM_MAX = 227 * 1024
+K9_HEADER = 1024        # barriers and row-sum slots, before s[b] and the ds/dt region
+K9_IN_FLIGHT = 48 * 1024  # bytes of x and g a block keeps loading (at least 2 stages)
+
+
+@dataclasses.dataclass(frozen=True)
+class K9Geometry:
+    """Tiles of ``T`` rows of one batch element, ``S`` warps a row, a ring
+    of ``stages`` stages from byte ``ring`` of shared memory; block i owns
+    tiles ``run(i)``, and its ds/dt partial for batch element b lies in
+    slot i + b of ``slots``."""
+
+    b: int
+    l: int
+    d: int
+    S: int
+    T: int
+    stages: int
+    stage_bytes: int
+    ring: int
+    smem: int
+    tiles_per_b: int
+    tiles: int
+    grid: int
+
+    @property
+    def slots(self) -> int:
+        return self.grid + self.b - 1
+
+    def run(self, i: int) -> range:
+        return range(i * self.tiles // self.grid, (i + 1) * self.tiles // self.grid)
+
+    def rows(self, tile: int):
+        """(b, first row, row count) of a tile."""
+        b, k = divmod(tile, self.tiles_per_b)
+        return b, k * self.T, min(self.T, self.l - k * self.T)
+
+    def owner(self, tile: int) -> int:
+        return ((tile + 1) * self.grid - 1) // self.tiles
+
+    def blocks_of(self, b: int) -> range:
+        """The blocks whose runs hold rows of batch element b, in order."""
+        return range(self.owner(b * self.tiles_per_b),
+                     self.owner((b + 1) * self.tiles_per_b - 1) + 1)
+
+
+def k9_geometry(b: int, l: int, d: int, g_bytes: int, sms: int) -> K9Geometry:
+    """K9's partition of a call: the fewest warps per row S (1, 2, 4 or 8)
+    that leave a lane at most K9_MAX_GROUPS groups, T = 8 / S rows a tile
+    (at most L), and stages enough to keep K9_IN_FLIGHT bytes loading, at
+    least two (on the H100 a deeper ring was slower at every width
+    measured), after the header, s[b] and the [2, D] region where the row
+    groups add their ds/dt partials; one block per SM at most."""
+    _build.require(_has_instance(d) and b * l > 0 and sms > 0 and g_bytes in (2, 4),
+                   f"K9 has no partition for [{b}, {l}, {d}]")
+    groups = d // 128
+    S = 1
+    while -(-groups // S) > K9_MAX_GROUPS:
+        S *= 2
+    T = min(K9_WARPS // S, l)
+    ring = K9_HEADER + 4 * d + (8 * d if T > 1 else 0)
+    stage_bytes = T * d * (4 + g_bytes)
+    stages = min(K9_MAX_STAGES, (K9_SMEM_MAX - ring) // stage_bytes,
+                 max(2, -(-K9_IN_FLIGHT // stage_bytes)))
+    tiles_per_b = -(-l // T)
+    tiles = b * tiles_per_b
+    return K9Geometry(b, l, d, S, T, stages, stage_bytes, ring, ring + stages * stage_bytes,
+                      tiles_per_b, tiles, min(tiles, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# one word per (device, stream) for K9's grid-wide ticket: zero at first,
+# and the kernel leaves it so
+_K9_SYNC: dict = {}
+
+
+def _k9_sync(device):
+    key = (device.index, _build.stream_ptr(device))
+    if key not in _K9_SYNC:
+        _K9_SYNC[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _K9_SYNC[key]
+
+
 def bwd_kernel(x, s, g, eps):
     """Launch K9 on CUDA tensors -> (dx, ds, dt) as ln_scale_shift_bwd_plain."""
     b, l, d = x.shape
@@ -90,17 +187,20 @@ def bwd_kernel(x, s, g, eps):
                    f"K9: g must be bf16 or fp32 {tuple(x.shape)}")
     _build.require(g.device == x.device and g.is_contiguous() and _build.aligned16(g),
                    "K9 takes a contiguous, 16-byte aligned g on x's device")
-    n_tiles = (l + 31) // 32
     dx = torch.empty_like(x)
-    ds_part = torch.empty((b, n_tiles, d), dtype=torch.float32, device=x.device)
-    dt_part = torch.empty_like(ds_part)
+    if b * l == 0:
+        return dx, x.new_zeros(b, d), x.new_zeros(b, d)
+    geo = k9_geometry(b, l, d, g.element_size(), _sm_count(x.device.index))
+    ds = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    dt = torch.empty_like(ds)
+    part = torch.empty((geo.slots, 2, d), dtype=torch.float32, device=x.device)
     err = _build.lib().hyv_ln_scale_shift_bwd(
-        x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(), ds_part.data_ptr(),
-        dt_part.data_ptr(), b, l, d, float(eps), int(g.dtype == torch.bfloat16),
+        x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        ds.data_ptr(), dt.data_ptr(), _k9_sync(x.device).data_ptr(), b, l, d, float(eps),
+        int(g.dtype == torch.bfloat16), geo.S, geo.T, geo.stages, geo.ring, geo.grid,
         _build.stream_ptr(x.device))
     _build.check(err, "K9")
-    # the second pass over the per-tile partials, in a fixed order
-    return dx, ds_part.sum(dim=1), dt_part.sum(dim=1)
+    return dx, ds, dt
 
 
 def _on_card(x):

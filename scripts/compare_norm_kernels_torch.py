@@ -4,20 +4,26 @@ checkout of the port (for example the parent commit's), in turns on one card.
     python3 scripts/compare_norm_kernels_torch.py --other path/to/other/checkout
 
 Builds both kernel libraries, each from its own ``hyvideo_prfl_torch/csrc``
-into its own ``build/`` directory, and calls both through their C entry
-points (whose signatures K6-K9 share across checkouts) on the same inputs:
+into its own ``build/`` directory. K6-K8 are called through their C entry
+points (whose signatures they share across checkouts) on the same inputs:
 K6 (rope) and K8 (bf16 out) at [2, 32,760, 1536], as the 81-frame CFG-2
-forward calls them, and K7 (rope) and K9 (bf16 cotangent) at [1, 32,760,
-1536], as the training backward does; K7 also at the 14B width, [1, 32,760,
-5120] (the PAVRM step) and [1, 75,600, 5120] with 40 heads, and at
-bench.py's [1, 3,120, 1280] with 10 heads (tags K7_d5120, K7_d5120_l75600,
-K7_d1280). Each pair is checked to agree: the dw and ds/dt partials
-summed as the wrappers sum them (K7's are per 32-row tile or, where the
+forward calls them, and K7 (rope) at [1, 32,760, 1536], as the training
+backward does; K7 also at the 14B width, [1, 32,760, 5120] (the PAVRM step)
+and [1, 75,600, 5120] with 40 heads, and at bench.py's [1, 3,120, 1280]
+with 10 heads (tags K7_d5120, K7_d5120_l75600, K7_d1280). K9 (bf16
+cotangent) is called through each checkout's own wrapper, ``ops/stream.py``
+``bwd_kernel`` (the other package imported under another name, so that it
+launches its own build), since the two forms of its ds/dt partials differ:
+per 32-row tile summed by two torch reductions, or per (block, batch
+element) summed inside the kernel. So K9's time is everything autograd
+pays; it runs at [1, 32,760, 1536] (tag K9), [1, 3,120, 1280] (K9_d1280)
+and [1, 32,760, 5120] (K9_d5120). Each pair is checked to agree: K7's dw
+partials summed as the wrapper sums them (per 32-row tile or, where the
 library has hyv_rmsnorm_rope_bwd_parts, per block), and every output
 within 1e-5 of its max (fp32) or one bf16 ulp of it (bf16; K7's dx two),
 since two builds may sum in another order. Then each pair is timed in
 turns (other, this, this, other, ...) with CUDA events over 20 calls a
-turn.
+turn, queued behind a device sleep, so the events time the device alone.
 Prints each library's ptxas register and spill lines for the instances it
 launches, then one JSON line per kernel: the median ms of each library, the
 minimum and maximum over its turns, and this/other. Needs a CUDA device.
@@ -26,6 +32,7 @@ minimum and maximum over its turns, and this/other. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -68,6 +75,18 @@ def register_lines(build, fragments):
     return out
 
 
+def load_stream_module(checkout: str, alias: str):
+    """The checkout's ops/stream.py, its package imported as ``alias``, so
+    its wrappers launch the kernels of its own build."""
+    pkg = os.path.join(checkout, "hyvideo_prfl_torch")
+    spec = importlib.util.spec_from_file_location(alias, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.stream")
+
+
 def timed_turns(fns, reps=7, calls=20):
     for fn in fns.values():
         fn()
@@ -78,6 +97,7 @@ def timed_turns(fns, reps=7, calls=20):
         for name, fn in (order if i % 2 == 0 else order[::-1]):
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(10_000_000)  # the turn's calls queue behind it
             ev0.record()
             for _ in range(calls):
                 fn()
@@ -97,8 +117,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    libs = {}
+    libs, streams = {}, {}
     for label, root in (("other", args.other), ("this", REPO)):
+        streams[label] = load_stream_module(root, f"_hyv_{label}")
         build = load_build(root)
         libs[label] = build.lib()
         print(f"{label} ({root}): built in {build.build_seconds:.2f} s")
@@ -119,12 +140,14 @@ def main(argv=None) -> int:
     x1 = torch.randn(1, lq, dim, device=dev, generator=g).bfloat16()
     gh = torch.randn(1, n, lq, d, device=dev, generator=g).bfloat16()
     xf2 = torch.randn(2, lq, dim, device=dev, generator=g)
-    xf1 = torch.randn(1, lq, dim, device=dev, generator=g)
     s2 = 1.0 + 0.1 * torch.randn(2, dim, device=dev, generator=g)
     t2 = 0.1 * torch.randn(2, dim, device=dev, generator=g)
-    s1 = s2[:1].contiguous()
-    gb = torch.randn(1, lq, dim, device=dev, generator=g).bfloat16()
-    n_tiles = (lq + 31) // 32
+    # K9 at [1, rows, dim] with the blocks' bf16 cotangent: tag -> (rows, dim)
+    k9_shapes = {"K9": (lq, dim), "K9_d1280": (3120, 1280), "K9_d5120": (lq, 5120)}
+    k9_in = {tag: (torch.randn(1, rows, w_, device=dev, generator=g),
+                   1.0 + 0.1 * torch.randn(1, w_, device=dev, generator=g),
+                   torch.randn(1, rows, w_, device=dev, generator=g).bfloat16())
+             for tag, (rows, w_) in k9_shapes.items()}
     # K7 at the other widths: tag -> (rows, heads), batch 1, with rope
     k7_wide = {"K7_d5120": (32760, 40), "K7_d5120_l75600": (75600, 40), "K7_d1280": (3120, 10)}
     wide_in = {}
@@ -151,9 +174,6 @@ def main(argv=None) -> int:
         o8 = torch.empty(2, lq, dim, dtype=torch.bfloat16, device=dev)
         dx7 = torch.empty_like(x1)
         dw7 = torch.empty(k7_parts(lib, lq, n), dim, device=dev)
-        dx9 = torch.empty_like(xf1)
-        ds9 = torch.empty(1, n_tiles, dim, device=dev)
-        dt9 = torch.empty_like(ds9)
 
         def check(err):
             if err != 0:
@@ -169,11 +189,14 @@ def main(argv=None) -> int:
             "K8": lambda: check(lib.hyv_ln_scale_shift(
                 xf2.data_ptr(), s2.data_ptr(), t2.data_ptr(), o8.data_ptr(), 2, lq, dim, 1e-6,
                 1, stream)),
-            "K9": lambda: check(lib.hyv_ln_scale_shift_bwd(
-                xf1.data_ptr(), s1.data_ptr(), gb.data_ptr(), dx9.data_ptr(), ds9.data_ptr(),
-                dt9.data_ptr(), 1, lq, dim, 1e-6, 1, stream)),
         }
-        results = {"K6": (o6,), "K7": (dx7, dw7), "K8": (o8,), "K9": (dx9, ds9, dt9)}
+        results = {"K6": (o6,), "K7": (dx7, dw7), "K8": (o8,)}
+        # K9 through the checkout's wrapper: its outputs are new each call
+        for tag, (x9, s9, g9) in k9_in.items():
+            k9 = (lambda x9=x9, s9=s9, g9=g9, mod=streams[label]:
+                  mod.bwd_kernel(x9, s9, g9, 1e-6))
+            calls[tag] = k9
+            results[tag] = k9
         for tag, (rows, heads) in k7_wide.items():
             xw, ww, cw, sw, gw = wide_in[tag]
             dxw = torch.empty_like(xw)
@@ -188,15 +211,16 @@ def main(argv=None) -> int:
 
     runs = {label: outputs(label) for label in libs}
     ok = True
-    for name in ("K6", "K7", "K8", "K9", *k7_wide):
-        for label in libs:
-            runs[label][0][name]()
+    for name in ("K6", "K7", "K8", *k7_wide, *k9_shapes):
+        if name.startswith("K9"):
+            outs = {label: runs[label][1][name]() for label in libs}
+        else:
+            for label in libs:
+                runs[label][0][name]()
+            outs = {label: runs[label][1][name] for label in libs}
         torch.cuda.synchronize()
-        outs = {label: runs[label][1][name] for label in libs}
         if name.startswith("K7"):  # the partials, summed as the wrapper sums them
             outs = {label: (o[0], o[1].sum(dim=0)) for label, o in outs.items()}
-        elif name == "K9":
-            outs = {label: (o[0], o[1].sum(dim=1), o[2].sum(dim=1)) for label, o in outs.items()}
         for a, b in zip(outs["this"], outs["other"]):
             rel = 1e-5 if a.dtype == torch.float32 else 2.0 ** -7
             if name.startswith("K7"):

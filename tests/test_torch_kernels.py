@@ -229,7 +229,8 @@ def test_k7_matches_plain(cuda, l, rope):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("l,out_dtype", [(36, torch.bfloat16), (4685, torch.bfloat16),
-                                         (37, torch.float32)])
+                                         (37, torch.float32), (1, torch.bfloat16),
+                                         (3, torch.float32), (1, torch.float32)])
 def test_k9_matches_plain(cuda, l, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn(2, l, 1536, device=cuda, generator=g).requires_grad_()
@@ -409,10 +410,15 @@ def test_rope_matches_plain(cuda, dtype, grid):
 
 
 # K6-K9 at the widths of bench.py (dim 1280, 10 heads) and of the 14B
-# models (dim 5120, 40 heads: the wide row layout, a block per row), with
-# ragged row counts; the bounds are those of the 1536-wide tests above
+# models (dim 5120, 40 heads: K6/K8's wide row layout, a block per row),
+# with ragged row counts; K8/K9 also at the edges of their range (D 128,
+# 8192) and at a width of an odd group count (1920), at L 1 and under a
+# tile of K9; g in both types; the bounds are those of the 1536-wide tests
+# above
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,l", [(1280, 37), (5120, 37), (5120, 4685), (1280, 3121)])
+@pytest.mark.parametrize("d,l", [(1280, 37), (5120, 37), (5120, 4685), (1280, 3121),
+                                 (128, 37), (1920, 37), (8192, 37), (8192, 1), (1920, 3),
+                                 (128, 4685)])
 def test_k8_k9_at_every_model_width(cuda, d, l):
     g = torch.Generator(device=cuda).manual_seed(21)
     x = torch.randn(2, l, d, device=cuda, generator=g).requires_grad_()
@@ -428,6 +434,48 @@ def test_k8_k9_at_every_model_width(cuda, d, l):
         ref = tstream.ln_scale_shift_bwd_plain(x.detach(), s.detach(), gy)
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+# K9 on its persistent grid: with the partition of a card with few SMs (a
+# grid that fits on any card), block runs cross batch boundaries (B 2: a
+# run ends inside batch element 1) and span several (B 5, L under a tile),
+# and at the card's own count with B 5; dx, ds and dt the same to the bit
+# on a second call, as a bitwise resume needs
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,d,sms,g_dtype", [
+    (2, 37, 1536, 3, torch.bfloat16), (2, 4685, 1280, 7, torch.float32),
+    (5, 3, 1920, 4, torch.bfloat16), (2, 100, 8192, 3, torch.float32),
+    (5, 937, 5120, None, torch.bfloat16)])
+def test_k9_across_batch_boundaries(cuda, monkeypatch, b, l, d, sms, g_dtype):
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn(b, l, d, device=cuda, generator=g) * 0.5 + 0.3
+    s = 1 + 0.1 * torch.randn(b, d, device=cuda, generator=g)
+    gy = torch.randn(b, l, d, device=cuda, generator=g).to(g_dtype)
+    if sms:
+        monkeypatch.setattr(tstream, "_sm_count", lambda index: sms)
+        geo = tstream.k9_geometry(b, l, d, gy.element_size(), sms)
+        assert any(len({geo.rows(t)[0] for t in geo.run(i)}) > 1 for i in range(geo.grid))
+    before = _build.LAUNCHES["K9"]
+    got = tstream.bwd_kernel(x, s, gy, 1e-6)
+    assert _build.LAUNCHES["K9"] == before + 1
+    ref = tstream.ln_scale_shift_bwd_plain(x, s, gy)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-5 * r.abs().max().item())
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, tstream.bwd_kernel(x, s, gy, 1e-6)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,d,g_dtype", [(3120, 1280, torch.bfloat16),
+                                         (32760, 1536, torch.float32),
+                                         (32760, 5120, torch.bfloat16), (1, 8192, torch.float32)])
+def test_k9_bitwise_on_a_second_call(cuda, l, d, g_dtype):
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn(1, l, d, device=cuda, generator=g)
+    s = 1 + 0.1 * torch.randn(1, d, device=cuda, generator=g)
+    gy = torch.randn(1, l, d, device=cuda, generator=g).to(g_dtype)
+    first = tstream.bwd_kernel(x, s, gy, 1e-6)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, tstream.bwd_kernel(x, s, gy, 1e-6)))
 
 
 @pytest.mark.gpu
