@@ -150,12 +150,37 @@ Phases, each of which raises on failure:
    the split backward, whose dq is deterministic; every sample draws a
    caption and a text drop, and the resumed step lies in the shuffle's
    second epoch).
+13. The VAE, umT5-XXL and the CLIP tower (plain PyTorch: no TPU kernel
+   runs in them), with seeded weights written in the reference layout:
+   (a) the published Wan2.1 VAE (VAEConfig(): dim 96, z 16), loaded
+   through utils/encoders.load_reference_vae from a seeded file, card
+   against CPU at 5 frames of 64 x 64 (encode and decode, whole-clip and
+   streaming), then streaming against whole-clip on the card at 9; (b) an
+   81-frame decode at 832*480 ([1, 21, 60, 104, 16] latents, one latent
+   frame a step, the frames moved to the host per chunk) in fp32 and in
+   bf16, and the 81-frame streaming encode of an i2v conditioning video,
+   each timed with its peak memory, frames finite in [-1, 1]; (c)
+   umT5-XXL (dim 4096, 64 heads, ffn 10,240, vocab 256,384): 2 layers
+   card against CPU on seeded ids with a padded mask, then all 24 on the
+   card for two 512-token prompts through the serving CLI's TextEncoder
+   (a stub tokenizer: no tokenizer files exist), each context its tokens
+   then zeros; (d) CLIP ViT-H/14: 2 blocks card against CPU (the bicubic
+   resize too), then all 32 on two frames; (e) inference_torch.main for
+   t2v-1.3B, 21 frames, 2 steps, --vae_path: frames [21, 480, 832, 3]
+   uint8 written, launches as derived; then one i2v-14B request from a
+   seeded image array: Conditioner.condition (CLIP and the VAE's
+   streaming encode), the 40-block DiT on (c)'s contexts (launches as
+   phase 11's), the decode, with the peak memory from the request to its
+   frames; (f) one PRFL outer step of phase 7's run with
+   extra_model.vae.params_path and sanity_check_interval 1: launches as
+   derived, decoded sanity frames written.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
-for R, phase 11's serving and training and phase 12's runs); the last is
+for R, phase 11's serving and training, phase 12's runs and phase 13's
+CLIs); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -177,6 +202,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CARD = ""  # nvidia-smi's name and power limit, set by main()
+T_START = 0.0  # when main() began
 SIZE = "832*480"
 GRID_81 = (21, 30, 52)   # latent grid of an 81-frame 832*480 request
 GRID_9 = (3, 30, 52)
@@ -306,6 +332,11 @@ def expected_pavrm_launches(n_blocks, loss="ce", remat_policy="attn", i2v=False,
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def announce(text: str) -> None:
+    """A phase's heading, with the seconds since the run began."""
+    print(f"{text} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def expect(cond: bool, msg: str) -> None:
@@ -1671,7 +1702,7 @@ def _build_trainer(cli, config, dev):
     import torch
 
     t0 = time.perf_counter()
-    trainer = cli.build_trainer(config, "cuda")
+    trainer = cli.build_trainer(config, dev.type)
     with torch.no_grad():
         trainer.model.dit.head.head.weight.normal_(
             0.0, trainer.model.dit_cfg.dim ** -0.5,
@@ -2725,6 +2756,411 @@ def phase_pavrm(results, root, dev="cuda"):
     return total
 
 
+# The towers of phase 13, at the published widths: the Wan2.1 VAE, umT5-XXL
+# and CLIP ViT-H/14 (the CPU rehearsal of the phase swaps them for tiny ones)
+def vae13():
+    from hyvideo_prfl_torch.models.vae import VAEConfig
+    return VAEConfig()
+
+
+def t5_13(**kw):
+    from hyvideo_prfl_torch.models.t5 import umt5_xxl
+    return umt5_xxl(**kw)
+
+
+def clip13(**kw):
+    from hyvideo_prfl_torch.models.clip import vit_h_14
+    return vit_h_14(**kw)
+
+
+class StubTokenizer:
+    """The tokenizer wrapper's interface (utils/tokenizers.py) without
+    tokenizer files: words -> ids by a fixed hash, an end token 1, zero
+    padding to ``seq_len``."""
+
+    def __init__(self, vocab_size, seq_len=TEXT_LEN):
+        self.vocab_size, self.seq_len = vocab_size, seq_len
+
+    def __call__(self, texts, return_mask=False):
+        ids = np.zeros((len(texts), self.seq_len), np.int64)
+        mask = np.zeros_like(ids)
+        for i, text in enumerate(texts):
+            toks = [2 + sum(map(ord, w)) * 7919 % (self.vocab_size - 2)
+                    for w in text.split()][:self.seq_len - 1] + [1]
+            ids[i, :len(toks)], mask[i, :len(toks)] = toks, 1
+        return (ids, mask) if return_mask else (ids,)
+
+
+def _timed(fn, dev):
+    """(result, seconds, peak device bytes) of fn() on the card."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    return out, time.perf_counter() - t0, peak
+
+
+def _frames_ok(label, frames, shape):
+    """Finite frames of ``shape`` in [-1, 1]."""
+    import torch
+
+    expect(tuple(frames.shape) == tuple(shape), f"{label}: frames {tuple(frames.shape)}, "
+           f"expected {tuple(shape)}")
+    expect(bool(torch.isfinite(frames).all()), f"{label}: non-finite frames")
+    lo, hi = frames.min().item(), frames.max().item()
+    expect(-1.0 <= lo and hi <= 1.0, f"{label}: frames in [{lo}, {hi}], not [-1, 1]")
+    return lo, hi
+
+
+def _written_frames(label, path, shape):
+    """The frames a CLI wrote for ``path``: its uint8 ``_frames.npy``, or
+    the mp4 read back (by OpenCV, else imageio: whichever wrote it), each
+    [T, H, W, 3] of ``shape``."""
+    stem = os.path.splitext(path)[0]
+    if os.path.exists(stem + "_frames.npy"):
+        frames, kind = np.load(stem + "_frames.npy"), "uint8 frames .npy"
+    else:
+        expect(os.path.exists(path), f"{label}: neither {stem}_frames.npy nor {path} written")
+        try:
+            import cv2
+        except ImportError:
+            import imageio.v3 as iio
+
+            frames, kind = iio.imread(path), "mp4, read back by imageio"
+        else:
+            cap, got = cv2.VideoCapture(path), []
+            ok, f = cap.read()
+            while ok:
+                got.append(f)
+                ok, f = cap.read()
+            cap.release()
+            frames, kind = np.stack(got) if got else np.zeros((0,)), "mp4, read back by OpenCV"
+    expect(frames.dtype == np.uint8 and frames.shape == tuple(shape),
+           f"{label}: frames {frames.dtype} {frames.shape}, expected uint8 {tuple(shape)}")
+    print(f"  {label}: {kind} {frames.shape}")
+
+
+def _free(dev):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _vae13(root, dev, numbers):
+    """13a and 13b: the VAE card against CPU, then at 81 frames on the
+    card; returns the card's VAE and its reference file."""
+    import torch
+
+    from hyvideo_prfl_torch.models import vae as vae_mod
+    from hyvideo_prfl_torch.utils import encoders
+
+    cpu = vae_mod.init_params(vae_mod.WanVAE(vae13()), torch.Generator().manual_seed(81)).eval()
+    path = encoders.save_reference({k: v.numpy() for k, v in cpu.state_dict().items()},
+                                   os.path.join(root, "Wan2.1_VAE.pth"))
+    vae = encoders.load_reference_vae(path, dev)  # as the CLIs load it
+    n = sum(p.numel() for p in vae.parameters())
+    print(f"  13a: VAE {vae.cfg}: {n / 1e6:.2f} M params, loaded from a seeded reference file")
+    rng = np.random.default_rng(81)
+    # Bound: fp32 against fp32, cuDNN's convolutions (TF32 off) against the
+    # CPU's, a few ulps over ~30 layers: 1e-3 of max|CPU| (the CPU tests hold
+    # the port to the JAX VAE at 1e-4)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 5, 64, 64, 3)).astype(np.float32))
+    z_cpu = cpu.encode(x)
+    checks = [("encode", vae.encode(x.to(dev)), z_cpu),
+              ("encode_streaming", vae_mod.encode_streaming(vae, x.to(dev)), z_cpu)]
+    x_cpu = cpu.decode(z_cpu)
+    checks += [("decode", vae.decode(z_cpu.to(dev)), x_cpu),
+               ("decode_streaming", vae_mod.decode_streaming(vae, z_cpu.to(dev), 1), x_cpu)]
+    report_many("VAE", "5 x 64 x 64, card against CPU", [(a, b.cpu(), c, 1e-3)
+                                                         for a, b, c in checks])
+    # the same on the card alone at 9 frames: streaming against whole-clip
+    x9 = torch.from_numpy(rng.uniform(-1, 1, (1, 9, 64, 64, 3)).astype(np.float32)).to(dev)
+    z9 = vae.encode(x9)
+    whole = vae.decode(z9).cpu()  # the stream returns its frames on the host
+    report_many("VAE", "9 x 64 x 64 on the card, streaming against whole-clip", [
+        ("encode", vae_mod.encode_streaming(vae, x9), z9, 1e-3),
+        ("decode chunk 1", vae_mod.decode_streaming(vae, z9, 1), whole, 1e-3),
+        ("decode chunk 2", vae_mod.decode_streaming(vae, z9, 2), whole, 1e-3)])
+    del cpu
+
+    # 13b: an 81-frame decode at 832*480, streaming one latent frame a step,
+    # the frames moved to the host per chunk (the CLIs' decode), fp32 then bf16
+    lat_f, lat_h, lat_w = load_script("inference_torch").latent_grid(SIZE, 81)
+    t, s, _ = vae.cfg.stride
+    shape = (1, (lat_f - 1) * t + 1, lat_h * s, lat_w * s, 3)
+    g = torch.Generator(device=dev).manual_seed(82)
+    z = torch.randn(1, lat_f, lat_h, lat_w, vae.cfg.z_dim, generator=g, device=dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        frames, dt, peak = _timed(lambda: vae_mod.decode_streaming(vae, z, 1, dtype=dtype), dev)
+        lo, hi = _frames_ok(f"81-frame {name} decode", frames, shape)
+        out[name] = frames
+        numbers[f"decode81_{name}_s"], numbers[f"decode81_{name}_peak_gib"] = dt, peak / 2**30
+        print(f"  13b: {CARD}: decode {tuple(z.shape)} -> {tuple(frames.shape)} streaming, "
+              f"{name}: {dt:.3f} s, peak device memory {peak / 2**30:.2f} GiB; frames in "
+              f"[{lo:.3f}, {hi:.3f}]")
+    d = (out["bfloat16"] - out["float32"]).abs()
+    print(f"  13b: bf16 against fp32 frames: max {d.max().item():.4f}, mean "
+          f"{d.mean().item():.5f}")
+    # Bound: the CPU tests' bf16 stream bound, 0.1 of the [-1, 1] frames
+    expect(d.max().item() <= 0.1, f"81-frame bf16 decode: {d.max().item()} from fp32, over 0.1")
+    # the decode is causal: the whole-clip decode of the first 3 latent
+    # frames is the stream's first 9 frames. Bound: fp32 against fp32 in
+    # another order of cuDNN's sums (1.1e-5 at 9 x 64 x 64 above): 1e-4 of
+    # max|ref|
+    n9 = 2 * t + 1
+    head = vae.decode(z[:, :3]).cpu()
+    report_many("VAE", f"81 x 480 x 832 stream, first {n9} frames against the whole-clip "
+                "decode of 3 latent frames", [("decode", out["float32"][:, :n9], head, 1e-4)])
+    del out, frames, d, head
+    # the 81-frame streaming encode of an i2v conditioning video: a seeded
+    # first frame, then zeros
+    vid = torch.zeros(shape, device=dev)
+    vid[0, 0] = torch.rand(shape[2:], generator=g, device=dev) * 2 - 1
+    lat, dt, peak = _timed(lambda: vae_mod.encode_streaming(vae, vid), dev)
+    numbers["encode81_s"], numbers["encode81_peak_gib"] = dt, peak / 2**30
+    expect(tuple(lat.shape) == (1, lat_f, lat_h, lat_w, vae.cfg.z_dim)
+           and bool(torch.isfinite(lat).all()), f"81-frame encode: latents {tuple(lat.shape)}")
+    print(f"  13b: {CARD}: encode {tuple(vid.shape)} -> {tuple(lat.shape)} streaming, fp32: "
+          f"{dt:.3f} s, peak device memory {peak / 2**30:.2f} GiB")
+    # causal too: the whole-clip encode of the first 9 frames is the
+    # stream's first 3 latent frames, at the same bound
+    report_many("VAE", "81 x 480 x 832 stream, first 3 latent frames against the whole-clip "
+                f"encode of {n9} frames", [("encode", lat[:, :3], vae.encode(vid[:, :n9]), 1e-4)])
+    del vid, lat
+    _free(dev)
+    return vae, path
+
+
+def _t5_13(dev, numbers):
+    """13c: umT5-XXL, 2 layers card against CPU, then the whole encoder on
+    two prompts; returns their contexts [2, 512, dim] (prompt, negative)."""
+    import copy
+
+    import torch
+
+    from hyvideo_prfl_torch.configs import SAMPLE_NEG_PROMPT
+    from hyvideo_prfl_torch.models import t5 as t5_mod
+
+    cli = load_script("inference_torch")
+    cpu = t5_mod.init_params(t5_mod.T5Encoder(t5_13(num_layers=2)),
+                             torch.Generator().manual_seed(83))
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(83)
+    ids = torch.from_numpy(rng.integers(2, cpu.cfg.vocab_size, (2, 128)))
+    mask = torch.ones(2, 128, dtype=torch.long)
+    mask[1, 70:] = 0
+    ids[1, 70:] = 0
+    # Bound: both bf16 with fp32 norms and softmax, another summation order
+    # in each product; the CPU tests hold the port to the JAX encoder at 3e-2
+    # of max|JAX|: the same here
+    report_many("umT5-XXL", "2 layers, 2 x 128 tokens (one padded from 70), card against CPU",
+                [("output", card(ids.to(dev), mask.to(dev)).cpu(), cpu(ids, mask), 3e-2)])
+    del cpu, card
+    _free(dev)
+    cfg = t5_13()
+    t5, dt_init, _ = _timed(lambda: t5_mod.init_params(
+        t5_mod.T5Encoder(cfg, device=dev), torch.Generator(device=dev).manual_seed(84)), dev)
+    n = sum(p.numel() for p in t5.parameters())
+    text = cli.TextEncoder(t5, StubTokenizer(cfg.vocab_size))
+    prompts = ["a red fox runs through fresh snow at dawn, " * 8, SAMPLE_NEG_PROMPT]
+    ctx, dt, peak = _timed(lambda: text(prompts), dev)
+    lens = text.tokenizer(prompts, return_mask=True)[1].sum(1)
+    numbers["t5_s"], numbers["t5_peak_gib"] = dt, peak / 2**30
+    print(f"  13c: {CARD}: umT5-XXL ({cfg.num_layers} layers, dim {cfg.dim}, {n / 1e9:.3f} B "
+          f"params in {cfg.compute_dtype}, built in {dt_init:.2f} s): two 512-token prompts "
+          f"({list(map(int, lens))} tokens) in {dt:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    expect(tuple(ctx.shape) == (2, TEXT_LEN, cfg.dim) and bool(torch.isfinite(ctx).all()),
+           f"umT5 contexts {tuple(ctx.shape)}")
+    for i, n_tok in enumerate(lens):
+        expect(not ctx[i, n_tok:].any() and bool((ctx[i, :n_tok].abs().sum(-1) > 0).all()),
+               f"umT5 context {i}: not its {n_tok} tokens, then zeros")
+    del t5, text
+    _free(dev)
+    return ctx
+
+
+def _clip13(dev, numbers):
+    """13d: the CLIP ViT-H/14 tower, 2 blocks card against CPU, then the
+    whole tower; returns it."""
+    import copy
+
+    import torch
+
+    from hyvideo_prfl_torch.models import clip as clip_mod
+
+    cpu = clip_mod.init_params(clip_mod.CLIPVisionTower(clip13(num_layers=2)),
+                               torch.Generator().manual_seed(85))
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(85)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (2, 480, 832, 3)).astype(np.float32))
+    images = clip_mod.preprocess_frames(frames, cpu.cfg.image_size)
+    # Bound: fp32 (TF32 off) against fp32: 1e-3 of max|CPU|
+    report_many("CLIP ViT-H/14", "2 blocks, two images, card against CPU", [
+        ("preprocess", clip_mod.preprocess_frames(frames.to(dev), cpu.cfg.image_size).cpu(),
+         images, 1e-3),
+        ("use_31_block", card(images.to(dev)).cpu(), cpu(images), 1e-3),
+        ("all blocks", card(images.to(dev), use_31_block=False).cpu(),
+         cpu(images, use_31_block=False), 1e-3)])
+    del cpu, card
+    clip = clip_mod.init_params(clip_mod.CLIPVisionTower(clip13(), device=dev),
+                                torch.Generator(device=dev).manual_seed(86))
+    x = frames.to(dev)
+    clip(clip_mod.preprocess_frames(x, clip.cfg.image_size))  # warm-up
+    fea, dt, peak = _timed(lambda: clip(clip_mod.preprocess_frames(x, clip.cfg.image_size)), dev)
+    n = sum(p.numel() for p in clip.parameters())
+    numbers["clip_s"] = dt
+    print(f"  13d: {CARD}: CLIP ViT-H/14 ({clip.cfg.num_layers} blocks, {n / 1e9:.3f} B fp32 "
+          f"params): two 480 x 832 frames -> {tuple(fea.shape)} in {dt * 1e3:.2f} ms "
+          f"(the resize included), peak device memory {peak / 2**30:.2f} GiB")
+    expect(tuple(fea.shape) == (2, clip.cfg.num_patches + 1, clip.cfg.dim)
+           and bool(torch.isfinite(fea).all()), f"CLIP features {tuple(fea.shape)}")
+    return clip
+
+
+def _serve13(root, dev, vae, vae_path, clip, ctx, numbers):
+    """13e: t2v-1.3B through inference_torch.main with --vae_path, then one
+    i2v-14B request from an image array; returns both runs' launches."""
+    import torch
+
+    from hyvideo_prfl_torch.models import vae as vae_mod
+    from hyvideo_prfl_torch.ops import _build
+
+    cli = load_script("inference_torch")
+    save = os.path.join(root, "t2v13.mp4")
+    _build.reset_launches()
+    rc, dt, peak = _timed(lambda: cli.main(
+        ["--task", "t2v-1.3B", "--size", SIZE, "--frame_num", "21", "--sample_steps", "2",
+         "--vae_path", vae_path, "--save_file", save, "--device", dev.type]), dev)
+    launches = dict(_build.LAUNCHES)
+    grid = cli.latent_grid(SIZE, 21)
+    t, s, _ = vae.cfg.stride
+    shape = ((grid[0] - 1) * t + 1, grid[1] * s, grid[2] * s, 3)
+    want = _add({}, dit_launches(30, False), 2)
+    print(f"  13e: {CARD}: inference_torch.main t2v-1.3B, 21 frames, 2 steps, --vae_path: "
+          f"rc {rc} in {dt:.3f} s (the pipeline's build and the VAE's load included), peak "
+          f"device memory {peak / 2**30:.2f} GiB; launches {launches}, derived {want}")
+    expect(rc == 0 and launches == want, f"t2v CLI: rc {rc}, launches {launches}")
+    _written_frames("13e: the t2v CLI wrote", save, shape)
+    numbers["t2v_cli_s"] = dt
+
+    # one i2v-14B request from a seeded image array: CLIP and the VAE's
+    # streaming encode (Conditioner.condition), the DiT, then the decode
+    cond = cli.Conditioner(clip, vae)
+    lat_f, lat_h, lat_w = cli.latent_grid(SIZE, 21)
+    f_pix, h, w = cond.pixels(lat_f, lat_h, lat_w)
+    g = torch.Generator(device=dev).manual_seed(87)
+    image = torch.rand(1, h, w, 3, generator=g, device=dev) * 2 - 1
+    (clip_fea, cond_latent), dt, peak = _timed(lambda: cond.condition(image, lat_f), dev)
+    numbers["condition_s"] = dt
+    print(f"  13e: condition() on a {h} x {w} image: CLIP {tuple(clip_fea.shape)}, latent "
+          f"{tuple(cond_latent.shape)} from {f_pix} frames in {dt:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    expect(tuple(cond_latent.shape) == (1, lat_f, lat_h, lat_w, 16)
+           and bool(torch.isfinite(cond_latent).all()) and bool(torch.isfinite(clip_fea).all()),
+           "i2v conditioning")
+    del cond
+    args = cli.args_init(["--task", "i2v-14B", "--size", SIZE, "--frame_num", "21",
+                          "--sample_steps", "2", "--device", dev.type])
+    pipe, dt_build, _ = _timed(lambda: cli.build_pipeline(args), dev)
+    with torch.no_grad():  # a seeded non-zero head, as phase 11's
+        pipe.model.head.head.weight.normal_(
+            0.0, pipe.cfg.dim ** -0.5, generator=torch.Generator(device=dev).manual_seed(13))
+    req = cli.Request(seed=54, context=ctx[:1], context_null=ctx[1:], frame_num=21,
+                      sample_steps=2, sample_shift=args.sample_shift,
+                      guide_scale=args.sample_guide_scale, clip_fea=clip_fea,
+                      cond_latent=cond_latent)
+    print(f"  13e: i2v-14B pipeline built in {dt_build:.2f} s ({pipe.cfg.num_layers} blocks, "
+          f"dim {pipe.cfg.dim})")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (lat,), served = _serve(cli, pipe, [req], dit_launches(pipe.cfg.num_layers, False, i2v=True),
+                            "13e i2v-14B from an image")
+    video, dt, _ = _timed(lambda: vae_mod.decode(vae, lat), dev)  # the CLI's decode
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    lo, hi = _frames_ok("i2v decode", video, (1, f_pix, h, w, 3))
+    numbers["i2v_decode_s"], numbers["i2v_peak_gib"] = dt, peak / 2**30
+    print(f"  13e: {CARD}: i2v-14B latents {tuple(lat.shape)} decoded to {tuple(video.shape)} "
+          f"in {dt:.3f} s (frames in [{lo:.3f}, {hi:.3f}]); peak device memory from the "
+          f"request to its frames {peak / 2**30:.2f} GiB (the VAE and the CLIP tower resident, "
+          f"umT5 freed)")
+    del pipe, video, lat
+    _free(dev)
+    return _add(launches, served)
+
+
+def _train13(root, dev, vae_path, numbers):
+    """13f: one PRFL outer step of phase 7's run with the VAE's sanity decode."""
+    from hyvideo_prfl_torch.ops import _build
+
+    cli = load_script("train_prfl_torch")
+    lists, null_dir = write_latent_cache(os.path.join(root, "cache13"), (21,))
+    cfg_name, changes = PRFL_T2V
+    config = published(cfg_name, {
+        **changes, "dataset.meta_file_list": [lists[21]], "dataset.null_dir": null_dir,
+        "save.output_dir": os.path.join(root, "out13"),
+        "extra_model.vae.params_path": vae_path, "train.sanity_check_interval": 1})
+    trainer, config, build_s = _build_trainer(cli, config, dev)
+    expect(trainer.vae is not None, "the trainer did not load the VAE")
+    cfg = trainer.model.dit_cfg
+    want = expected_train_launches(cfg.num_layers, trainer.model.lrm.dit_cfg.num_layers,
+                                   int(config.train.fixed_mid), cfg.remat_policy)
+    _build.reset_launches()
+    (m,), dt, peak = _timed(lambda: cli.run(trainer, 1), dev)
+    got = dict(_build.LAUNCHES)
+    numbers["train_sanity_s"] = dt
+    print(f"  13f: {CARD}: one outer step with the sanity decode in {dt:.3f} s (t_refl "
+          f"{m['t_refl']:.3f}, t_sft {m['t_sft']:.3f}; the rest is the decode of pred_x0 and "
+          f"latent_next and their writes), peak device memory {peak / 2**30:.2f} GiB; "
+          f"launches {got}, derived {want}")
+    for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+        expect(math.isfinite(m[key]), f"{key} is not finite: {m}")
+    expect(got == want, f"13f launches {got}, expected {want}")
+    sanity = os.path.join(trainer.out_dir, "sanity_check")
+    grid = (6, 60, 104)  # write_latent_cache's 21-frame latents
+    t, s, _ = trainer.vae.cfg.stride
+    shape = ((grid[0] - 1) * t + 1, grid[1] * s, grid[2] * s, 3)
+    for name in ("pred_x0", "latent_next"):
+        _written_frames(f"13f: sanity {name}", os.path.join(sanity, f"step0_{name}.mp4"),
+                        shape)
+    del trainer
+    _free(dev)
+    return got
+
+
+def phase_encoders(results, root, dev="cuda"):
+    """Phase 13: the VAE, umT5-XXL and the CLIP tower, and the serving and
+    training CLIs through them; returns the launches of 13e and 13f."""
+    import torch
+
+    dev = torch.device(dev)
+    numbers = {}
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "cv2", "imageio", "transformers")}
+    print(f"  13: this machine's image, video and tokenizer modules: {have}")
+    vae, vae_path = _vae13(root, dev, numbers)
+    ctx = _t5_13(dev, numbers)
+    clip = _clip13(dev, numbers)
+    launches = _serve13(root, dev, vae, vae_path, clip, ctx, numbers)
+    del clip, ctx, vae
+    _free(dev)
+    launches = _add(launches, _train13(root, dev, vae_path, numbers))
+    print(f"  phase 13 numbers ({CARD}): {json.dumps(numbers)}")
+    return launches
+
+
 def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
@@ -2854,13 +3290,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
-    global CARD
+    global CARD, T_START
     CARD = smi.stdout.strip().splitlines()[0]
+    T_START = time.perf_counter()
     print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    print("phase 1: build")
+    announce("phase 1: build")
     t0 = t_start = time.perf_counter()
     _build.lib()
     print(f"  kernels built in {_build.build_seconds:.2f} s "
@@ -2873,21 +3310,22 @@ def main() -> int:
     check_sass(_build.build())
 
     results = {}
-    print("phase 2: kernels against their plain versions at the 81-frame shapes")
+    announce("phase 2: kernels against their plain versions at the 81-frame shapes")
     phase_kernels(results)
-    print("phase 2b: the shifted forward (K2, K3s) and the rope R against their plain versions")
+    announce("phase 2b: the shifted forward (K2, K3s) and the rope R against their plain "
+             "versions")
     phase_shifted_kernels(results)
-    print("phase 3: whole-model check, card against CPU")
+    announce("phase 3: whole-model check, card against CPU")
     phase_model()
-    print("phase 4: serving through the CLI path")
+    announce("phase 4: serving through the CLI path")
     serve_launches = phase_serve()
-    print("phase 5: backward kernels against their plain versions at the training shapes")
+    announce("phase 5: backward kernels against their plain versions at the training shapes")
     route_launches = phase_bwd_kernels(results)
-    print("phase 5b: the key mask through K4 and K5")
+    announce("phase 5b: the key mask through K4 and K5")
     phase_masked_bwd()
-    print("phase 6: whole-model gradients, card against CPU")
+    announce("phase 6: whole-model gradients, card against CPU")
     phase_grad_model()
-    print("phase 7: PRFL training through the CLI path")
+    announce("phase 7: PRFL training through the CLI path")
     with tempfile.TemporaryDirectory() as root:
         train_launches = phase_train(root)
     # every kernel of the training path ran there (K5 in the step with
@@ -2896,26 +3334,30 @@ def main() -> int:
     expect(all(train_launches.get(k, 0) > 0 for k in KERNELS if k not in ("P1", "P2", "R")),
            f"a kernel of the training path never launched: {train_launches}")
     print(f"  serving launches {serve_launches}; training launches {train_launches}")
-    print("phase 8: the int8 probes P1 and P2")
+    announce("phase 8: the int8 probes P1 and P2")
     probe_launches = phase_probes(results)
-    print("phase 9: the un-normed DiT (qk_norm off): R, K2 and K3s")
+    announce("phase 9: the un-normed DiT (qk_norm off): R, K2 and K3s")
     unnormed_launches = phase_unnormed()
-    print("phase 10: the 14B width (dim 5120, 40 heads) and bench.py's (1280, 10)")
+    announce("phase 10: the 14B width (dim 5120, 40 heads) and bench.py's (1280, 10)")
     phase_wide(results)
-    print("phase 11: i2v and flf2v (the image cross-attention, i2v-14B/flf2v-14B served, "
+    announce("phase 11: i2v and flf2v (the image cross-attention, i2v-14B/flf2v-14B served, "
           "one i2v PRFL step)")
     with tempfile.TemporaryDirectory() as root:
         i2v_launches = phase_i2v(results, root)
 
-    print("phase 12: PAVRM and the LRM handoff (t2v-14B ce, i2v-14B bt, card against CPU, "
+    announce("phase 12: PAVRM and the LRM handoff (t2v-14B ce, i2v-14B bt, card against CPU, "
           "the export to PRFL, checkpoints, EMA and resume)")
     with tempfile.TemporaryDirectory() as root:
         pavrm_launches = phase_pavrm(results, root)
     print(f"  PAVRM launches {pavrm_launches}")
+    announce("phase 13: the VAE, umT5-XXL and CLIP ViT-H/14, and the CLIs through them")
+    with tempfile.TemporaryDirectory() as root:
+        encoder_launches = phase_encoders(results, root)
+    print(f"  phase 13 launches {encoder_launches}")
 
     launches = {}
     for part in (serve_launches, train_launches, route_launches, probe_launches,
-                 unnormed_launches, i2v_launches, pavrm_launches):
+                 unnormed_launches, i2v_launches, pavrm_launches, encoder_launches):
         _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; {CARD}")

@@ -7,8 +7,9 @@ state stays in the token-cell layout (models/wan_dit.patchify) for the
 whole chain; the latent is patchified once before and unpatchified once
 after. I2V and FLF2V condition every forward on ``y`` = [mask, cond_latent]
 (20 channels, patchified once with the noise) and on the CLIP features;
-both ride along with the CFG pair. Not ported yet: the euler and dpm++
-solvers, TeaCache and VAE decode.
+both ride along with the CFG pair. The pipeline returns latents; the
+CLIs decode them with ``models.vae.decode`` after the DiT is freed. Not
+ported yet: the euler and dpm++ solvers and TeaCache.
 """
 
 from __future__ import annotations

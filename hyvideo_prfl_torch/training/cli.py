@@ -85,6 +85,11 @@ def main(build_trainer, run, argv=None):
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     config = load_config(args.config_path)
+    # the reference trainer's switch; PyTorch's default runs cuDNN's fp32
+    # convolutions (the VAE's sanity decode) in TF32
+    tf32 = bool(config.train.get("allow_tf32", False))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     trainer = build_trainer(config, args.device)
     total = args.max_steps or int(config.optimizer.max_train_steps)
     return run(trainer, max(0, total - trainer.step))

@@ -1,32 +1,50 @@
 """Video generation CLI for the PyTorch port (counterpart of scripts/inference.py):
-t2v, i2v and flf2v.
+t2v, i2v and flf2v, from a prompt and an image to decoded frames.
 
 Builds the DiT pipeline once and answers each request from it: batched-CFG
-UniPC sampling on one GPU, latents written as .npy (the JAX CLI does the
-same when it has no VAE weights). Without --ckpt_dir the DiT gets random
-weights from the JAX package's initialisers; without --prompt_embeds /
---uncond_embeds the text context is zeros, as in the JAX CLI.
+UniPC sampling on one GPU. Without --ckpt_dir the DiT gets random weights,
+seeded, from the port's ``wan_dit.init_params`` (the JAX initialisers'
+distributions).
 
     python3 scripts/inference_torch.py --task t2v-1.3B --size 832*480 \\
-        --frame_num 21 --sample_steps 4 [--quant int8] [--quant_attn int8]
+        --frame_num 21 --sample_steps 4 [--quant int8] [--quant_attn int8] \\
+        [--prompt "..." --t5_path models_t5_umt5-xxl-enc-bf16.pth \\
+         --tokenizer google/umt5-xxl] [--vae_path Wan2.1_VAE.pth]
     python3 scripts/inference_torch.py --task i2v-14B --size 832*480 \\
-        --clip_embeds clip.npy --cond_latent cond.npy
+        --image first.png [--last_image last.png] --vae_path Wan2.1_VAE.pth \\
+        --clip_path models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth
 
-i2v and flf2v take cached inputs, as the JAX CLI does without its
-encoders: ``--clip_embeds`` (.npy CLIP features [257, 1280] or
-[n, 257, 1280]) and ``--cond_latent`` (.npy VAE latent of the conditioning
-frames, [F, H, W, 16]). Each is zeros when not given: [1, 257, 1280] CLIP
-features for i2v, [2, 257, 1280] for flf2v (the shape its pipeline takes;
-the JAX CLI's [1, 257, 1280] default cannot run flf2v). Sampling defaults
-follow the JAX CLI: 40 steps when the task names i2v, else 50; shift 3.0
-for i2v at a 480 size, else 5.0.
+The text: ``--prompt`` (and ``--negative_prompt``, the reference's default
+otherwise) through the tokenizer (``--tokenizer``: tokenizer files, as
+the JAX CLI needs; ``transformers`` loads them) and umT5-XXL
+(``--t5_path``, a reference ``.pth``), each context trimmed to its tokens
+and zero-padded to 512, as the reference DiT pads it; or cached
+``--prompt_embeds`` / ``--uncond_embeds`` (.npy [1, L, 4096]); else zeros,
+as in the JAX CLI. The text tower is freed before the DiT is built.
+
+i2v and flf2v: ``--image`` (and ``--last_image`` for flf2v) load with PIL,
+resized bicubic to the latent grid's pixels, then ``Conditioner.condition``
+runs the CLIP tower (``--clip_path``) on the frame(s) and the VAE's
+streaming encode on [image, zeros..., (last image)]. Without ``--image``
+they take cached inputs: ``--clip_embeds`` (.npy CLIP features [257, 1280]
+or [n, 257, 1280]) and ``--cond_latent`` (.npy VAE latent of the
+conditioning frames, [F, H, W, 16]), zeros when not given: [1, 257, 1280]
+CLIP features for i2v, [2, 257, 1280] for flf2v (the shape its pipeline
+takes; the JAX CLI's [1, 257, 1280] default cannot run flf2v). Sampling
+defaults follow the JAX CLI: 40 steps when the task names i2v, else 50;
+shift 3.0 for i2v at a 480 size, else 5.0.
+
+With ``--vae_path`` (a reference VAE ``.pth``) the latents are decoded,
+streamed one latent frame at a time above 5 (``--decode_chunk``: -1 that
+rule, 0 the whole clip, n frames a step), and written as mp4 where imageio
+or OpenCV can, else as uint8 ``<stem>_frames.npy`` [T, H, W, 3]; without
+it the latents go to ``<stem>_latents.npy``.
 
 ``--quant int8`` serves the block matmuls as W8A8 int8 GEMMs, the
 weights quantized once after they load; ``--quant_attn int8`` runs the
 self-attention's q k^T on the int8 path (kernel K10) wherever its keys
-stream in several blocks. Either flag works alone. Not ported yet: T5
-(--prompt), the CLIP tower and the VAE (--image), TeaCache, LoRA and
-multi-GPU.
+stream in several blocks. Either flag works alone. Not ported yet:
+--prompt_file, TeaCache, LoRA and multi-GPU.
 """
 
 from __future__ import annotations
@@ -45,13 +63,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from hyvideo_prfl_torch.configs import (  # noqa: E402
-    MAX_AREA_CONFIGS, SIZE_CONFIGS, dit_config_for_task,
+    MAX_AREA_CONFIGS, SAMPLE_NEG_PROMPT, SIZE_CONFIGS, dit_config_for_task,
 )
+from hyvideo_prfl_torch.models import clip as clip_mod  # noqa: E402
+from hyvideo_prfl_torch.models import vae as vae_mod  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.pipelines.pipeline import (  # noqa: E402
     GenerateConfig, WanFLF2V, WanI2V, WanT2V, latent_size_for,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
+from hyvideo_prfl_torch.utils import encoders, video_io  # noqa: E402
+from hyvideo_prfl_torch.utils.tokenizers import HuggingfaceTokenizer  # noqa: E402
 
 
 def args_init(argv=None):
@@ -61,9 +83,25 @@ def args_init(argv=None):
     p.add_argument("--frame_num", type=int, default=81)
     p.add_argument("--ckpt_dir", default=None,
                    help="reference Wan checkpoint dir (*.safetensors)")
+    p.add_argument("--prompt", default=None, help="the text, through umT5-XXL")
+    p.add_argument("--negative_prompt", default=None,
+                   help="the unconditional text (default: the reference's)")
+    p.add_argument("--t5_path", default=None,
+                   help="reference umT5-XXL encoder .pth (models_t5_umt5-xxl-enc-bf16.pth)")
+    p.add_argument("--tokenizer", default="google/umt5-xxl")
     p.add_argument("--prompt_embeds", default=None,
                    help=".npy [1, L, 4096] cached T5 embedding")
     p.add_argument("--uncond_embeds", default=None)
+    p.add_argument("--image", default=None, help="i2v/flf2v: the first frame (PIL)")
+    p.add_argument("--last_image", default=None, help="flf2v: the last frame")
+    p.add_argument("--clip_path", default=None,
+                   help="reference whole-CLIP .pth (its visual.* keys) for --image")
+    p.add_argument("--vae_path", default=None,
+                   help="reference VAE .pth (Wan2.1_VAE.pth): decode the latents to "
+                        "frames; --image needs it for the conditioning latent")
+    p.add_argument("--decode_chunk", type=int, default=-1,
+                   help="latent frames per decode step; -1: one above 5 latent frames, "
+                        "else the whole clip; 0: the whole clip")
     p.add_argument("--clip_embeds", default=None,
                    help="i2v/flf2v: .npy CLIP image features [n, 257, 1280]")
     p.add_argument("--cond_latent", default=None,
@@ -87,6 +125,14 @@ def args_init(argv=None):
         args.sample_shift = 3.0 if ("i2v" in args.task and "480" in args.size) else 5.0
     if args.base_seed < 0:
         args.base_seed = random.randint(0, 2**31 - 1)
+    if args.prompt is not None and not args.t5_path:
+        p.error("--prompt needs --t5_path (a reference umT5-XXL encoder .pth)")
+    if args.image and not (args.vae_path and args.clip_path):
+        p.error("--image needs --vae_path and --clip_path")
+    if args.last_image and "flf2v" not in args.task:
+        p.error("--last_image is flf2v's")
+    if "flf2v" in args.task and bool(args.image) != bool(args.last_image):
+        p.error("flf2v: --image and --last_image go together")
     return args
 
 
@@ -115,9 +161,7 @@ def pipeline_class(task: str):
 def build_pipeline(args) -> WanT2V:
     """The DiT on args.device, from --ckpt_dir or random weights, quantized
     after the weights load under --quant int8."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+    device = check_device(torch.device(args.device))
     cfg = dit_config_for_task(args.task, quant_attn=None if args.quant_attn == "none"
                               else args.quant_attn)
     model = wan_dit.WanModel(cfg, device=device)
@@ -130,6 +174,84 @@ def build_pipeline(args) -> WanT2V:
         model = ck.quantize_model(model)
         logging.info("quantized the block matmuls to int8 (W8A8)")
     return pipeline_class(args.task)(model.eval())
+
+
+def check_device(device: torch.device) -> torch.device:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+    return device
+
+
+class TextEncoder:
+    """Tokenizer + umT5: ``self(texts)`` -> contexts [n, text_len, dim]
+    fp32 on the encoder's device, each trimmed to its tokens and
+    zero-padded to text_len, as the reference DiT pads its context."""
+
+    def __init__(self, t5, tokenizer, text_len: int = 512):
+        self.t5, self.tokenizer, self.text_len = t5, tokenizer, text_len
+
+    def __call__(self, texts):
+        ids, mask = self.tokenizer(list(texts), return_mask=True)
+        dev = self.t5.token_embedding.weight.device
+        out = self.t5(torch.as_tensor(np.asarray(ids), device=dev).long(),
+                      torch.as_tensor(np.asarray(mask), device=dev))
+        ctx = out.new_zeros((out.shape[0], self.text_len, out.shape[2]))
+        for i, n in enumerate(np.asarray(mask).sum(axis=1)):
+            n = min(int(n), self.text_len)
+            ctx[i, :n] = out[i, :n]
+        return ctx
+
+
+def make_text_encoder(args, device) -> TextEncoder:
+    return TextEncoder(encoders.load_reference_t5(args.t5_path, device),
+                       HuggingfaceTokenizer(args.tokenizer, seq_len=512, clean="whitespace"))
+
+
+class Conditioner:
+    """i2v/flf2v image conditioning: the CLIP tower on the first (and
+    last) frame and the VAE's streaming encode of [first, zeros...,
+    (last)]."""
+
+    def __init__(self, clip: clip_mod.CLIPVisionTower, vae: vae_mod.WanVAE):
+        self.clip, self.vae = clip, vae
+
+    def pixels(self, lat_f: int, lat_h: int, lat_w: int):
+        """(frames, height, width) of the pixel video behind a latent grid."""
+        t, s, _ = self.vae.cfg.stride
+        return (lat_f - 1) * t + 1, lat_h * s, lat_w * s
+
+    def condition(self, frames: torch.Tensor, lat_f: int):
+        """frames [n, H, W, 3] in [-1, 1] (n = 2: first and last) -> (CLIP
+        features [n, tokens, dim], conditioning latent [1, lat_f, H/8,
+        W/8, z]), on the VAE's device."""
+        dev = self.vae.conv1.weight.device
+        frames = frames.to(dev, torch.float32)
+        clip_fea = self.clip(clip_mod.preprocess_frames(frames, self.clip.cfg.image_size))
+        f_pix = self.pixels(lat_f, 1, 1)[0]
+        vid = frames.new_zeros((1, f_pix, *frames.shape[1:]))
+        vid[0, 0] = frames[0]
+        if frames.shape[0] > 1:
+            vid[0, -1] = frames[1]
+        return clip_fea, vae_mod.encode_streaming(self.vae, vid)
+
+
+def load_image(path: str, height: int, width: int) -> np.ndarray:
+    """An image file -> [H, W, 3] fp32 in [-1, 1], resized bicubic (PIL)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise SystemExit("--image needs PIL, which is not installed here; give "
+                         "--clip_embeds and --cond_latent instead") from None
+    img = Image.open(path).convert("RGB").resize((width, height), Image.BICUBIC)
+    return np.asarray(img, np.float32) / 127.5 - 1.0
+
+
+def write_frames(video: torch.Tensor, save_file: str) -> str:
+    """Decoded [T, H, W, 3] in [-1, 1] -> an image for one frame, else a
+    video (mp4, or uint8 ``_frames.npy`` without a writer)."""
+    if video.shape[0] == 1:
+        return video_io.cache_image(video[0], os.path.splitext(save_file)[0] + ".png")
+    return video_io.cache_video(video, save_file)
 
 
 def load_or_zeros(path, shape, device) -> torch.Tensor:
@@ -168,26 +290,54 @@ def run_request(pipe: WanT2V, req: Request, size: str) -> torch.Tensor:
 def main(argv=None):
     args = args_init(argv)
     logging.basicConfig(level=logging.INFO)
-    pipe = build_pipeline(args)
-    cfg = pipe.cfg
-    device = torch.device(args.device)
+    device = check_device(torch.device(args.device))
+    torch.backends.cudnn.allow_tf32 = False  # the towers' fp32 convolutions, not TF32
+    cfg = dit_config_for_task(args.task)
+    lat_f, lat_h, lat_w = latent_grid(args.size, args.frame_num)
     shape = (1, cfg.text_len, cfg.text_dim)
+    if args.prompt is not None:
+        # the text tower first, freed before the DiT is built
+        neg = args.negative_prompt if args.negative_prompt is not None else SAMPLE_NEG_PROMPT
+        text = make_text_encoder(args, device)
+        context, context_null = text([args.prompt, neg]).split(1)
+        del text
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    else:
+        context = load_or_zeros(args.prompt_embeds, shape, device)
+        context_null = load_or_zeros(args.uncond_embeds, shape, device)
+    vae = encoders.load_reference_vae(args.vae_path, device) if args.vae_path else None
     image = {}
-    if isinstance(pipe, WanI2V):
-        image = dict(
-            clip_fea=load_or_zeros(args.clip_embeds, clip_shape(args.task), device),
-            cond_latent=load_or_zeros(args.cond_latent,
-                                      (1, *latent_grid(args.size, args.frame_num), 16), device))
+    if pipeline_class(args.task) is not WanT2V:
+        if args.image:
+            clip = encoders.load_reference_clip_visual(args.clip_path, device)
+            cond = Conditioner(clip, vae)
+            _, h, w = cond.pixels(lat_f, lat_h, lat_w)
+            paths = [args.image] + ([args.last_image] if args.last_image else [])
+            frames = torch.from_numpy(np.stack([load_image(p, h, w) for p in paths]))
+            clip_fea, cond_latent = cond.condition(frames, lat_f)
+            image = dict(clip_fea=clip_fea, cond_latent=cond_latent)
+            del clip, cond
+        else:
+            image = dict(
+                clip_fea=load_or_zeros(args.clip_embeds, clip_shape(args.task), device),
+                cond_latent=load_or_zeros(args.cond_latent, (1, lat_f, lat_h, lat_w, 16),
+                                          device))
+    pipe = build_pipeline(args)
     req = Request(
-        seed=args.base_seed,
-        context=load_or_zeros(args.prompt_embeds, shape, device),
-        context_null=load_or_zeros(args.uncond_embeds, shape, device),
+        seed=args.base_seed, context=context, context_null=context_null,
         frame_num=args.frame_num, sample_steps=args.sample_steps,
         sample_shift=args.sample_shift, guide_scale=args.sample_guide_scale, **image)
     lat = run_request(pipe, req, args.size)
-    out = os.path.splitext(args.save_file)[0] + "_latents.npy"
-    np.save(out, lat.cpu().numpy())
-    logging.info("latents %s -> %s", tuple(lat.shape), out)
+    stem = os.path.splitext(args.save_file)[0]
+    if vae is None:
+        np.save(stem + "_latents.npy", lat.cpu().numpy())
+        logging.info("latents %s -> %s_latents.npy (no --vae_path)", tuple(lat.shape), stem)
+        return 0
+    del pipe
+    written = write_frames(vae_mod.decode(vae, lat, args.decode_chunk)[0],
+                           args.save_file)
+    logging.info("latents %s decoded -> %s", tuple(lat.shape), written)
     return 0
 
 

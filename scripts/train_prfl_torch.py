@@ -26,8 +26,15 @@ under ``train.save_optimizer_state`` and the EMA (``model.ema.use_ema``)
 to ``<out>-ema/checkpoint-<n>``; ``model.resume_transformer_path`` resumes
 from such a directory (the policy; the moments and the step where
 ``opt_state/`` is there; the EMA where ``<out>-ema/checkpoint-<n>`` is).
-Options the port does not have yet raise NotImplementedError: LoRA, multi-device training,
-optimizer-state offload and the VAE sanity decode. ``train.rollout_quant:
+At every ``train.sanity_check_interval`` within the first 50 steps the
+refl step's ``pred_x0`` and ``latent_next`` go to ``save.sanity_check_dir``
+(``<out>/sanity_check`` by default): decoded in-process by the VAE of
+``extra_model.vae.params_path`` (a reference ``.pth``, ``Wan2.1_VAE.pth``;
+streamed one latent frame at a time), written as mp4 or, without a
+writer, uint8 ``_frames.npy``; as latents ``.npy`` where no VAE is given,
+as the JAX trainer does. Options the port does not have yet raise
+NotImplementedError: LoRA, multi-device training and optimizer-state
+offload. ``train.rollout_quant:
 int8`` runs the no-grad rollout through the int8 serving path (W8A8 block
 matmuls, int8 q k^T self-attention), as the JAX trainer does. An i2v or
 flf2v task (``i2v-1.3b``, ``i2v-14b-480p``, ...) conditions every step on
@@ -50,6 +57,7 @@ import torch  # noqa: E402
 
 from hyvideo_prfl_torch.configs import dit_cfg_from  # noqa: E402
 from hyvideo_prfl_torch.data.dataset import LatentCacheDataset  # noqa: E402
+from hyvideo_prfl_torch.models import vae as vae_mod  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
 from hyvideo_prfl_torch.training import cli, common, ema as ema_mod  # noqa: E402
@@ -58,6 +66,7 @@ from hyvideo_prfl_torch.training.prfl import (  # noqa: E402
     PrflConfig, PrflModel, make_refl_step, make_sft_step,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
+from hyvideo_prfl_torch.utils import encoders, video_io  # noqa: E402
 
 
 @dataclasses.dataclass
@@ -73,14 +82,13 @@ class Trainer:
     seed: int
     step: int = 0  # the next outer step
     ema: Any = None  # fp32 copies of state.params under model.ema.use_ema
+    vae: Any = None  # the sanity decode's VAE (extra_model.vae.params_path)
 
 
 def build_trainer(config, device="cuda") -> Trainer:
     """Model (fp32 policy masters + frozen LRM), optimizer, data, steps."""
     device = cli.start(config, device, **{
-        "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora"),
-        "the VAE sanity decode (extra_model.vae.params_path)":
-            cli.exists(config.get_path("extra_model.vae.params_path"))})
+        "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora")})
     dit_cfg = dit_cfg_from(config)
     is_i2v = "i2v" in config.task or "flf2v" in config.task
     is_flf2v = "flf2v" in config.task
@@ -149,11 +157,16 @@ def build_trainer(config, device="cuda") -> Trainer:
         null_dir=config.dataset.null_dir, is_i2v=is_i2v, is_flf2v=is_flf2v, seed=seed)
     loader = cli.make_loader(dataset, config, seed, start_step)
     out_dir = os.path.join(config.save.output_dir, config.train_id)
+    vae_path = config.get_path("extra_model.vae.params_path")
+    vae = None
+    if cli.exists(vae_path):
+        logging.info("sanity decodes through the VAE of %s", vae_path)
+        vae = encoders.load_reference_vae(vae_path, device)
     return Trainer(config=config, device=device, model=model, state=state,
                    loader=loader, refl_fn=make_refl_step(model, tx),
                    sft_fn=make_sft_step(model, tx, fm.train_schedule(
                        sched_cfg.num_train_timesteps)),
-                   out_dir=out_dir, seed=seed, step=start_step, ema=ema)
+                   out_dir=out_dir, seed=seed, step=start_step, ema=ema, vae=vae)
 
 
 def save_checkpoint(trainer: Trainer, step: int) -> None:
@@ -168,6 +181,21 @@ def save_checkpoint(trainer: Trainer, step: int) -> None:
         ema_state = {**model.dit.state_dict(), **dict(zip(state.names, trainer.ema))}
         ck.save_reference_dir(ema_state, model.dit_cfg, trainer.out_dir + "-ema", step)
     logging.info("saved %s", path)
+
+
+def sanity_dump(trainer: Trainer, sanity_dir: str, step: int, m_refl) -> None:
+    """The refl step's pred_x0 and latent_next: decoded to a video grid
+    with the VAE, else saved as latents."""
+    os.makedirs(sanity_dir, exist_ok=True)
+    for name in ("pred_x0", "latent_next"):
+        lat = m_refl[name].float()
+        stem = os.path.join(sanity_dir, f"step{step}_{name}")
+        if trainer.vae is None:
+            np.save(stem + ".npy", lat.cpu().numpy())
+            continue
+        video = vae_mod.decode(trainer.vae, lat, chunk=1)
+        logging.info("sanity decode %s -> %s", tuple(lat.shape),
+                     video_io.save_videos_grid(video, stem + ".mp4"))
 
 
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
@@ -189,11 +217,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
         cli.sync(dev)
         t_refl = time.perf_counter() - t0
         if interval > 0 and step <= 50 and step % interval == 0:
-            # the sanity dumps, as latents (the VAE decode is not ported)
-            os.makedirs(sanity_dir, exist_ok=True)
-            for name in ("pred_x0", "latent_next"):
-                np.save(os.path.join(sanity_dir, f"step{step}_{name}.npy"),
-                        m_refl[name].float().cpu().numpy())
+            sanity_dump(trainer, sanity_dir, step, m_refl)
         t0 = time.perf_counter()
         trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, gen)
         cli.sync(dev)

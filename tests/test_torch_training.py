@@ -396,17 +396,14 @@ def test_cli_trains_two_steps_on_the_smoke_config(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    # LoRA, multi-device training, optimizer-state offload and the VAE
-    # decode still raise; EMA, resume, optimizer-state export, LRM loading
-    # and a run past save_interval are ported (tests/test_torch_pavrm.py
-    # holds them to the JAX trainer)
+    # LoRA, multi-device training and optimizer-state offload still raise;
+    # EMA, resume, optimizer-state export, LRM loading and a run past
+    # save_interval are ported (tests/test_torch_pavrm.py holds them to the
+    # JAX trainer), and so is the VAE sanity decode (tests/test_torch_vae.py)
     cli = _load_script("train_prfl_torch", os.path.join(REPO, "scripts", "train_prfl_torch.py"))
-    vae = tmp_path / "vae"
-    vae.mkdir()
     for key, value, name in (("model.lora", {"use_lora": True}, "LoRA"),
                              ("dataset.sp_size", 2, "multi-device"),
-                             ("train.offload_opt_state", True, "offload"),
-                             ("extra_model.vae", {"params_path": str(vae)}, "VAE")):
+                             ("train.offload_opt_state", True, "offload")):
         cfg = _smoke_config(tmp_path)
         section, leaf = key.split(".")
         cfg[section][leaf] = value
