@@ -115,7 +115,7 @@ Phases, each of which raises on failure:
    5.0, 2 UniPC steps: i2v one 81-frame and two 21-frame requests (same
    seed and text, another image: their latents must differ), the first
    21-frame one again under --quant int8 --quant_attn int8 (within 0.3
-   relative L2 of bf16), flf2v one 81-frame request; latents finite, each
+   relative L2 of bf16), flf2v one 21-frame request; latents finite, each
    kernel's launches as derived (dit_launches(..., i2v=True)), s/step and
    peak memory per request, each pipeline freed before the next is built;
    then one i2v PRFL outer step at i2v-1.3B, 21 frames, through
@@ -174,13 +174,35 @@ Phases, each of which raises on failure:
    frames; (f) one PRFL outer step of phase 7's run with
    extra_model.vae.params_path and sanity_check_interval 1: launches as
    derived, decoded sanity frames written.
+14. The rest of the serving CLI: (a) 2 t2v-1.3B blocks at full width, one
+   latent frame of 832*480 (1,560 tokens), seeded, card against CPU:
+   dpm++ and euler 4 steps and TeaCache 8 UniPC steps (the threshold
+   picked from the CPU gate, at least 1e-3 from every sum it is compared
+   with; the skip pattern equal on both sides, at least one interior step
+   skipped), within 0.02 relative L2; then two rank-128 LoRAs (kohya,
+   transformer) merged on the card, equal bit for bit to the same merged
+   in the reference layout and loaded through from_reference_state; (b)
+   t2v-1.3B at 30 blocks, 81 frames, through the CLI's pipeline: UniPC,
+   dpm++ and euler, 3 steps each, launches as derived, s/step; (c)
+   t2i-14B at 40 blocks (frame_num forced to 1): two seeded rank-128 LoRAs
+   written as files (kohya .safetensors for --lora_path, transformer .pt
+   for --distill_lora_path) and merged by build_pipeline, every merged
+   attention weight equal bit for bit to the merge in the reference
+   layout; TeaCache over 10 UniPC steps with the t2v-14b coefficients (the
+   card's skips equal the CPU gate's, first and last computed), launches
+   per computed and skipped step, the published VAE's decode written as a
+   PNG; (d) inference_torch.main over two txt records (--prompt_file,
+   --save_folder, --transformer_path from a directory save_reference_dir
+   wrote, a seeded umT5-XXL behind the stub tokenizer): two outputs of
+   seeds 60 and 61, the first equal bit for bit to a single --prompt run
+   of seed 60.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
 for R, phase 11's serving and training, phase 12's runs and phase 13's
-CLIs); the last is
+and 14's CLIs); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -2179,7 +2201,9 @@ def _serve_i2v(dev):
     defaults = cli.args_init(["--task", "flf2v-14B", "--size", SIZE])
     expect(args.sample_shift == defaults.sample_shift == 5.0 and defaults.sample_steps == 50,
            "flf2v-14B: the JAX CLI's defaults are 50 steps at shift 5.0")
-    _, launches_f = _serve(cli, pipe, [request(args, 53, 203, 307, 81, clip_frames=2)],
+    # 21 frames (81 until phase 14 came: the run's time limit); i2v's
+    # 81-frame request above holds the 14B model at that length
+    _, launches_f = _serve(cli, pipe, [request(args, 53, 203, 307, 21, clip_frames=2)],
                            per_forward, "flf2v-14B bf16")
     free(pipe)
     del pipe, lats, lats8
@@ -3161,6 +3185,498 @@ def phase_encoders(results, root, dev="cuda"):
     return launches
 
 
+# Phase 14: the rest of the serving CLI (the dpm++ and euler solvers,
+# TeaCache, LoRA merging, --transformer_path, --prompt_file, t2i-14B)
+
+# the TeaCache gate's threshold must sit at least this far (relative) from
+# every sum it is compared with, so the card's and the CPU's gates, whose
+# fp32 inputs differ in their last bits, take the same branch
+GATE_MARGIN = 1e-3
+
+
+def gate_inputs(model, steps, shift):
+    """The TeaCache gate's inputs computed on the CPU: the fp32 time
+    embedding e [1, dim] of each UniPC step's timestep, through a CPU copy
+    of the model's time MLP."""
+    import copy
+    import types
+
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.schedulers import unipc
+
+    cpu = types.SimpleNamespace(cfg=model.cfg, time_0=copy.deepcopy(model.time_0).cpu().float(),
+                                time_2=copy.deepcopy(model.time_2).cpu().float())
+    with torch.no_grad():
+        return [wan_dit.time_embed_only(cpu, torch.full((1,), float(t)))
+                for t in unipc.unipc_schedule(steps, shift=shift).timesteps]
+
+
+def pick_teacache_threshold(es, coeffs):
+    """A threshold for the gate over the inputs ``es`` that skips at least
+    one interior step, as far (relative) from every sum the gate compares
+    with it as the candidates allow: midpoints between the sums of runs of
+    consecutive steps' rescaled changes, preferring a pattern that also
+    computes an interior step. -> (threshold, skip pattern, margin). The
+    pattern is checked against ``teacache.should_skip`` itself."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import teacache as tc
+
+    n = len(es)
+    polys = [None] + [tc._poly(coeffs, (es[i] - es[i - 1]).abs().mean()
+                               / es[i - 1].abs().mean().clamp_min(1e-8)) for i in range(1, n)]
+
+    def simulate(thresh):
+        # the gate's arithmetic: fp32 sums from 0 after each computed step
+        accum, pattern, compared = torch.zeros(()), [False], []
+        for i in range(1, n - 1):
+            accum = accum + polys[i]
+            compared.append(float(accum))
+            pattern.append(bool(accum < thresh))
+            if not pattern[-1]:
+                accum = torch.zeros(())
+        pattern.append(False)
+        margin = min(abs(c - thresh) for c in compared) / max(abs(thresh), 1e-6)
+        return pattern, margin
+
+    sums = set()
+    for j in range(1, n - 1):
+        accum = torch.zeros(())
+        for i in range(j, n - 1):
+            accum = accum + polys[i]
+            sums.add(float(accum))
+    sums = sorted(sums)
+    candidates = [(a + b) / 2 for a, b in zip(sums, sums[1:])] + [sums[-1] + abs(sums[-1]) + 1]
+    best = None
+    for thresh in candidates:
+        pattern, margin = simulate(thresh)
+        interior = pattern[1:-1]
+        if not any(interior):
+            continue
+        key = (not all(interior), margin)
+        if best is None or key > best[0]:
+            best = (key, thresh, pattern, margin)
+    expect(best is not None, "no TeaCache threshold skips a step")
+    _, thresh, pattern, margin = best
+    state, got = tc.init_state(), []
+    for i, e in enumerate(es):
+        skip, state = tc.should_skip(state, e, i, n, thresh, coeffs)
+        got.append(skip)
+    expect(got == pattern, f"the gate's skips {got} are not the simulated {pattern}")
+    return thresh, pattern, margin
+
+
+def teacache_launches(n_layers, pattern, **kw):
+    """Kernel launches of a TeaCache chain: a full DiT forward on each
+    computed step; a skipped one runs only the head (one K8)."""
+    skipped = sum(pattern)
+    return _add({"K8": skipped} if skipped else {},
+                dit_launches(n_layers, False, **kw), len(pattern) - skipped)
+
+
+def seeded_lora(cfg, rank, seed, dev, std=0.01):
+    """A LoRA tree of q/k/v/o of the self- and cross-attention of every
+    block (the port's layout), A and B seeded normal(0, std) on ``dev``."""
+    import torch
+
+    from hyvideo_prfl_torch.training import lora as lora_mod
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, d = cfg.num_layers, cfg.dim
+    return {"lora": {attn: {m: {"A": torch.randn(n, d, rank, generator=g, device=dev) * std,
+                                "B": torch.randn(n, rank, d, generator=g, device=dev) * std}
+                            for m in lora_mod.DEFAULT_TARGETS}
+                     for attn in ("self_attn", "cross_attn")}}
+
+
+def write_loras(cfg, root, dev, rank, seed):
+    """Two seeded LoRAs written as the CLI reads them: a kohya-format
+    .safetensors (for --lora_path) and a transformer-format .pt (for
+    --distill_lora_path), bf16, in the reference layout."""
+    import torch
+
+    from hyvideo_prfl_torch.training import lora as lora_mod
+    from hyvideo_prfl_torch.utils import safetensors_io
+
+    paths = []
+    for i, (fmt, name) in enumerate((("kohya", "style.safetensors"),
+                                     ("transformer", "distill.pt"))):
+        tree = seeded_lora(cfg, rank, seed + i, dev)
+        sd = {k: v.to("cpu", torch.bfloat16)
+              for k, v in lora_mod.lora_state_dict(tree, fmt, cfg.head_dim).items()}
+        path = os.path.join(root, name)
+        if name.endswith(".pt"):
+            torch.save(sd, path)
+        else:
+            safetensors_io.write_file(sd, path)
+        paths.append(path)
+        del tree, sd
+    return paths
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _solvers_card_vs_cpu(cli, dev, numbers):
+    """14a: 2 blocks of t2v-1.3B at full width, one latent frame of 832*480:
+    dpm++ and euler (4 steps) and TeaCache (8 UniPC steps), card against
+    CPU, the skip patterns equal; then two LoRAs merged on the card against
+    the same merged in the reference layout and loaded."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.ops import teacache as tc
+    from hyvideo_prfl_torch.pipelines import pipeline as pl
+    from hyvideo_prfl_torch.training import lora as lora_mod
+    from hyvideo_prfl_torch.utils import checkpoint as ck
+
+    cfg = dataclasses.replace(cli.dit_config_for_task("t2v-1.3B"), num_layers=2)
+    state = ck.from_jax_params(ck.seeded_jax_tree(cfg, seed=91), cfg)
+    grid = cli.latent_grid(SIZE, 1)
+    tokens = math.prod(grid) // 4
+    rng = np.random.default_rng(92)
+    ctx = torch.from_numpy(rng.standard_normal((1, cfg.text_len, cfg.text_dim), dtype=np.float32))
+    null = ctx * 0.1
+    noise = torch.from_numpy(rng.standard_normal((1, *grid, cfg.out_dim), dtype=np.float32))
+    pipes = {}
+    for d in ("cpu", dev.type):
+        model = wan_dit.WanModel(cfg, device=torch.device(d))
+        model.load_state_dict(state)
+        pipes[d] = pl.WanT2V(model.eval())
+    single = fa.uses_single_block(tokens)
+    per_forward = dit_launches(cfg.num_layers, False, self_single=single)
+    es = gate_inputs(pipes["cpu"].model, 8, 5.0)
+    coeffs = "t2v-1.3b"
+    thresh, pattern, margin = pick_teacache_threshold(es, tc.COEFFICIENTS[coeffs])
+    print(f"  14a: the CPU gate over 8 steps ({coeffs}): threshold {thresh:.6g}, skips "
+          f"{[i for i, s in enumerate(pattern) if s]}, every compared sum at least "
+          f"{margin:.3g} (relative) from it (needed {GATE_MARGIN})")
+    expect(margin >= GATE_MARGIN, f"the gate's threshold lies {margin} from a sum")
+    runs = (("dpm++", 4, None), ("euler", 4, None), ("teacache", 8, thresh))
+    for solver, steps, th in runs:
+        out, skips = {}, {}
+        for d, pipe in pipes.items():
+            gen = pl.GenerateConfig(sampling_steps=steps, shift=5.0, guide_scale=5.0,
+                                    sample_solver="unipc" if th is not None else solver)
+            c, c0 = ctx.to(d), null.to(d)
+            _build.reset_launches()
+            if th is None:
+                lat, dt, _ = _timed(lambda: pipe.generate(None, c, c0, *grid, gen,
+                                                          noise=noise), torch.device(d))
+            else:
+                lat, dt, _ = _timed(lambda: pipe.sample_teacache(
+                    None, (1, *grid, cfg.out_dim), c, c0, gen, thresh=th, coeffs_key=coeffs,
+                    noise=noise), torch.device(d))
+                skips[d] = list(pipe.teacache_skips)
+            out[d] = lat.cpu()
+            launches = dict(_build.LAUNCHES)
+            print(f"  14a {solver} {steps} steps on {d}: {dt:.3f} s")
+        want = (_add({}, per_forward, steps) if th is None
+                else teacache_launches(cfg.num_layers, pattern, self_single=single))
+        expect(launches == want, f"14a {solver}: launches {launches}, expected {want}")
+        d = _rel(out[dev.type], out["cpu"])
+        moved = _rel(out["cpu"], noise)
+        # Bound: both sides bf16, rounding in another order (phase 3 holds one
+        # forward of these blocks within 3e-2 of max|CPU|), through 4-8 CFG
+        # steps; on the CPU the same chains in bf16 lie 0.0035-0.0038
+        # (relative L2) from fp32 ones, and the chain moves the noise by
+        # ~1.7: bound 0.02, about five times the bf16 noise
+        print(f"  14a {solver}: card against CPU, relative L2 {d:.5f} (bound 0.02; the chain "
+              f"moved the noise by {moved:.3f}); launches {launches}")
+        expect(all(bool(torch.isfinite(o).all()) for o in out.values()),
+               f"14a {solver}: non-finite latents")
+        expect(moved > 0.5 and d <= 0.02, f"14a {solver}: card against CPU {d} (moved {moved})")
+        if th is not None:
+            print(f"  14a TeaCache skips: card {skips[dev.type]}, CPU {skips['cpu']}, "
+                  f"the CPU gate alone {pattern}")
+            expect(skips[dev.type] == skips["cpu"] == pattern, "14a: TeaCache skip patterns "
+                   f"differ: card {skips[dev.type]}, CPU {skips['cpu']}, gate {pattern}")
+            numbers["14a_teacache_skipped"] = sum(pattern)
+        numbers[f"14a_{solver}_rel_l2"] = d
+
+    # two LoRAs merged on the card in place, against the same merged into
+    # the reference state (on the card) and loaded through from_reference_state
+    card = pipes[dev.type].model
+    base = {k: v.clone() for k, v in card.state_dict().items()}
+    trees = [seeded_lora(cfg, 128, s, dev, std=0.02) for s in (93, 94)]
+    sds = [lora_mod.lora_state_dict(t, fmt, cfg.head_dim)
+           for t, fmt in zip(trees, ("kohya", "transformer"))]
+    scales = (1.0, 0.5)
+    # the reference state in fp32 (exact for every port tensor), the LoRA's
+    # targets in their storage dtype on the card, where the merge computes
+    ref = ck.to_reference_state(base, cfg)
+    for k in base:
+        if k.startswith("blocks.") and k.endswith(".weight") \
+                and k.split(".")[-2] in lora_mod.DEFAULT_TARGETS:
+            ref[k] = ref[k].to(dev, base[k].dtype)
+    for sd, scale in zip(sds, scales):
+        lora_mod.merge_lora_state(ref, lora_mod.lora_from_state_dict(sd), scale)
+    want = wan_dit.WanModel(cfg, device=dev)
+    want.load_state_dict(ck.from_reference_state({k: v.cpu() for k, v in ref.items()}, cfg))
+    for sd, scale in zip(sds, scales):
+        lora_mod.merge_lora(card, lora_mod.lora_from_state_dict(sd, head_dim=cfg.head_dim), scale)
+    want = want.state_dict()
+    moved = [k for k, v in card.state_dict().items() if not torch.equal(v, base[k])]
+    same = all(torch.equal(v, want[k]) for k, v in card.state_dict().items())
+    print(f"  14a: two rank-128 LoRAs (kohya, transformer) merged on the card into "
+          f"{len(moved)} weights: equal bit for bit to the merge in the reference layout "
+          f"loaded through from_reference_state: {same}")
+    expect(same and len(moved) == cfg.num_layers * 8, f"14a LoRA: equal {same}, moved "
+           f"{len(moved)}")
+    del pipes, card, want, ref, base
+
+
+def _solvers81(cli, dev, numbers):
+    """14b: t2v-1.3B at full depth, 81 frames, through the CLI's pipeline:
+    UniPC, dpm++ and euler, 3 steps each, launches as derived; returns them."""
+    import torch
+
+    args = cli.args_init(["--task", "t2v-1.3B", "--size", SIZE, "--frame_num", "81",
+                          "--sample_steps", "3", "--device", dev.type])
+    pipe = cli.build_pipeline(args)
+    cfg = pipe.cfg
+    g = torch.Generator(device=dev).manual_seed(95)
+    with torch.no_grad():  # a seeded non-zero head, as phase 4's
+        pipe.model.head.head.weight.normal_(0.0, cfg.dim ** -0.5, generator=g)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev)
+    null = torch.zeros_like(ctx)
+    total, lats = {}, {}
+    for solver in ("unipc", "dpm++", "euler"):
+        req = cli.Request(seed=46, context=ctx, context_null=null, frame_num=81,
+                          sample_steps=3, guide_scale=5.0, sample_solver=solver)
+        (lat,), launches = _serve(cli, pipe, [req], dit_launches(cfg.num_layers, False),
+                                  f"14b {solver}")
+        _, dt, _ = _timed(lambda: cli.run_request(pipe, req, SIZE), dev)
+        numbers[f"14b_{solver}_s_per_step"] = dt / req.sample_steps
+        print(f"  14b: {CARD}: {solver} at 81 frames, again: {dt / req.sample_steps:.4f} s/step")
+        lats[solver] = lat
+        _add(total, launches)
+    for solver in ("dpm++", "euler"):
+        d = _rel(lats[solver], lats["unipc"])
+        print(f"  14b: {solver} against UniPC, seed 46: relative L2 {d:.4f}")
+        expect(d > 1e-3, f"14b: {solver} gave UniPC's latents")
+    del pipe, lats
+    _free(dev)
+    return total
+
+
+def _t2i14(cli, root, dev, numbers):
+    """14c: t2i-14B at full width and depth with two LoRAs and TeaCache, to
+    a PNG; returns the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.models import vae as vae_mod
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.ops import teacache as tc
+    from hyvideo_prfl_torch.training import lora as lora_mod
+    from hyvideo_prfl_torch.utils import checkpoint as ck
+
+    cfg = cli.dit_config_for_task("t2i-14B")
+    (lora_a, lora_b), dt, _ = _timed(lambda: write_loras(cfg, root, dev, 128, 96), dev)
+    print(f"  14c: two seeded rank-128 LoRAs written in {dt:.2f} s "
+          f"({os.path.getsize(lora_a) / 1e9:.2f} GB kohya .safetensors, "
+          f"{os.path.getsize(lora_b) / 1e9:.2f} GB transformer .pt)")
+    args = cli.args_init(["--task", "t2i-14B", "--size", SIZE, "--sample_steps", "10",
+                          "--device", dev.type, "--lora_path", lora_a, "--lora_scale", "0.8",
+                          "--distill_lora_path", lora_b, "--distill_lora_alpha", "1.0",
+                          "--teacache_thresh", "0.1", "--save_file",
+                          os.path.join(root, "t2i.mp4")])
+    expect(args.frame_num == 1, f"t2i-14B: frame_num {args.frame_num}")
+    # keep the attention weights as loaded, before the CLI merges the LoRAs
+    keys = [f"blocks.{i}.{a}.{m}.weight" for i in range(cfg.num_layers)
+            for a in ("self_attn", "cross_attn") for m in lora_mod.DEFAULT_TARGETS]
+    snap, load_dit = {}, cli.load_dit
+
+    def keep(*a):
+        model = load_dit(*a)
+        params = dict(model.named_parameters())
+        snap.update({k: params[k].detach().clone() for k in keys})
+        return model
+
+    cli.load_dit = keep
+    try:
+        pipe, dt_build, _ = _timed(lambda: cli.build_pipeline(args), dev)
+    finally:
+        cli.load_dit = load_dit
+    print(f"  14c: t2i-14B pipeline ({cfg.num_layers} blocks, dim {cfg.dim}) built with both "
+          f"LoRAs merged in {dt_build:.2f} s")
+    # the same LoRAs merged in the reference layout: each weight's rows back
+    # to the reference order (from_reference_state's permutation, inverted),
+    # the merge, then the rows to the port's order as from_reference_state
+    # puts them; bit for bit the CLI's merge, since permuting rows and adding
+    # elementwise commute
+    perm = torch.from_numpy(ck.rope_perm_full(cfg.dim, cfg.head_dim)).to(dev)
+    inv = torch.argsort(perm)
+    moved = {k: k.split(".")[2] == "self_attn" and k.split(".")[3] in ("q", "k") for k in keys}
+    for k in keys:
+        if moved[k]:
+            snap[k] = snap[k][inv]
+    for path, scale in ((lora_a, args.lora_scale), (lora_b, args.distill_lora_alpha)):
+        lora_mod.merge_lora_state(snap, lora_mod.lora_from_state_dict(cli.read_state_dict(path)),
+                                  scale)
+    params = dict(pipe.model.named_parameters())
+    same = all(torch.equal(params[k], snap[k][perm] if moved[k] else snap[k]) for k in keys)
+    print(f"  14c: the CLI's merge of {len(keys)} weights against the reference layout's: "
+          f"equal bit for bit: {same}")
+    expect(same, "14c: the merged weights differ from the reference layout's merge")
+    del snap, params
+    _free(dev)
+    with torch.no_grad():  # a seeded non-zero head, as phase 4's (no LoRA targets it)
+        pipe.model.head.head.weight.normal_(
+            0.0, cfg.dim ** -0.5, generator=torch.Generator(device=dev).manual_seed(97))
+    es = gate_inputs(pipe.model, args.sample_steps, args.sample_shift)
+    key = cli.teacache_key(args.task)
+    thresh, pattern, margin = pick_teacache_threshold(es, tc.COEFFICIENTS[key])
+    print(f"  14c: the CPU gate over {args.sample_steps} steps ({key}): threshold {thresh:.6g}, "
+          f"skips {[i for i, s in enumerate(pattern) if s]}, margin {margin:.3g}")
+    expect(margin >= GATE_MARGIN, f"14c: the gate's threshold lies {margin} from a sum")
+    g = torch.Generator(device=dev).manual_seed(98)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev)
+    req = cli.Request(seed=args.base_seed, context=ctx, context_null=torch.zeros_like(ctx),
+                      frame_num=args.frame_num, sample_steps=args.sample_steps,
+                      sample_shift=args.sample_shift, guide_scale=args.sample_guide_scale,
+                      teacache_thresh=thresh, teacache_key=key)
+    _build.reset_launches()
+    lat, dt, peak = _timed(lambda: cli.run_request(pipe, req, SIZE), dev)
+    launches = dict(_build.LAUNCHES)
+    skips = list(pipe.teacache_skips)
+    tokens = math.prod(cli.latent_grid(SIZE, 1)) // 4
+    want = teacache_launches(cfg.num_layers, pattern, self_single=fa.uses_single_block(tokens))
+    n_comp = len(skips) - sum(skips)
+    numbers.update({"14c_s": dt, "14c_peak_gib": peak / 2**30, "14c_computed": n_comp,
+                    "14c_skipped": sum(skips)})
+    print(f"  14c: {CARD}: t2i-14B, {tokens:,} tokens, TeaCache over {len(skips)} UniPC steps: "
+          f"computed {n_comp}, skipped {[i for i, s in enumerate(skips) if s]}, {dt:.3f} s "
+          f"({dt / len(skips):.4f} s/step), peak device memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}, derived {want}")
+    expect(skips == pattern, f"14c: the card skipped {skips}, the CPU gate {pattern}")
+    expect(launches == want, f"14c: launches {launches}, expected {want}")
+    expect(tuple(lat.shape) == (1, *cli.latent_grid(SIZE, 1), 16)
+           and bool(torch.isfinite(lat).all()), f"14c latents {tuple(lat.shape)}")
+    del pipe
+    _free(dev)
+    vae = vae_mod.init_params(vae_mod.WanVAE(vae13(), device=dev),
+                              torch.Generator(device=dev).manual_seed(99)).eval()
+    video, dt, _ = _timed(lambda: vae_mod.decode(vae, lat, args.decode_chunk), dev)
+    written = cli.write_frames(video[0], args.save_file)
+    t, s, _ = vae.cfg.stride
+    shape = (lat.shape[2] * s, lat.shape[3] * s, 3)
+    expect(written.endswith(".png") and os.path.exists(written), f"14c: wrote {written}")
+    try:
+        from PIL import Image
+        img = np.asarray(Image.open(written))
+    except ImportError:
+        import cv2
+        img = cv2.imread(written)
+    print(f"  14c: decoded in {dt:.3f} s and written: {os.path.basename(written)} {img.shape} "
+          f"{img.dtype}")
+    expect(img.shape == shape and img.dtype == np.uint8, f"14c: image {img.shape}")
+    del vae, video
+    _free(dev)
+    return launches
+
+
+def _records14(cli, root, dev, numbers):
+    """14d: two txt records through inference_torch.main with
+    --transformer_path, a seeded umT5 and --save_folder; the first record
+    against a single --prompt run of its seed; returns the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.models import t5 as t5_mod
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.utils import checkpoint as ck
+
+    cfg = cli.dit_config_for_task("t2v-1.3B")
+    model = wan_dit.init_params(wan_dit.WanModel(cfg, device=dev),
+                                torch.Generator(device=dev).manual_seed(100))
+    with torch.no_grad():
+        model.head.head.weight.normal_(0.0, cfg.dim ** -0.5,
+                                       generator=torch.Generator(device=dev).manual_seed(101))
+    export, dt, _ = _timed(lambda: ck.save_reference_dir(model.state_dict(), cfg,
+                                                         os.path.join(root, "prfl"), step=7), dev)
+    print(f"  14d: a post-trained transformer exported by save_reference_dir in {dt:.2f} s: "
+          f"{sorted(os.listdir(export))}")
+    del model
+    _free(dev)
+    t5cfg = t5_13()
+    t5 = t5_mod.init_params(t5_mod.T5Encoder(t5cfg, device=dev),
+                            torch.Generator(device=dev).manual_seed(102))
+    text = cli.TextEncoder(t5, StubTokenizer(t5cfg.vocab_size))
+    prompts = ["a red fox runs through fresh snow at dawn",
+               "a paper boat drifts down a rainy street"]
+    with open(os.path.join(root, "prompts.txt"), "w") as f:
+        f.write("\n".join(prompts) + "\n")
+    common = ["--task", "t2v-1.3B", "--size", SIZE, "--frame_num", "21", "--sample_steps", "2",
+              "--transformer_path", export, "--t5_path", "seeded-umt5", "--tokenizer", "stub",
+              "--base_seed", "60", "--save_file", "gen.mp4", "--device", dev.type]
+    make_text_encoder = cli.make_text_encoder
+    cli.make_text_encoder = lambda args, device: text
+    try:
+        _build.reset_launches()
+        rc, dt, peak = _timed(lambda: cli.main(
+            [*common, "--prompt_file", os.path.join(root, "prompts.txt"),
+             "--save_folder", os.path.join(root, "records")]), dev)
+        launches = dict(_build.LAUNCHES)
+        rc1, dt1, _ = _timed(lambda: cli.main(
+            [*common, "--prompt", prompts[0], "--save_folder", os.path.join(root, "one")]), dev)
+        launches1 = dict(_build.LAUNCHES)
+    finally:
+        cli.make_text_encoder = make_text_encoder
+    per_run = _add({}, dit_launches(cfg.num_layers, False), 2)
+    want = _add({}, per_run, 2)
+    numbers.update({"14d_records_s": dt, "14d_single_s": dt1})
+    files = sorted(os.listdir(os.path.join(root, "records")))
+    print(f"  14d: {CARD}: main over 2 records: rc {rc} in {dt:.3f} s (the transformer's load, "
+          f"the texts, 2 x 2 steps at 21 frames), peak device memory {peak / 2**30:.2f} GiB; "
+          f"wrote {files}; launches {launches}, derived {want}; the single --prompt run: rc "
+          f"{rc1} in {dt1:.3f} s")
+    expect(rc == 0 and rc1 == 0, f"14d: rc {rc}, {rc1}")
+    expect(files == ["gen_000_latents.npy", "gen_001_latents.npy"], f"14d: wrote {files}")
+    expect(launches == want, f"14d: launches {launches}, expected {want}")
+    got1 = _add({}, launches1)
+    for k, v in launches.items():
+        got1[k] -= v
+    expect(got1 == per_run, f"14d: the single run launched {got1}, expected {per_run}")
+    first, second = (np.load(os.path.join(root, "records", f)) for f in files)
+    single = np.load(os.path.join(root, "one", "gen_latents.npy"))
+    expect(np.isfinite(first).all() and np.isfinite(second).all()
+           and first.shape == (1, *cli.latent_grid(SIZE, 21), 16), "14d: latents")
+    expect(not np.array_equal(first, second), "14d: the two records gave one result")
+    same = np.array_equal(first, single)
+    print(f"  14d: the first record (seed 60) against the single --prompt run of seed 60: "
+          f"equal bit for bit: {same}; the second (seed 61) lies "
+          f"{np.linalg.norm(second - first) / np.linalg.norm(first):.3f} from it")
+    expect(same, "14d: the first record differs from the single run of its seed")
+    del text, t5
+    _free(dev)
+    return _add(launches, got1)
+
+
+def phase_solvers(results, root, dev="cuda"):
+    """Phase 14: the dpm++ and euler solvers, TeaCache, LoRA merging,
+    --transformer_path, --prompt_file and t2i-14B; returns the launches of
+    14b-14d (the CLI's paths)."""
+    import torch
+
+    dev = torch.device(dev)
+    cli = load_script("inference_torch")
+    numbers = {}
+    _solvers_card_vs_cpu(cli, dev, numbers)
+    _free(dev)
+    launches = _solvers81(cli, dev, numbers)
+    _add(launches, _t2i14(cli, root, dev, numbers))
+    _add(launches, _records14(cli, root, dev, numbers))
+    print(f"  phase 14 numbers ({CARD}): {json.dumps(numbers)}")
+    return launches
+
+
 def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
@@ -3354,10 +3870,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         encoder_launches = phase_encoders(results, root)
     print(f"  phase 13 launches {encoder_launches}")
+    announce("phase 14: the dpm++ and euler solvers, TeaCache, LoRA, --transformer_path, "
+             "--prompt_file and t2i-14B")
+    with tempfile.TemporaryDirectory() as root:
+        solver_launches = phase_solvers(results, root)
+    print(f"  phase 14 launches {solver_launches}")
 
     launches = {}
     for part in (serve_launches, train_launches, route_launches, probe_launches,
-                 unnormed_launches, i2v_launches, pavrm_launches, encoder_launches):
+                 unnormed_launches, i2v_launches, pavrm_launches, encoder_launches,
+                 solver_launches):
         _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; {CARD}")

@@ -21,6 +21,9 @@ list, ``latents_lose`` and, for i2v, ``cond_lose``). Every random choice
 draws from the dataset's ``random.Random(seed)`` in the JAX package's
 order, so one seed gives the same captions, drops and lose pairs in both
 packages. The native read-ahead ring is not ported.
+
+``EvalPromptDataset`` is the serving CLI's ``--prompt_file``: a txt file of
+prompts, or a JSON list of records with a prompt and an optional image.
 """
 
 from __future__ import annotations
@@ -219,3 +222,47 @@ class LatentCacheDataset:
         if cond is not None:
             win["cond_lose"] = _to_thwc(self._npy(cond))
         return win
+
+
+class EvalPromptDataset:
+    """Prompt (and image) records for inference runs: a txt file of
+    prompts, one a line, or a JSON list of {prompt | caption |
+    short_caption, image_path | img_path, ...} records (the record's other
+    keys kept). ``self[idx]`` also loads the image, when it exists, resized
+    aspect-preserving to 16-aligned sides covering height x width and
+    cropped to them, in [-1, 1] (PIL)."""
+
+    def __init__(self, path: str, height: int = 480, width: int = 832):
+        self.items: List[Dict] = []
+        self.height = height
+        self.width = width
+        if path.endswith(".txt"):
+            with open(path) as f:
+                self.items = [{"prompt": ln.strip()} for ln in f if ln.strip()]
+        else:
+            with open(path) as f:
+                data = json.load(f)
+            for d in data:
+                self.items.append({
+                    "prompt": d.get("prompt") or d.get("caption") or d.get("short_caption", ""),
+                    "image_path": d.get("image_path") or d.get("img_path"),
+                    **{k: v for k, v in d.items() if k not in ("prompt", "caption")},
+                })
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> Dict:
+        item = dict(self.items[idx])
+        img_path = item.get("image_path")
+        if img_path and os.path.exists(img_path):
+            from PIL import Image
+
+            img = Image.open(img_path).convert("RGB")
+            w0, h0 = img.size
+            scale = max(self.height / h0, self.width / w0)
+            img = img.resize((int(round(w0 * scale / 16)) * 16,
+                              int(round(h0 * scale / 16)) * 16))
+            arr = np.asarray(img, np.float32) / 127.5 - 1.0
+            item["image"] = arr[:self.height, :self.width]
+        return item

@@ -48,8 +48,13 @@ are prepended to the text context. Each block's cross-attention splits the
 context at ``len - 512`` and adds a second attention over the image
 tokens (``k_img``/``v_img``, int8 under ``quant_dense``, with the RMSNorm
 ``norm_k_img`` on K6 under ``qk_norm``): K3 at lk 257 (i2v) or 514
-(flf2v). Not ported yet: TeaCache, the "dots" remat policies and the
-sharding policies.
+(flf2v).
+
+TeaCache (ops/teacache.py, inference only): ``skip_blocks`` replaces the
+block stack by ``h + residual_in``, and ``output_residual`` also returns
+the time embedding e (the gate's input) and the stack's residual (out -
+in, fp32). Not ported yet: the "dots" remat policies and the sharding
+policies.
 """
 
 from __future__ import annotations
@@ -472,7 +477,8 @@ class WanModel(nn.Module):
     head-less tower the reward model trims to.
 
     forward(x, t, context, y=None, clip_fea=None, grid=None,
-            output_features=False, selected_layers=())
+            output_features=False, selected_layers=(), skip_blocks=False,
+            residual_in=None, output_residual=False)
       x: [B, F, H, W, C] latent video, or the token-cell layout
          [B, L, cells, C] from ``patchify`` with ``grid`` given (the
          sampling loop keeps its state in that layout).
@@ -485,7 +491,10 @@ class WanModel(nn.Module):
     Returns fp32 [B, F, H, W, out_dim], or [B, L, cells, out_dim] in token
     mode; with output_features, the residual stream after block ``idx``
     for each ``idx + 1`` in selected_layers, stacked [n_sel, B, L, dim]
-    fp32, and no head."""
+    fp32, and no head. TeaCache: with ``skip_blocks`` the block stack is
+    replaced by adding ``residual_in`` [B, L, dim]; ``output_residual``
+    returns (out, e, residual_out), e the fp32 time embedding [B, dim] and
+    residual_out the stack's output minus its input, fp32."""
 
     def __init__(self, cfg: WanConfig, device=None, param_dtype=None, with_head: bool = True):
         super().__init__()
@@ -518,7 +527,9 @@ class WanModel(nn.Module):
 
     def forward(self, x, t, context, y=None, clip_fea=None,
                 grid: Optional[Tuple[int, int, int]] = None,
-                output_features: bool = False, selected_layers: Sequence[int] = ()):
+                output_features: bool = False, selected_layers: Sequence[int] = (),
+                skip_blocks: bool = False, residual_in: Optional[torch.Tensor] = None,
+                output_residual: bool = False):
         cfg = self.cfg
         cd = cfg.compute_dtype
         pt, ph, pw = cfg.patch_size
@@ -537,9 +548,7 @@ class WanModel(nn.Module):
         h = _dense(self.patch_embedding, x.reshape(b, seq_len, cells * c_in), cd).float()
 
         t = torch.as_tensor(t, dtype=torch.float32, device=h.device).reshape(-1)
-        t = t.expand(b) if t.numel() == 1 else t
-        e = self.time_0(sinusoidal_embedding_1d(cfg.freq_dim, t))
-        e = self.time_2(F.silu(e))
+        e = time_embed_only(self, t.expand(b) if t.numel() == 1 else t)
         e0 = self.time_proj(F.silu(e)).view(b, 6, cfg.dim)
 
         ctx = _dense(self.text_2, F.gelu(_dense(self.text_0, context, cd), approximate="tanh"),
@@ -558,15 +567,29 @@ class WanModel(nn.Module):
                 if idx + 1 in sel:
                     taps[idx + 1] = h
             return torch.stack([taps[i] for i in sel])
-        for block in self.blocks:
-            h = block(h, e0, ctx, c_tab, s_tab)
+        h_in = h
+        if skip_blocks:
+            h = h + residual_in.to(h.dtype)
+        else:
+            for block in self.blocks:
+                h = block(h, e0, ctx, c_tab, s_tab)
 
         if self.head is None:
             raise ValueError("a head-less WanModel only returns feature taps")
         out = self.head(h, e).reshape(b, seq_len, cells, cfg.out_dim)
         if not token_mode:
             out = unpatchify(out, grid, cfg.patch_size)
+        if output_residual:
+            return out.float(), e, h - h_in
         return out.float()
+
+
+def time_embed_only(model: WanModel, t) -> torch.Tensor:
+    """The fp32 time embedding e [B, dim] alone (the forward's time MLP
+    before its projection): TeaCache's gate input."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=model.time_0.weight.device).reshape(-1)
+    e = model.time_0(sinusoidal_embedding_1d(model.cfg.freq_dim, t))
+    return model.time_2(F.silu(e))
 
 
 _NORMAL02 = ("text_0", "text_2", "time_0", "time_2")

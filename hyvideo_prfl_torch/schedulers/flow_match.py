@@ -1,10 +1,13 @@
-"""Flow-matching training schedule (hyvideo_prfl_tpu/schedulers/flow_match.py).
+"""Flow-matching schedules and the Euler solver
+(hyvideo_prfl_tpu/schedulers/flow_match.py).
 
 The schedule is a pair of fp32 tables built the JAX package's way; the
 draws take an explicit ``torch.Generator``, or come in from the caller
 (tests hand the JAX draws to both packages).
 
 * train sigmas: linspace(sigma_max, 0, N + 1); timesteps = sigmas[:-1] * N
+* inference sigmas: the same linspace over the steps, warped by the shift
+  s sigma / (1 + (s - 1) sigma); Euler step x += v (sigma_{i+1} - sigma_i)
 * add_noise: (1 - sigma) x0 + sigma eps;  target: v = eps - x0
 * timestep sampling: logit-normal or uniform u, index floor(u N)
 """
@@ -42,6 +45,36 @@ def train_schedule(num_train_timesteps: int = 1000, sigma_max: float = 1.0,
     return FlowMatchSchedule(sigmas=torch.from_numpy(sigmas),
                              timesteps=torch.from_numpy(timesteps),
                              num_train_timesteps=num_train_timesteps)
+
+
+def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """jnp.linspace(start, stop, num, dtype=float32) as XLA evaluates it on
+    the CPU: start (1 - i r) + stop i r in fp32 with r = fp32(1 / div), the
+    endpoint appended (equal to it up to 352 points, within an fp32 ulp
+    above)."""
+    div = num - 1
+    step = np.arange(div, dtype=np.float32) * np.float32(1.0 / div)
+    out = (np.float32(start) * (np.float32(1) - step) + np.float32(stop) * step)
+    return np.concatenate([out, np.float32([stop])]).astype(np.float32)
+
+
+def inference_schedule(num_inference_steps: int, shift: float = 1.0,
+                       num_train_timesteps: int = 1000) -> FlowMatchSchedule:
+    """Inference schedule: fp32 linspace 1 -> 0 warped by the shift,
+    s sigma / (1 + (s - 1) sigma) (the euler solver's sigmas)."""
+    sigmas = _linspace_f32(1.0, 0.0, num_inference_steps + 1)
+    shift = np.float32(shift)
+    sigmas = (shift * sigmas) / (np.float32(1) + (shift - np.float32(1)) * sigmas)
+    timesteps = sigmas[:-1] * np.float32(num_train_timesteps)
+    return FlowMatchSchedule(sigmas=torch.from_numpy(sigmas.astype(np.float32)),
+                             timesteps=torch.from_numpy(timesteps.astype(np.float32)),
+                             num_train_timesteps=num_train_timesteps)
+
+
+def euler_step(schedule: FlowMatchSchedule, model_output, sample, step_index: int):
+    """One Euler step x + v (sigma_{i+1} - sigma_i), fp32."""
+    dt = schedule.sigmas[step_index + 1] - schedule.sigmas[step_index]
+    return sample.float() + model_output.float() * float(dt)
 
 
 def add_noise(original_samples, noise, sigma):

@@ -169,14 +169,25 @@ def unipc_step(schedule: UniPCSchedule, state: UniPCState, model_output, sample)
 
 
 def rollout(schedule: UniPCSchedule, velocity_fn, x_init: torch.Tensor,
-            num_steps: int | None = None):
+            num_steps: int | None = None, extra_init=None):
     """The denoising chain: velocity_fn(x, t) -> v at each table row.
     Returns (x_final, state_final); with ``num_steps`` the chain stops
-    after that many steps, with ``state.step_index == num_steps``."""
+    after that many steps, with ``state.step_index == num_steps``.
+
+    extra_init: a caller's carry threaded through the chain (TeaCache's
+    gate and residual caches). With it, velocity_fn(x, t, i, extra) ->
+    (v, extra), and rollout returns (x_final, state_final, extra_final)."""
     n = schedule.num_steps if num_steps is None else num_steps
     x = x_init.float()
     state = init_state(x)
+    extra = extra_init
     for i in range(n):
-        v = velocity_fn(x, float(schedule.timesteps[i]))
+        t = float(schedule.timesteps[i])
+        if extra_init is None:
+            v = velocity_fn(x, t)
+        else:
+            v, extra = velocity_fn(x, t, i, extra)
         x, state = _apply(schedule.row(i), state, v, x)
-    return x, state
+    if extra_init is None:
+        return x, state
+    return x, state, extra

@@ -2,9 +2,10 @@
 readers and resize wait for the preprocess CLIs).
 
 mp4 through imageio, else OpenCV, where either imports and has a codec;
-otherwise the frames go to ``<stem>_frames.npy`` as uint8 [T, H, W, 3]
-and a log line says so (a card's machine may have neither). Every import
-of imageio or OpenCV happens inside the function that needs it.
+a single frame as an image through imageio, else PIL; otherwise the
+frames go to ``<stem>_frames.npy`` as uint8 [T, H, W, 3] and a log line
+says so (a card's machine may have none). Every import of imageio, PIL
+or OpenCV happens inside the function that needs it.
 """
 
 from __future__ import annotations
@@ -80,17 +81,33 @@ def save_videos_grid(videos, path: str, fps: int = 15) -> str:
     return cache_video(grid, path, fps=fps)
 
 
-def cache_image(image_m1_1, path: str) -> str:
-    """[H, W, 3] in [-1, 1] -> an image file through imageio, or its
-    ``_frames.npy`` (one frame) where imageio is missing."""
-    img = to_uint8(image_m1_1)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+def _write_image(img: np.ndarray, path: str) -> bool:
     try:
         import imageio
-    except ImportError:
-        out = frames_path(path)
-        np.save(out, img[None])
-        logging.info("no imageio; wrote uint8 frames %s to %s", img[None].shape, out)
-        return out
-    imageio.imwrite(path, img)
-    return path
+
+        imageio.imwrite(path, img)
+        return True
+    except Exception as e:  # noqa: BLE001 -- a missing module or format plugin
+        logging.warning("imageio could not write %s: %s", path, e)
+    try:
+        from PIL import Image
+
+        Image.fromarray(img).save(path)
+        return True
+    except Exception as e:  # noqa: BLE001 -- a missing module or format plugin
+        logging.warning("PIL could not write %s: %s", path, e)
+    return False
+
+
+def cache_image(image_m1_1, path: str) -> str:
+    """[H, W, 3] in [-1, 1] -> an image file through imageio, else PIL, or
+    its ``_frames.npy`` (one frame) where neither writes it; returns the
+    file written."""
+    img = to_uint8(image_m1_1)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if _write_image(img, path):
+        return path
+    out = frames_path(path)
+    np.save(out, img[None])
+    logging.info("no image writer; wrote uint8 frames %s to %s", img[None].shape, out)
+    return out

@@ -682,7 +682,7 @@ def test_serving_cli_answers_an_image_request(monkeypatch, tmp_path, kind):
     lat = np.load(tmp_path / "out_latents.npy")
     assert lat.shape == (1, 2, 4, 4, 16) and np.isfinite(lat).all()
     with pytest.raises(SystemExit):
-        cli.args_init(["--task", "t2i-14B"])
+        cli.args_init(["--task", "v2v-14B"])  # no such task
 
 
 @pytest.mark.parametrize("task", ["i2v-1.3b", "flf2v-14B", "t2v-1.3b"])
