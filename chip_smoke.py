@@ -158,7 +158,7 @@ Phases, each of which raises on failure:
    streaming), then streaming against whole-clip on the card at 9; (b) an
    81-frame decode at 832*480 ([1, 21, 60, 104, 16] latents, one latent
    frame a step, the frames moved to the host per chunk) in fp32 and in
-   bf16, and the 81-frame streaming encode of an i2v conditioning video,
+   bf16, and the 21-frame streaming encode of an i2v conditioning video,
    each timed with its peak memory, frames finite in [-1, 1]; (c)
    umT5-XXL (dim 4096, 64 heads, ffn 10,240, vocab 256,384): 2 layers
    card against CPU on seeded ids with a padded mask, then all 24 on the
@@ -176,7 +176,7 @@ Phases, each of which raises on failure:
    derived, decoded sanity frames written.
 14. The rest of the serving CLI: (a) 2 t2v-1.3B blocks at full width, one
    latent frame of 832*480 (1,560 tokens), seeded, card against CPU:
-   dpm++ and euler 4 steps and TeaCache 8 UniPC steps (the threshold
+   dpm++ 3 steps, euler 2 and TeaCache 8 UniPC steps (the threshold
    picked from the CPU gate, at least 1e-3 from every sum it is compared
    with; the skip pattern equal on both sides, at least one interior step
    skipped), within 0.02 relative L2; then two rank-128 LoRAs (kohya,
@@ -196,13 +196,34 @@ Phases, each of which raises on failure:
    wrote, a seeded umT5-XXL behind the stub tokenizer): two outputs of
    seeds 60 and 61, the first equal bit for bit to a single --prompt run
    of seed 60.
+15. The data path: (a) a 122-frame 1280 x 720 24 fps clip (a panning
+   texture and a moving disc) written by OpenCV; (b)
+   scripts/gen_latents_torch.py's main on it, its config written in the
+   reference's pre_*.yaml schema at configs/pre_480.yaml's sizing and read
+   by load_config, with phase 13's seeded VAE file and a seeded ViT-H/14
+   and umT5-XXL handed in (the stub tokenizer): the manifest's keys and
+   paths, latents and f1_black [1, 16, 21, 60, 104], img_clip [1, 257,
+   1280], the captions [1, n, 4096], all finite, their first latent frames
+   equal and the later ones apart, no kernel launched; seconds per part
+   and the peak; (c) encode_clip_data card against CPU at 5 x 64 x 64 (the
+   published VAE, 2 ViT-H blocks); (d) scripts/encode_captions_torch.py's
+   main over a manifest without text paths, with --null_dir; a second run
+   skips it; (e) one i2v PRFL outer step of phase 11's config at 81 frames
+   from (b)'s cache, through the trainer's read-ahead loader: the batch's
+   shapes and its latents and condition equal to the cache's, metrics
+   finite, launches as derived, the wait on the batch iterator printed;
+   (f) a whole-CLIP reference file at the published widths, 2 blocks in
+   each tower with log_scale, post_norm and head, read by
+   load_reference_clip bit for bit; XLM-R with its head (2 x 77 tokens, one
+   row padded) and ViT-H card against CPU; XLM-R large at 24 layers timed
+   on the card.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
-for R, phase 11's serving and training, phase 12's runs and phase 13's
-and 14's CLIs); the last is
+for R, phase 11's serving and training, phase 12's runs, phase 13's
+and 14's CLIs and phase 15's training step); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -2880,9 +2901,9 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def _vae13(root, dev, numbers):
-    """13a and 13b: the VAE card against CPU, then at 81 frames on the
-    card; returns the card's VAE and its reference file."""
+def seeded_vae_file(root):
+    """The published VAE with seeded weights, on the CPU, and written as a
+    reference file (``Wan2.1_VAE.pth``'s layout) under ``root``."""
     import torch
 
     from hyvideo_prfl_torch.models import vae as vae_mod
@@ -2891,6 +2912,18 @@ def _vae13(root, dev, numbers):
     cpu = vae_mod.init_params(vae_mod.WanVAE(vae13()), torch.Generator().manual_seed(81)).eval()
     path = encoders.save_reference({k: v.numpy() for k, v in cpu.state_dict().items()},
                                    os.path.join(root, "Wan2.1_VAE.pth"))
+    return cpu, path
+
+
+def _vae13(root, dev, numbers):
+    """13a and 13b: the VAE card against CPU, then at 81 frames on the
+    card; returns the card's VAE and its reference file."""
+    import torch
+
+    from hyvideo_prfl_torch.models import vae as vae_mod
+    from hyvideo_prfl_torch.utils import encoders
+
+    cpu, path = seeded_vae_file(root)
     vae = encoders.load_reference_vae(path, dev)  # as the CLIs load it
     n = sum(p.numel() for p in vae.parameters())
     print(f"  13a: VAE {vae.cfg}: {n / 1e6:.2f} M params, loaded from a seeded reference file")
@@ -2948,20 +2981,22 @@ def _vae13(root, dev, numbers):
     report_many("VAE", f"81 x 480 x 832 stream, first {n9} frames against the whole-clip "
                 "decode of 3 latent frames", [("decode", out["float32"][:, :n9], head, 1e-4)])
     del out, frames, d, head
-    # the 81-frame streaming encode of an i2v conditioning video: a seeded
-    # first frame, then zeros
-    vid = torch.zeros(shape, device=dev)
+    # the streaming encode of a 21-frame i2v conditioning video (a seeded
+    # first frame, then zeros; phase 15's preprocess encodes 81 frames)
+    f21 = 21
+    vid = torch.zeros((1, f21, *shape[2:]), device=dev)
     vid[0, 0] = torch.rand(shape[2:], generator=g, device=dev) * 2 - 1
     lat, dt, peak = _timed(lambda: vae_mod.encode_streaming(vae, vid), dev)
-    numbers["encode81_s"], numbers["encode81_peak_gib"] = dt, peak / 2**30
-    expect(tuple(lat.shape) == (1, lat_f, lat_h, lat_w, vae.cfg.z_dim)
-           and bool(torch.isfinite(lat).all()), f"81-frame encode: latents {tuple(lat.shape)}")
+    numbers["encode21_s"], numbers["encode21_peak_gib"] = dt, peak / 2**30
+    expect(tuple(lat.shape) == (1, (f21 - 1) // t + 1, lat_h, lat_w, vae.cfg.z_dim)
+           and bool(torch.isfinite(lat).all()), f"21-frame encode: latents {tuple(lat.shape)}")
     print(f"  13b: {CARD}: encode {tuple(vid.shape)} -> {tuple(lat.shape)} streaming, fp32: "
           f"{dt:.3f} s, peak device memory {peak / 2**30:.2f} GiB")
     # causal too: the whole-clip encode of the first 9 frames is the
     # stream's first 3 latent frames, at the same bound
-    report_many("VAE", "81 x 480 x 832 stream, first 3 latent frames against the whole-clip "
-                f"encode of {n9} frames", [("encode", lat[:, :3], vae.encode(vid[:, :n9]), 1e-4)])
+    report_many("VAE", f"{f21} x 480 x 832 stream, first 3 latent frames against the "
+                f"whole-clip encode of {n9} frames",
+                [("encode", lat[:, :3], vae.encode(vid[:, :n9]), 1e-4)])
     del vid, lat
     _free(dev)
     return vae, path
@@ -3322,7 +3357,7 @@ def _rel(a, b):
 
 def _solvers_card_vs_cpu(cli, dev, numbers):
     """14a: 2 blocks of t2v-1.3B at full width, one latent frame of 832*480:
-    dpm++ and euler (4 steps) and TeaCache (8 UniPC steps), card against
+    dpm++ (3 steps), euler (2) and TeaCache (8 UniPC steps), card against
     CPU, the skip patterns equal; then two LoRAs merged on the card against
     the same merged in the reference layout and loaded."""
     import torch
@@ -3357,7 +3392,8 @@ def _solvers_card_vs_cpu(cli, dev, numbers):
           f"{[i for i, s in enumerate(pattern) if s]}, every compared sum at least "
           f"{margin:.3g} (relative) from it (needed {GATE_MARGIN})")
     expect(margin >= GATE_MARGIN, f"the gate's threshold lies {margin} from a sum")
-    runs = (("dpm++", 4, None), ("euler", 4, None), ("teacache", 8, thresh))
+    # dpm++ at 3 steps still takes its second-order update (the middle step)
+    runs = (("dpm++", 3, None), ("euler", 2, None), ("teacache", 8, thresh))
     for solver, steps, th in runs:
         out, skips = {}, {}
         for d, pipe in pipes.items():
@@ -3382,7 +3418,7 @@ def _solvers_card_vs_cpu(cli, dev, numbers):
         d = _rel(out[dev.type], out["cpu"])
         moved = _rel(out["cpu"], noise)
         # Bound: both sides bf16, rounding in another order (phase 3 holds one
-        # forward of these blocks within 3e-2 of max|CPU|), through 4-8 CFG
+        # forward of these blocks within 3e-2 of max|CPU|), through 2-8 CFG
         # steps; on the CPU the same chains in bf16 lie 0.0035-0.0038
         # (relative L2) from fp32 ones, and the chain moves the noise by
         # ~1.7: bound 0.02, about five times the bf16 noise
@@ -3677,6 +3713,391 @@ def phase_solvers(results, root, dev="cuda"):
     return launches
 
 
+# Phase 15: the preprocess CLIs (a video to the latent cache, the captions),
+# one PRFL step trained from that cache with the read-ahead on, and the
+# whole CLIP checkpoint
+
+SOURCE_CLIP = (122, 720, 1280, 24)  # frames, height, width, fps of the source video
+PRE_480 = {  # configs/pre_480.yaml's sizing, in the reference's flat schema
+    "resolution": [480], "aspect_ratio": 1.73, "extract_fps": 16, "sample_n_frames": 81,
+    "start_idx": 0, "precision": "bf16"}
+CACHE_81 = (1, 16, 21, 60, 104)  # the latents of 81 frames at 480 x 832
+
+
+def write_source_clip(path, n, h, w, fps, seed=91):
+    """A textured, moving mp4 through OpenCV: a seeded smooth texture with
+    fine grain, panning 2 px a frame, and a white disc crossing it."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    low = rng.integers(0, 256, (h // 16, (w + 2 * n) // 16 + 1, 3), dtype=np.uint8)
+    tex = cv2.resize(low, (low.shape[1] * 16, h), interpolation=cv2.INTER_CUBIC)
+    tex = cv2.add(tex, rng.integers(0, 40, tex.shape, dtype=np.uint8))
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    expect(vw.isOpened(), "OpenCV cannot open an mp4 writer")
+    for i in range(n):
+        f = np.ascontiguousarray(tex[:, 2 * i:2 * i + w])
+        cv2.circle(f, (40 + i * (w - 80) // n, h // 2), h // 8, (255, 255, 255), -1)
+        vw.write(f)
+    vw.release()
+    return path
+
+
+def _pair(label, got, ref, bound_rel):
+    """A report_many check of two numpy arrays."""
+    import torch
+
+    return label, torch.from_numpy(np.asarray(got)), torch.from_numpy(np.asarray(ref)), bound_rel
+
+
+def _gen15(gen, cap, root, dev, vae_path, numbers):
+    """15a and 15b: the source clip, then gen_latents_torch.main on it at
+    pre_480.yaml's sizing, with the seeded ViT-H/14 and umT5-XXL handed in;
+    returns the manifest's path and the caption encoder."""
+    import torch
+
+    from hyvideo_prfl_torch.configs import load_config
+    from hyvideo_prfl_torch.models import clip as clip_mod
+    from hyvideo_prfl_torch.models import t5 as t5_mod
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.utils.video_io import read_video
+
+    n, h, w, fps = SOURCE_CLIP
+    t0 = time.perf_counter()
+    src = write_source_clip(os.path.join(root, "source.mp4"), n, h, w, fps)
+    frames, fps_out = read_video(src, num_frames=81, target_fps=16)
+    print(f"  15a: a {n}-frame {w} x {h} clip at {fps} fps written by OpenCV "
+          f"({os.path.getsize(src) / 2**20:.1f} MiB) and read back at 16 fps as "
+          f"{frames.shape} in {time.perf_counter() - t0:.2f} s")
+    expect(frames.shape == (81, h, w, 3) and fps_out == 16 and frames.std() > 20,
+           f"15a: the reader gave {frames.shape} at {fps_out} fps, std {frames.std():.1f}")
+    del frames
+    clip = clip_mod.init_params(clip_mod.CLIPVisionTower(clip13(), device=dev),
+                                torch.Generator(device=dev).manual_seed(86))
+    t5cfg = t5_13()
+    t5 = t5_mod.init_params(t5_mod.T5Encoder(t5cfg, device=dev),
+                            torch.Generator(device=dev).manual_seed(84))
+    tokenizer = StubTokenizer(t5cfg.vocab_size)
+    embed = cap.T5Embedder(t5, tokenizer)
+    record = {"source_id": "fox", "video_path": src,
+              "short_caption": "a red fox crosses a field",
+              "long_caption": "a red fox crosses a snowy field at dawn while the camera pans "
+                              "slowly to the right"}
+    with open(os.path.join(root, "clips.json"), "w") as f:
+        json.dump([record], f)
+    save_dir = os.path.join(root, "cache")
+    tree = {"json_path": os.path.join(root, "clips.json"), "save_dir": save_dir,
+            "vae_path": vae_path,
+            "image_encoder_path": os.path.join(
+                root, "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"),
+            "text_encoder_path": os.path.join(root, "models_t5_umt5-xxl-enc-bf16.pth"),
+            "tokenizer_path": "stub", **PRE_480}
+    with open(os.path.join(root, "pre_480.yaml"), "w") as f:
+        f.write(yaml_text(tree) + "\n")
+    config = load_config(os.path.join(root, "pre_480.yaml"))
+    # the towers handed in as phases 13 and 14 hand them (seeded on the card,
+    # no multi-GB files); the VAE from its reference file
+    hooks = gen.load_clip, gen.make_t5_embedder
+    gen.load_clip = lambda path, device: clip
+    gen.make_t5_embedder = lambda *args, **kw: embed
+    stats = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc = gen.main(config, dev.type, stats=stats)
+        torch.cuda.synchronize()
+        dt, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    finally:
+        gen.load_clip, gen.make_t5_embedder = hooks
+    expect(rc == 0 and len(stats) == 1, f"15b: gen_latents rc {rc}, {len(stats)} clips done")
+    expect(not _build.LAUNCHES, f"15b: the preprocess launched kernels: {dict(_build.LAUNCHES)}")
+    (s,) = stats
+    numbers.update({f"15b_{k}": v for k, v in s.items() if k.endswith("_s")})
+    numbers.update({"15b_main_s": dt, "15b_peak_gib": peak / 2**30})
+    print(f"  15b: {CARD}: gen_latents_torch.main, one clip in {s['total_s']:.3f} s: decode "
+          f"and resize {s['read_resize_s']:.3f}, VAE encode {s['encode_s']:.3f}, f1_black "
+          f"encode {s['f1_black_s']:.3f}, CLIP {s['clip_s']:.4f}, umT5 on both captions "
+          f"{s['t5_s']:.4f}; main {dt:.3f} s with the VAE's load; peak device memory "
+          f"{peak / 2**30:.2f} GiB (ViT-H and umT5-XXL resident)")
+    meta_path = os.path.join(save_dir, "meta_v1", "fox_meta_v1.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    names = {"vae_latent_path": "fox.npy", "f1_black_path": "fox_f1_black.npy",
+             "imgclip_path": "fox_img_clip.npy", "textshort_path": "fox_textshort.npy",
+             "textlong_path": "fox_textlong.npy"}
+    lat_dir = os.path.join(save_dir, "latents")
+    expect(all(meta.get(k) == os.path.join(lat_dir, v) for k, v in names.items())
+           and meta["latent_shape"] == list(CACHE_81)
+           and all(meta[k] == v for k, v in record.items()), f"15b: the manifest {meta}")
+    arrays = {k: np.load(meta[k]) for k in names}
+    n_tok = {k: int(tokenizer([record[c]], return_mask=True)[1].sum())
+             for k, c in (("textshort_path", "short_caption"), ("textlong_path", "long_caption"))}
+    shapes = {"vae_latent_path": CACHE_81, "f1_black_path": CACHE_81,
+              "imgclip_path": (1, 257, 1280),
+              **{k: (1, n, t5cfg.dim) for k, n in n_tok.items()}}
+    for k, a in arrays.items():
+        print(f"  15b: {names[k]} {a.dtype} {a.shape}, max|x| {np.abs(a).max():.3f}")
+        expect(a.shape == shapes[k] and a.dtype == np.float32 and np.isfinite(a).all(),
+               f"15b: {k} {a.dtype} {a.shape}, expected finite float32 {shapes[k]}")
+    lat, f1 = arrays["vae_latent_path"], arrays["f1_black_path"]
+    # the encoder is causal: the first latent frame sees the first pixel frame
+    # alone, which both videos share; the later ones differ (zeros against
+    # the moving clip). Bound: the same chunk through the same weights,
+    # 1e-4 of max|ref|
+    report_many("gen_latents", "the clip's and f1_black's first latent frame",
+                [_pair("frame 0", lat[:, :, 0], f1[:, :, 0], 1e-4)])
+    later = np.abs(lat[:, :, 1:] - f1[:, :, 1:]).mean() / np.abs(lat[:, :, 1:]).mean()
+    print(f"  15b: latent frames 1-20 of the clip and of f1_black differ by {later:.3f} "
+          "(mean |difference| over mean |latents|)")
+    expect(later > 0.05, "15b: f1_black's later frames equal the clip's")
+    del clip, arrays, lat, f1
+    return meta_path, embed
+
+
+def _encode15(gen, vae_path, dev):
+    """15c: encode_clip_data on the card against the CPU, a 5-frame 64 x 64
+    clip through the published VAE and 2 blocks of ViT-H/14."""
+    import copy
+
+    import torch
+
+    from hyvideo_prfl_torch.models import clip as clip_mod
+    from hyvideo_prfl_torch.utils import encoders
+
+    cpu_vae = encoders.load_reference_vae(vae_path)
+    card_vae = encoders.load_reference_vae(vae_path, dev)
+    cpu_clip = clip_mod.init_params(clip_mod.CLIPVisionTower(clip13(num_layers=2)),
+                                    torch.Generator().manual_seed(92))
+    card_clip = copy.deepcopy(cpu_clip).to(dev)
+    video = np.random.default_rng(92).uniform(-1, 1, (5, 64, 64, 3)).astype(np.float32)
+    got = gen.encode_clip_data(card_vae, card_clip, video)
+    want = gen.encode_clip_data(cpu_vae, cpu_clip, video)
+    expect(got[0].shape == (1, 16, 2, 8, 8) and got[2].shape == (1, 257, 1280),
+           f"15c: shapes {[a.shape for a in got]}")
+    # Bound: phase 13's, fp32 (TF32 off) against fp32, 1e-3 of max|CPU|
+    report_many("encode_clip_data", "5 x 64 x 64, card against CPU", [
+        _pair(name, g, w, 1e-3) for name, g, w in zip(("latents", "f1_black", "img_clip"),
+                                                      got, want)])
+    del cpu_vae, card_vae, cpu_clip, card_clip
+
+
+def _captions15(cap, root, dev, embed, numbers):
+    """15d: encode_captions_torch.main over a manifest without text paths,
+    with --null_dir; a second run skips it. Returns the null directory."""
+    from hyvideo_prfl_torch.configs import SAMPLE_NEG_PROMPT
+
+    meta_dir = os.path.join(root, "captions", "meta_v1")
+    lat_dir = os.path.join(root, "captions", "latents")
+    os.makedirs(meta_dir)
+    os.makedirs(lat_dir)
+    meta_path = os.path.join(meta_dir, "boat_meta_v1.json")
+    meta = {"source_id": "boat", "vae_latent_path": os.path.join(lat_dir, "boat.npy"),
+            "short_caption": "a paper boat", "long_caption": "a paper boat drifts down a rainy "
+            "street past parked bicycles"}
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    null_dir = os.path.join(root, "null")
+    argv = ["--meta_dir", meta_dir, "--t5_params", "seeded-umt5", "--tokenizer", "stub",
+            "--null_dir", null_dir, "--negative_prompt", SAMPLE_NEG_PROMPT, "--device", dev.type]
+    make_t5_embedder = cap.make_t5_embedder
+    cap.make_t5_embedder = lambda *args, **kw: embed
+    try:
+        t0 = time.perf_counter()
+        rc = cap.main(argv)
+        dt = time.perf_counter() - t0
+        rc2 = cap.main([a for a in argv if a not in ("--null_dir", null_dir)])
+    finally:
+        cap.make_t5_embedder = make_t5_embedder
+    with open(meta_path) as f:
+        out = json.load(f)
+    paths = {k: os.path.join(lat_dir, f"boat_{k[:-5]}.npy")
+             for k in ("textshort_path", "textlong_path")}
+    expect(rc == 0 and {k: out.get(k) for k in paths} == paths
+           and all(out[k] == v for k, v in meta.items()), f"15d: rc {rc}, manifest {out}")
+    files = {**paths, "null": os.path.join(null_dir, "wanx", "null.npy"),
+             "uncond": os.path.join(null_dir, "wanx", "uncond.npy")}
+    texts = {"textshort_path": meta["short_caption"], "textlong_path": meta["long_caption"],
+             "null": "", "uncond": SAMPLE_NEG_PROMPT}
+    stamps = {}
+    for k, path in files.items():
+        a = np.load(path)
+        n = int(embed.tokenizer([texts[k]], return_mask=True)[1].sum())
+        print(f"  15d: {os.path.basename(path)} {a.dtype} {a.shape}")
+        expect(a.shape == (1, n, 4096) and np.isfinite(a).all(),
+               f"15d: {path} {a.shape}, expected (1, {n}, 4096)")
+        stamps[k] = os.stat(path).st_mtime_ns
+    expect(rc2 == 0 and all(os.stat(files[k]).st_mtime_ns == stamps[k] for k in paths),
+           "15d: the second run did not skip the encoded manifest")
+    numbers["15d_s"] = dt
+    print(f"  15d: encode_captions_torch.main: one manifest and the null texts in {dt:.3f} s; "
+          "a second run skipped the manifest")
+    return null_dir
+
+
+def _train15(root, dev, meta_path, null_dir, numbers):
+    """15e: one outer i2v PRFL step of phase 11's config at 81 frames, read
+    from the cache 15b wrote, the read-ahead on; returns its launches."""
+    import threading
+
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+
+    cli = load_script("train_prfl_torch")
+    lst = os.path.join(root, "cache.list")
+    with open(lst, "w") as f:
+        f.write(meta_path + "\n")
+    cfg_name, changes = PRFL_I2V
+    trainer, config, build_s = _build_trainer(cli, published(cfg_name, {
+        **changes, "dataset.meta_file_list": [lst], "dataset.null_dir": null_dir,
+        "save.output_dir": os.path.join(root, "out")}), dev)
+    model = trainer.model
+    cfg = model.dit_cfg
+    want = expected_train_launches(cfg.num_layers, model.lrm.dit_cfg.num_layers,
+                                   int(config.train.fixed_mid), cfg.remat_policy, i2v=True)
+    inner, seen, waits = trainer.loader, [], []
+
+    def timed():  # the loader as the step sees it, with its wait timed
+        while True:
+            t0 = time.perf_counter()
+            batch = next(inner)
+            waits.append(time.perf_counter() - t0)
+            seen.append(batch)
+            yield batch
+
+    trainer.loader = timed()
+    threads = sum(t.name == "BatchIterator" for t in threading.enumerate())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    (m,) = cli.run(trainer, 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = dict(_build.LAUNCHES)
+    ahead = sum(t.name == "BatchIterator" for t in threading.enumerate()) - threads
+    (batch,) = seen
+    with open(meta_path) as f:
+        meta = json.load(f)
+    shapes = {k: tuple(v.shape) for k, v in batch.items() if not isinstance(v, list)}
+    print(f"  15e: {CARD}: i2v-1.3B trainer built in {build_s:.2f} s; one outer step from the "
+          f"port's own cache in {dt:.3f} s: refl_loss {m['refl_loss']:.6f}, reward "
+          f"{m['reward']:.6f}, grad_norm {m['grad_norm']:.6e}, sft_loss {m['sft_loss']:.6f}, "
+          f"t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s; waited {waits[0] * 1e3:.2f} "
+          f"ms on the batch iterator; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; batch {shapes}")
+    expect(ahead == 1, f"15e: {ahead} read-ahead threads started, expected the loader's one")
+    expect(shapes["latents"] == shapes["cond"] == (1, 21, 60, 104, 16)
+           and shapes["clip_fea"] == (1, 257, 1280) and shapes["text"] == (1, TEXT_LEN, 4096),
+           f"15e: batch shapes {shapes}")
+    for key, name in (("latents", "vae_latent_path"), ("cond", "f1_black_path")):
+        ref = np.transpose(np.load(meta[name])[0], (1, 2, 3, 0))
+        expect(np.array_equal(batch[key][0], ref), f"15e: the batch's {key} is not the cache's")
+    for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+        expect(math.isfinite(m[key]), f"15e: {key} is not finite: {m}")
+    print(f"  15e: launches {got}, derived {want}")
+    expect(got == want, f"15e launches {got}, expected {want}")
+    numbers.update({"15e_step_s": dt, "15e_t_refl": m["t_refl"], "15e_t_sft": m["t_sft"],
+                    "15e_wait_s": waits[0],
+                    "15e_peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del trainer, model, inner
+    _free(dev)
+    return got
+
+
+def _clip15(root, dev, numbers):
+    """15f: a whole-CLIP reference file at the published widths (2 blocks in
+    each tower, log_scale and the image tower's post_norm and head) read by
+    load_reference_clip; its text tower with the head and its image tower
+    card against CPU; then a seeded XLM-R large at full depth on the card."""
+    import torch
+
+    from hyvideo_prfl_torch.models import clip as clip_mod
+    from hyvideo_prfl_torch.models import xlm_roberta as xlmr_mod
+    from hyvideo_prfl_torch.utils import encoders
+
+    txt_cfg = xlmr_mod.xlm_roberta_large(num_layers=2)
+    whole = clip_mod.XLMRobertaCLIP(clip13(num_layers=2), txt_cfg, post_norm=True,
+                                    head_shape=(1280, 1024), txt_out_dim=1024)
+    g = torch.Generator().manual_seed(93)
+    clip_mod.init_params(whole.visual, g)
+    xlmr_mod.init_params(whole.textual, g)
+    with torch.no_grad():
+        whole.log_scale.fill_(math.log(100.0))
+    state = {k: v.numpy() for k, v in whole.state_dict().items()}
+    del whole
+    t0 = time.perf_counter()
+    path = encoders.save_reference(state, os.path.join(
+        root, "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth"))
+    dt_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = encoders.load_reference_clip(path, dev)
+    dt_load = time.perf_counter() - t0
+    cpu = encoders.load_reference_clip(path)
+    back = {k: v.cpu().numpy() for k, v in card.state_dict().items()}
+    expect(set(back) == set(state) and all(np.array_equal(back[k], state[k]) for k in state)
+           and {"log_scale", "visual.head", "visual.post_norm.weight",
+                "textual.head.2.weight"} <= set(state), "15f: the whole CLIP did not round-trip")
+    print(f"  15f: a whole-CLIP file of {len(state)} tensors "
+          f"({os.path.getsize(path) / 2**30:.2f} GiB: ViT-H/14 and XLM-R large, 2 blocks "
+          f"each) written in {dt_save:.2f} s, read onto the card in {dt_load:.2f} s, equal "
+          "bit for bit")
+    rng = np.random.default_rng(93)
+    ids = torch.from_numpy(rng.integers(3, txt_cfg.vocab_size, (2, 77)))
+    ids[:, 0] = 0
+    ids[1, 30:] = txt_cfg.pad_id  # the second row padded from 30
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, 480, 832, 3)).astype(np.float32))
+    img = clip_mod.preprocess_frames(img, 224)
+    # Bound: fp32 (TF32 off) against fp32, 1e-3 of max|CPU|, as phase 13's towers
+    report_many("whole CLIP", "2 + 2 blocks, card against CPU", [
+        ("XLM-R tokens (2 x 77, one padded from 30)", card.textual(ids.to(dev)).cpu(),
+         cpu.textual(ids), 1e-3),
+        ("XLM-R with its head", card.textual.encode_with_head(ids.to(dev)).cpu(),
+         cpu.textual.encode_with_head(ids), 1e-3),
+        ("ViT-H use_31_block", card.visual(img.to(dev)).cpu(), cpu.visual(img), 1e-3)])
+    del card, cpu, state
+    _free(dev)
+    xl = xlmr_mod.init_params(xlmr_mod.XLMRobertaWithHead(xlmr_mod.xlm_roberta_large(),
+                                                          device=dev),
+                              torch.Generator(device=dev).manual_seed(94))
+    x = ids.to(dev)
+    xl.encode_with_head(x)  # warm-up
+    out, dt, peak = _timed(lambda: xl.encode_with_head(x), dev)
+    n = sum(p.numel() for p in xl.parameters())
+    numbers.update({"15f_xlmr_ms": dt * 1e3, "15f_xlmr_peak_gib": peak / 2**30,
+                    "15f_save_s": dt_save, "15f_load_s": dt_load})
+    print(f"  15f: {CARD}: XLM-R large with its head ({xl.cfg.num_layers} layers, dim "
+          f"{xl.cfg.dim}, {n / 1e6:.1f} M fp32 params) on 2 x 77 tokens: {tuple(out.shape)} in "
+          f"{dt * 1e3:.2f} ms, peak device memory {peak / 2**30:.2f} GiB")
+    expect(tuple(out.shape) == (2, 1024) and bool(torch.isfinite(out).all()),
+           f"15f: XLM-R large gave {tuple(out.shape)}")
+    del xl
+    _free(dev)
+
+
+def phase_preprocess(results, root, dev="cuda"):
+    """Phase 15: the preprocess CLIs and a PRFL step from their cache, then
+    the whole CLIP; returns the launches of the training step (15e)."""
+    import torch
+
+    dev = torch.device(dev)
+    numbers = {}
+    gen = load_script("gen_latents_torch")
+    cap = load_script("encode_captions_torch")
+    _, vae_path = seeded_vae_file(root)  # phase 13's seeded Wan2.1_VAE.pth
+    meta_path, embed = _gen15(gen, cap, root, dev, vae_path, numbers)
+    _encode15(gen, vae_path, dev)
+    null_dir = _captions15(cap, root, dev, embed, numbers)
+    del embed
+    _free(dev)
+    launches = _train15(root, dev, meta_path, null_dir, numbers)
+    _clip15(root, dev, numbers)
+    print(f"  phase 15 numbers ({CARD}): {json.dumps(numbers)}")
+    return launches
+
+
 def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
@@ -3811,7 +4232,9 @@ def main() -> int:
     T_START = time.perf_counter()
     print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; CPU: {len(os.sched_getaffinity(0))} cores "
+          f"available, {torch.get_num_threads()} torch threads (the card-against-CPU "
+          "checks' CPU halves run on them)")
 
     announce("phase 1: build")
     t0 = t_start = time.perf_counter()
@@ -3875,11 +4298,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         solver_launches = phase_solvers(results, root)
     print(f"  phase 14 launches {solver_launches}")
+    announce("phase 15: the preprocess CLIs (a video to the latent cache, the captions), a "
+             "PRFL step from that cache, and the whole CLIP")
+    with tempfile.TemporaryDirectory() as root:
+        preprocess_launches = phase_preprocess(results, root)
+    print(f"  phase 15 launches {preprocess_launches}")
 
     launches = {}
     for part in (serve_launches, train_launches, route_launches, probe_launches,
                  unnormed_launches, i2v_launches, pavrm_launches, encoder_launches,
-                 solver_launches):
+                 solver_launches, preprocess_launches):
         _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; {CARD}")

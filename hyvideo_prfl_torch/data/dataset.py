@@ -20,7 +20,9 @@ package's: "refl" (PRFL), "lrm_ce" (a sample and its quality label,
 list, ``latents_lose`` and, for i2v, ``cond_lose``). Every random choice
 draws from the dataset's ``random.Random(seed)`` in the JAX package's
 order, so one seed gives the same captions, drops and lose pairs in both
-packages. The native read-ahead ring is not ported.
+packages. A sample's files (latents, text, condition, CLIP features) are
+read in parallel through the read-ahead ring (``data/native_loader.py``),
+as the JAX package reads them; replayed samples are memory-mapped instead.
 
 ``EvalPromptDataset`` is the serving CLI's ``--prompt_file``: a txt file of
 prompts, or a JSON list of records with a prompt and an optional image.
@@ -35,6 +37,8 @@ import random
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from .native_loader import NativeStream
 
 NULL_DIR = "temp_data/null"
 # chance of the long caption where a sample has both (the reference's 0.7)
@@ -118,6 +122,7 @@ class LatentCacheDataset:
         self.is_flf2v = is_flf2v
         self.rng = random.Random(seed)
         self._mmap = None  # "r" while replay() maps the arrays rather than reading them
+        self._stream = None  # the read-ahead ring, opened at the first read
         self.meta_paths = _read_list(meta_file_list)
         self.meta_paths_lose = _read_list(meta_file_lose_list)
 
@@ -146,8 +151,17 @@ class LatentCacheDataset:
         finally:
             self._mmap = None
 
-    def _npy(self, path: str) -> np.ndarray:
-        return np.load(path, mmap_mode=self._mmap)
+    def _read_many(self, paths: Sequence[Optional[str]]) -> List[Optional[np.ndarray]]:
+        """The arrays of one sample's files (None entries pass through),
+        read in parallel through the ring, or memory-mapped in a replay."""
+        real = [p for p in paths if p is not None]
+        if self._mmap:
+            arrays = iter([np.load(p, mmap_mode=self._mmap) for p in real])
+        else:
+            if self._stream is None:
+                self._stream = NativeStream()
+            arrays = iter(self._stream.read_many(real))
+        return [next(arrays) if p is not None else None for p in paths]
 
     def _null_text(self, name: str) -> np.ndarray:
         return _load_null_npy(os.path.join(self.null_dir, f"wanx/{name}.npy"))[0]
@@ -171,13 +185,15 @@ class LatentCacheDataset:
         return lat, text, prompt, cond, clip
 
     def _load(self, lat, text, prompt, cond, clip) -> Dict:
-        out = {"latents": _to_thwc(self._npy(lat)), "text": _pad_text(text, self.text_len),
+        """The sample's arrays; ``text`` None takes the null embedding."""
+        lat, text, cond, clip = self._read_many([lat, text, cond, clip])
+        text = text[0] if text is not None else self._null_text("null")
+        out = {"latents": _to_thwc(lat), "text": _pad_text(text, self.text_len),
                "prompt": prompt}
         if cond is not None:
-            out["cond"] = _to_thwc(self._npy(cond))
-        if clip is not None:
-            e = self._npy(clip)  # [1, 257, 1280] or [b, s, d]
-            out["clip_fea"] = e.reshape(-1, e.shape[-1]).astype(np.float32, copy=False)
+            out["cond"] = _to_thwc(cond)
+        if clip is not None:  # [1, 257, 1280] or [b, s, d]
+            out["clip_fea"] = clip.reshape(-1, clip.shape[-1]).astype(np.float32, copy=False)
         return out
 
     def get_refl(self, idx: int) -> Dict[str, np.ndarray]:
@@ -186,8 +202,7 @@ class LatentCacheDataset:
         cond and clip_fea, where the meta names them."""
         lat, text_p, prompt, cond, clip = self._paths(idx)
         drop = self.rng.random() < self.uncond_prompt_prob
-        out = self._load(lat, self._null_text("null") if drop else self._npy(text_p)[0],
-                         prompt, cond, clip)
+        out = self._load(lat, None if drop else text_p, prompt, cond, clip)
         out["uncond_text"] = _pad_text(
             self._null_text("uncond_flf2v" if self.is_flf2v else "uncond"), self.text_len)
         return out
@@ -195,7 +210,7 @@ class LatentCacheDataset:
     def get_refl_no_drop(self, idx: int) -> Dict[str, np.ndarray]:
         """A sample without the text drop and without uncond_text."""
         lat, text_p, prompt, cond, clip = self._paths(idx)
-        return self._load(lat, self._npy(text_p)[0], prompt, cond, clip)
+        return self._load(lat, text_p, prompt, cond, clip)
 
     def get_lrm_ce(self, idx: int) -> Dict[str, np.ndarray]:
         """A pointwise reward sample: get_refl_no_drop and ``labels``, the
@@ -217,10 +232,10 @@ class LatentCacheDataset:
         i2v, its condition latent."""
         win = self.get_refl_no_drop(idx)
         d = _meta(self.meta_paths_lose[self.rng.randrange(len(self.meta_paths_lose))])
-        win["latents_lose"] = _to_thwc(self._npy(_latent_path(d)))
-        cond = _cond_path(d) if self.is_i2v else None
+        lat, cond = self._read_many([_latent_path(d), _cond_path(d) if self.is_i2v else None])
+        win["latents_lose"] = _to_thwc(lat)
         if cond is not None:
-            win["cond_lose"] = _to_thwc(self._npy(cond))
+            win["cond_lose"] = _to_thwc(cond)
         return win
 
 

@@ -1,5 +1,5 @@
-"""Sampler, batching and the single-device batch iterator
-(hyvideo_prfl_tpu/data/loader.py, the one-replica path).
+"""Sampler, batching and the single-device batch iterator with its
+read-ahead thread (hyvideo_prfl_tpu/data/loader.py, the one-replica path).
 
 The JAX package gives each data-parallel replica a contiguous block of
 the dataset; one GPU is one replica, whose block is the whole dataset.
@@ -9,10 +9,18 @@ not start at an offset, as the JAX trainers do: it replays the stream from
 the start and drops the batches its steps took (``skip_batches``), so the
 dataset's draws (captions, text drops, lose pairs), the shuffle's epochs
 and the buckets come out as in an uninterrupted run.
+
+With ``prefetch`` > 0 (the trainers' 2, as the JAX trainers read) a
+background thread makes the batches, replay included, into a queue of
+that many; the dataset and its random draws are touched by that thread
+alone, in order, so the stream is the inline one. An exception in the
+thread is raised in the consumer.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Sequence
 
 import numpy as np
@@ -55,19 +63,48 @@ def _shape_key(sample: Dict) -> tuple:
                  if not isinstance(v, str))
 
 
+def latent_tokens(shape, patch=(1, 2, 2)) -> int:
+    """The DiT's token count of a [F, H, W, C] latent."""
+    f, h, w = shape[0], shape[1], shape[2]
+    return (f // patch[0]) * (h // patch[1]) * (w // patch[2])
+
+
 class BatchIterator:
     """Infinite, epoch-wrapping iterator of shape-uniform batches, less the
     first ``skip_batches``: those are replayed (``dataset.replay``, which
-    maps the arrays rather than reading them) and dropped unstacked."""
+    maps the arrays rather than reading them) and dropped unstacked. With
+    ``prefetch`` > 0 a daemon thread reads ahead up to ``prefetch``
+    batches."""
 
     def __init__(self, dataset, sampler: BlockDistributedSampler, batch_size: int = 1,
-                 skip_batches: int = 0):
+                 skip_batches: int = 0, prefetch: int = 2):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
         self.skip_batches = skip_batches
+        self.prefetch = prefetch
 
     def __iter__(self):
+        if self.prefetch <= 0:
+            yield from self._gen()
+            return
+        q = queue.Queue(maxsize=self.prefetch)
+        threading.Thread(target=self._worker, args=(q,), daemon=True,
+                         name="BatchIterator").start()
+        while True:
+            item = q.get()
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    def _worker(self, q: queue.Queue) -> None:
+        try:
+            for batch in self._gen():
+                q.put(batch)
+        except BaseException as e:  # noqa: BLE001 -- raised again in the consumer
+            q.put(e)
+
+    def _gen(self):
         epoch, skip = 0, self.skip_batches
         buckets: Dict[tuple, list] = {}
         while True:

@@ -15,7 +15,16 @@ Modules are named as the reference's ``VisionTransformer`` (the
 
 ``preprocess_frames`` resizes in torch (bicubic, a = -0.75, half-pixel
 centres, no antialias: what OpenCV's INTER_CUBIC computes, which the JAX
-package calls) and normalizes by the CLIP mean and std.
+package calls) and normalizes by the CLIP mean and std;
+``preprocess_frames_host`` is the JAX package's own host-side resize
+through OpenCV, which the preprocess CLI uses, so a latent cache written by
+either package puts the same pixels into CLIP.
+
+``XLMRobertaCLIP`` holds the whole released checkpoint
+(``models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``): ``visual``
+(this tower, with the file's ``post_norm`` and ``head``, which its forward
+never reaches, carried through unchanged), ``textual`` (the XLM-R tower
+with its projection head, ``models/xlm_roberta.py``) and ``log_scale``.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .xlm_roberta import XLMRobertaConfig, XLMRobertaWithHead
 
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -119,6 +130,33 @@ class CLIPVisionTower(nn.Module):
         return x.float()
 
 
+class CLIPVisualWithExtras(CLIPVisionTower):
+    """The image tower of the whole-CLIP file, with the weights it holds
+    beside the tower: ``post_norm`` (a LayerNorm) and ``head`` (the pooling
+    projection [dim, out]), each where the file has it. The forward is the
+    tower's: the i2v tap never reaches either."""
+
+    def __init__(self, cfg: CLIPVisionConfig, post_norm: bool = False, head_shape=None,
+                 device=None):
+        super().__init__(cfg, device)
+        if post_norm:
+            self.post_norm = nn.LayerNorm(cfg.dim, eps=cfg.norm_eps, device=device)
+        if head_shape is not None:
+            self.head = nn.Parameter(torch.zeros(head_shape, device=device))
+
+
+class XLMRobertaCLIP(nn.Module):
+    """The whole CLIP checkpoint: ``visual``, ``textual`` and ``log_scale``."""
+
+    def __init__(self, vis_cfg: CLIPVisionConfig, txt_cfg: XLMRobertaConfig,
+                 post_norm: bool = False, head_shape=None, txt_mid_dim: int = None,
+                 txt_out_dim: int = None, device=None):
+        super().__init__()
+        self.visual = CLIPVisualWithExtras(vis_cfg, post_norm, head_shape, device)
+        self.textual = XLMRobertaWithHead(txt_cfg, txt_mid_dim, txt_out_dim, device)
+        self.log_scale = nn.Parameter(torch.zeros((), device=device))
+
+
 @torch.no_grad()
 def init_params(model: CLIPVisionTower, generator: torch.Generator) -> CLIPVisionTower:
     """Seeded weights in place (the JAX initialisers' spreads):
@@ -145,3 +183,17 @@ def preprocess_frames(frames_m1_1: torch.Tensor, image_size: int = 224) -> torch
     mean = torch.from_numpy(CLIP_MEAN).to(img.device).view(1, 3, 1, 1)
     std = torch.from_numpy(CLIP_STD).to(img.device).view(1, 3, 1, 1)
     return ((img - mean) / std).permute(0, 2, 3, 1)
+
+
+def preprocess_frames_host(frames_m1_1: np.ndarray, image_size: int = 224) -> np.ndarray:
+    """[B, H, W, 3] in [-1, 1] (numpy) -> CLIP-normalized [B, S, S, 3] fp32,
+    resized on the host by OpenCV's INTER_CUBIC, as the JAX package's
+    preprocess does."""
+    import cv2
+
+    out = []
+    for f in frames_m1_1:
+        img = (f.astype(np.float32) + 1.0) / 2.0
+        img = cv2.resize(img, (image_size, image_size), interpolation=cv2.INTER_CUBIC)
+        out.append((img - CLIP_MEAN) / CLIP_STD)
+    return np.stack(out)

@@ -45,12 +45,13 @@ def start(config, device, **asks) -> torch.device:
 
 def make_loader(dataset, config, seed: int, start_step: int):
     """The batch stream of a run that starts at ``start_step``, one batch a
-    step: the steps before it are replayed and dropped, so a resumed run
-    reads and draws what an uninterrupted one does."""
+    step, read two batches ahead on a background thread: the steps before
+    it are replayed and dropped, so a resumed run reads and draws what an
+    uninterrupted one does."""
     sampler = BlockDistributedSampler(len(dataset), shuffle=bool(config.dataset.get("shuffle")),
                                       seed=seed)
     return iter(BatchIterator(dataset, sampler, batch_size=config.dataset.batch_size,
-                              skip_batches=start_step))
+                              skip_batches=start_step, prefetch=2))
 
 
 def sync(device) -> None:

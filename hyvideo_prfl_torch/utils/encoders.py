@@ -6,14 +6,19 @@ CLIP blocks stacked [L, ...]) onto the reference state-dict layout, the
 layout the port's modules carry, as numpy arrays:
 ``vae_from_jax`` (torch Conv3d [out, in, kt, kh, kw], the resample convs as
 Conv2d, the RMS gains [C, 1, 1(, 1)], the attention's 1x1 Conv2d),
-``clip_from_jax`` (under ``visual.``) and ``t5_from_jax``.
+``clip_from_jax`` (under ``visual.``), ``t5_from_jax``, ``xlmr_from_jax``
+(the XLM-R tower and its head under ``textual.``) and
+``clip_full_from_jax`` (the whole CLIP: both towers, ``log_scale`` and the
+image tower's unused ``post_norm``/``head``).
 
 ``load_reference_*`` read a reference ``.pth`` (``torch.load`` with
 ``weights_only``) into a module on a device: the VAE's config from the
 file's shapes (``models/vae.infer_config``), T5's likewise (the heads from
 the position embedding), the CLIP tower from the ``visual.*`` keys of the
 whole-CLIP file (or a file of the tower alone) with ViT-H/14's 16 heads
-(the heads leave no trace in the shapes; ViT-H/14 is the released tower).
+(the heads leave no trace in the shapes; ViT-H/14 is the released tower),
+and ``load_reference_clip`` the whole CLIP file, XLM-R with XLM-R large's
+16 heads.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from ..models import clip as clip_mod
 from ..models import t5 as t5_mod
 from ..models import vae as vae_mod
+from ..models import xlm_roberta as xlmr_mod
 
 
 def _lin(w):
@@ -130,15 +136,60 @@ def t5_from_jax(tree: Dict, cfg: t5_mod.T5Config) -> Dict[str, np.ndarray]:
     return out
 
 
+def xlmr_from_jax(tree: Dict, cfg: xlmr_mod.XLMRobertaConfig,
+                  prefix: str = "textual.") -> Dict[str, np.ndarray]:
+    """The JAX XLMRoberta tree and its head ({"params", "head": {h0, h2}})
+    -> the reference XLMRobertaWithHead keys."""
+    p = tree["params"]
+    out = {prefix + "token_embedding.weight": np.asarray(p["token_embedding"]),
+           prefix + "type_embedding.weight": np.asarray(p["type_embedding"]),
+           prefix + "pos_embedding.weight": np.asarray(p["pos_embedding"]),
+           prefix + "norm.weight": np.asarray(p["norm_scale"]),
+           prefix + "norm.bias": np.asarray(p["norm_bias"]),
+           prefix + "head.0.weight": _lin(tree["head"]["h0"]),
+           prefix + "head.2.weight": _lin(tree["head"]["h2"])}
+    b = p["blocks"]
+    for i in range(cfg.num_layers):
+        t = f"{prefix}blocks.{i}."
+        for n in ("1", "2"):
+            out[t + f"norm{n}.weight"] = np.asarray(b[f"norm{n}_scale"])[i]
+            out[t + f"norm{n}.bias"] = np.asarray(b[f"norm{n}_bias"])[i]
+        for src, dst in (("q", "attn.q"), ("k", "attn.k"), ("v", "attn.v"), ("o", "attn.o"),
+                         ("ffn_0", "ffn.0"), ("ffn_2", "ffn.2")):
+            out[t + dst + ".weight"] = _lin(np.asarray(b[src]["kernel"])[i])
+            out[t + dst + ".bias"] = np.asarray(b[src]["bias"])[i]
+    return out
+
+
+def clip_full_from_jax(tree: Dict, vis_cfg: clip_mod.CLIPVisionConfig,
+                       txt_cfg: xlmr_mod.XLMRobertaConfig) -> Dict[str, np.ndarray]:
+    """The JAX whole-CLIP tree ({"visual", "textual", "log_scale",
+    "visual_extras"}) -> the whole reference file's keys."""
+    out = clip_from_jax(tree["visual"], vis_cfg)
+    out.update(xlmr_from_jax(tree["textual"], txt_cfg))
+    out["log_scale"] = np.asarray(tree["log_scale"])
+    extras = tree.get("visual_extras", {})
+    if "post_norm_scale" in extras:
+        out["visual.post_norm.weight"] = np.asarray(extras["post_norm_scale"])
+        out["visual.post_norm.bias"] = np.asarray(extras["post_norm_bias"])
+    if "head" in extras:
+        out["visual.head"] = np.asarray(extras["head"])
+    return out
+
+
 def _load(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def _into(cls, cfg, state: Dict, device) -> torch.nn.Module:
+def _part(state: Dict, prefix: str) -> Dict:
+    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def _into(cls, cfg, state: Dict, device, **kw) -> torch.nn.Module:
     """``cls(cfg)`` filled from ``state`` on ``device``; built on the meta
     device and left uninitialised first, since the file sets every weight
     (initialising umT5's 5.7 B parameters alone takes tens of seconds)."""
-    module = cls(cfg, device="meta").to_empty(device="cpu")
+    module = cls(cfg, device="meta", **kw).to_empty(device="cpu")
     module.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
     return module.to(device).eval()
 
@@ -184,9 +235,35 @@ def load_reference_clip_visual(path: str, device="cpu") -> clip_mod.CLIPVisionTo
     never reaches), or of a file holding the tower's keys alone."""
     state = _load(path)
     if any(k.startswith("visual.") for k in state):
-        state = {k[len("visual."):]: v for k, v in state.items() if k.startswith("visual.")}
+        state = _part(state, "visual.")
     state = {k: v for k, v in state.items() if not k.startswith(("post_norm.", "head"))}
     return _into(clip_mod.CLIPVisionTower, clip_config_of(state), state, device)
+
+
+def xlmr_config_of(state: Dict) -> xlmr_mod.XLMRobertaConfig:
+    """XLM-R's config from a ``textual.``-less state's shapes (the heads:
+    XLM-R large's 16)."""
+    vocab, dim = state["token_embedding.weight"].shape
+    return xlmr_mod.XLMRobertaConfig(
+        vocab_size=int(vocab), dim=int(dim),
+        max_seq_len=int(state["pos_embedding.weight"].shape[0]),
+        type_size=int(state["type_embedding.weight"].shape[0]),
+        num_heads=xlmr_mod.xlm_roberta_large().num_heads,
+        num_layers=len({k.split(".")[1] for k in state if k.startswith("blocks.")}))
+
+
+def load_reference_clip(path: str, device="cpu") -> clip_mod.XLMRobertaCLIP:
+    """The whole-CLIP reference file (``visual.*``, ``textual.*``,
+    ``log_scale``; the image tower's ``post_norm`` and ``head`` where the
+    file has them), fp32, each config from the file's shapes."""
+    state = _load(path)
+    vis, txt = _part(state, "visual."), _part(state, "textual.")
+    tower = {k: v for k, v in vis.items() if not k.startswith(("post_norm.", "head"))}
+    return _into(clip_mod.XLMRobertaCLIP, clip_config_of(tower), state, device,
+                 txt_cfg=xlmr_config_of(txt), post_norm="post_norm.weight" in vis,
+                 head_shape=tuple(vis["head"].shape) if "head" in vis else None,
+                 txt_mid_dim=int(txt["head.0.weight"].shape[0]),
+                 txt_out_dim=int(txt["head.2.weight"].shape[0]))
 
 
 def save_reference(state: Dict[str, np.ndarray], path: str, dtype=None) -> str:

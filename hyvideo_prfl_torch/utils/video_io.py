@@ -1,8 +1,16 @@
-"""Frames to files (hyvideo_prfl_tpu/utils/video_io.py:155-193; its video
-readers and resize wait for the preprocess CLIs).
+"""Video files on the host (hyvideo_prfl_tpu/utils/video_io.py).
 
-mp4 through imageio, else OpenCV, where either imports and has a codec;
-a single frame as an image through imageio, else PIL; otherwise the
+Reading, for the preprocess CLI: ``read_video`` decodes an mp4 (a path or
+an http(s) URL) through OpenCV, resamples it to a target fps, skips
+``start_frame`` source frames and keeps 4n+1 frames (the VAE's temporal
+stride); ``target_size_for`` and ``resize_center_crop`` size a clip as
+the reference's preprocess does; ``to_model_range`` maps uint8 to [-1, 1].
+The JAX reader tries imageio's pyav plugin first and falls through to the
+same OpenCV decode where pyav is absent; the card's machine has OpenCV and
+no imageio, so the port decodes through OpenCV always.
+
+Writing: mp4 through imageio, else OpenCV, where either imports and has a
+codec; a single frame as an image through imageio, else PIL; otherwise the
 frames go to ``<stem>_frames.npy`` as uint8 [T, H, W, 3] and a log line
 says so (a card's machine may have none). Every import of imageio, PIL
 or OpenCV happens inside the function that needs it.
@@ -13,7 +21,103 @@ from __future__ import annotations
 import logging
 import math
 import os
+import tempfile
+from typing import Optional, Tuple
+
 import numpy as np
+
+
+def read_video(path: str, num_frames: Optional[int] = None,
+               target_fps: Optional[float] = None,
+               start_frame: int = 0) -> Tuple[np.ndarray, float]:
+    """An mp4 (a local path or an http(s) URL) -> ([T, H, W, 3] uint8 RGB,
+    fps): ``start_frame`` source frames skipped, then resampled to
+    ``target_fps`` (every fps / target_fps-th frame), cut to ``num_frames``
+    and to 4n+1 frames."""
+    src = path
+    if path.startswith(("http://", "https://")):
+        import urllib.request
+
+        with urllib.request.urlopen(urllib.request.Request(path), timeout=20) as resp:
+            src = resp.read()
+    frames, fps = _read_video_cv2(src)
+    if start_frame:
+        frames = frames[start_frame:]
+    if target_fps and abs(target_fps - fps) > 1e-3:
+        idx = np.arange(0, len(frames), fps / target_fps).astype(np.int64)
+        frames = frames[idx[idx < len(frames)]]
+        fps = target_fps
+    if num_frames is not None:
+        frames = frames[:num_frames]
+    t_aligned = (len(frames) - 1) // 4 * 4 + 1
+    return np.asarray(frames[:t_aligned]), fps
+
+
+def _read_video_cv2(src) -> Tuple[np.ndarray, float]:
+    """OpenCV's decode of a path or of mp4 bytes (written to a temporary
+    file first) -> ([T, H, W, 3] uint8 RGB, fps; 30 where the file gives
+    none)."""
+    import cv2
+
+    tmp = None
+    path = src
+    if isinstance(src, bytes):
+        tmp = tempfile.NamedTemporaryFile(suffix=".mp4", delete=False)
+        tmp.write(src)
+        tmp.close()
+        path = tmp.name
+    try:
+        cap = cv2.VideoCapture(path)
+        if not cap.isOpened():
+            raise IOError(f"cv2 cannot open video: {path}")
+        fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        cap.release()
+        if not frames:
+            raise IOError(f"no frames decoded from {path}")
+        return np.stack(frames), float(fps)
+    finally:
+        if tmp is not None:
+            os.unlink(tmp.name)
+
+
+def target_size_for(h: int, w: int, resolution: int, aspect_ratio: float) -> Tuple[int, int]:
+    """(height, width) for a clip of source size (h, w), as the reference
+    sizes it: the short side scaled to ``resolution``, both sides rounded
+    up to a multiple of 32, each capped at ceil32(resolution * aspect_ratio)."""
+    def ceil32(v):
+        return int(-(-int(v) // 32) * 32)
+
+    scale = resolution / min(h, w)
+    rh, rw = ceil32(int(h * scale)), ceil32(int(w * scale))
+    max_r = ceil32(resolution * aspect_ratio)
+    return min(rh, max_r), min(rw, max_r)
+
+
+def resize_center_crop(frames: np.ndarray, height: int, width: int) -> np.ndarray:
+    """[T, h, w, 3] -> [T, height, width, 3]: an aspect-preserving resize
+    (OpenCV INTER_AREA) that covers the target, then a centre crop."""
+    import cv2
+
+    t, h, w, _ = frames.shape
+    scale = max(height / h, width / w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    out = np.empty((t, height, width, 3), frames.dtype)
+    y0, x0 = (nh - height) // 2, (nw - width) // 2
+    for i in range(t):
+        r = cv2.resize(frames[i], (nw, nh), interpolation=cv2.INTER_AREA)
+        out[i] = r[y0:y0 + height, x0:x0 + width]
+    return out
+
+
+def to_model_range(frames_uint8: np.ndarray) -> np.ndarray:
+    """uint8 [0, 255] -> fp32 [-1, 1]."""
+    return frames_uint8.astype(np.float32) / 127.5 - 1.0
 
 
 def to_uint8(video_m1_1) -> np.ndarray:

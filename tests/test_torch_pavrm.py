@@ -917,10 +917,19 @@ def test_port_imports_no_jax_nor_safetensors(tmp_path):
     # the card's machine has none of these: the port imports them only
     # inside the functions that need them
     top_level = re.compile(r"^(import|from)\s+(PIL|cv2|imageio|transformers)\b", re.M)
+    # the preprocess path reads video through OpenCV alone: no imageio anywhere
+    no_imageio = re.compile(r"^\s*(import|from)\s+imageio\b", re.M)
+    preprocess = {os.path.join(REPO, *p) for p in (
+        ("hyvideo_prfl_torch", "models", "xlm_roberta.py"),
+        ("hyvideo_prfl_torch", "data", "native_loader.py"),
+        ("hyvideo_prfl_torch", "data", "utils.py"),
+        ("scripts", "gen_latents_torch.py"), ("scripts", "encode_captions_torch.py"))}
+    assert preprocess <= set(files)
     for path in files:
         with open(path) as f:
             text = f.read()
         assert not pattern.search(text) and not top_level.search(text), path
+        assert path not in preprocess or not no_imageio.search(text), path
     code = (
         "import sys, importlib.util, torch\n"
         "for m in ('jax', 'flax', 'chex', 'optax', 'yaml', 'safetensors', 'hyvideo_prfl_tpu',\n"
@@ -934,8 +943,11 @@ def test_port_imports_no_jax_nor_safetensors(tmp_path):
         "pcfg = load_config('configs/train_pavrm_t2v_480.yaml')\n"
         "assert pcfg.lrm.timestep == [400, 500, 600, 700]\n"
         "assert pcfg.optimizer.learning_rate == 1e-5\n"
+        "from hyvideo_prfl_torch.models import xlm_roberta\n"
+        "from hyvideo_prfl_torch.data import dataset, loader, native_loader, utils\n"
         "for name in ('train_pavrm_torch', 'inference_pavrm_torch', 'train_prfl_torch',\n"
-        "             'inference_torch', 'decode_latents_torch'):\n"
+        "             'inference_torch', 'decode_latents_torch', 'encode_captions_torch',\n"
+        "             'gen_latents_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
         "    sys.modules[name] = mod\n"
