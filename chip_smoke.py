@@ -97,17 +97,17 @@ Phases, each of which raises on failure:
    (K9 must not be the slower); K1 and
    K2 against their plain versions at the 14B self-attention's
    sequence-parallel shards (40 heads x 18,900 tokens; 10 and 5 heads x
-   75,600), timed beside SDPA's flash forward; a 2-block t2v-14B model,
-   output and every gradient card against CPU at one latent frame of
-   832*480 (1,560 tokens), as phases 3 and 6; the same blocks forward and
-   backward at 720*1280 and 81 frames on the card, gradients finite and
-   launches as derived, with seconds and peak memory.
+   75,600), timed beside SDPA's flash forward; a 1-block t2v-14B model,
+   output and every gradient card against CPU at one
+   latent frame of 832*480 (1,560 tokens), as phases 3 and 6; the same
+   block forward and backward at 720*1280 and 81 frames on the card,
+   gradients finite and launches as derived, with seconds and peak memory.
 11. i2v and flf2v: K3 at the image cross-attention (2 x 40 heads x 32,760
    queries over 257 CLIP keys for i2v and 514 for flf2v), K10 at the
    i2v-14B int8 self-attention (2 x 40 x 9,360; in turns with K1) and K4 at
    the
    i2v-1.3B training shape (12 heads, 9,360 x 257) against their plain
-   versions, timed beside SDPA and their bounds; 2 i2v-14B blocks card
+   versions, timed beside SDPA and their bounds; 1 i2v-14B block card
    against CPU at 1,560 tokens, output and every gradient (the image
    branch's and the inputs y and clip_fea included), and 2 flf2v-14B blocks,
    output; then i2v-14B and flf2v-14B at full width and depth (40 blocks,
@@ -134,10 +134,10 @@ Phases, each of which raises on failure:
    configs/ by load_config with no weights: (a) the published
    train_pavrm_t2v_480.yaml at t2v-14B width, its 8 blocks, 81
    frames at 832*480 (32,760 tokens), batch 1, remat "attn", 3 ce steps
-   over the t list; (b) its i2v-14B Bradley-Terry form (win and lose in
-   one graph, 257 image keys), 2 steps at 21 frames (81 do not fit); each
-   with s/step, peak memory, the kept blocks and heads moved, the
-   embeddings not, launches as derived (expected_pavrm_launches); (c) one
+   over the t list, with s/step, peak memory, the kept blocks and heads
+   moved, the embeddings not, launches as derived
+   (expected_pavrm_launches); (b) its i2v-14B Bradley-Terry form runs in
+   phase 16a; (c) one
    ce step of 2 t2v-14B blocks with the heads at 1,560 tokens, the loss and
    every gradient card against CPU at phases 3 and 6's bounds; (d) the
    handoff at t2v-1.3B width: 2 PAVRM steps export the LRM, which
@@ -217,13 +217,39 @@ Phases, each of which raises on failure:
    load_reference_clip bit for bit; XLM-R with its head (2 x 77 tokens, one
    row padded) and ViT-H card against CPU; XLM-R large at 24 layers timed
    on the card.
+16. Multi-GPU on one card (every check with more than one rank runs on
+   CPU gloo in tests/test_torch_parallel*.py, or on several cards in
+   scripts/multi_gpu_check_torch.py): (a) the
+   PAVRM Bradley-Terry step of configs/train_pavrm_i2v_480.yaml at i2v-14B
+   width (8 blocks, win and lose in one graph, 257 image keys) through
+   scripts/train_pavrm_torch.py, 2 steps at 21 frames with every backward
+   on K5, with and without train.offload_opt_state: the moments in pinned
+   host memory, loss and parameters bit for bit equal; then 2 steps at 81
+   frames with the moments offloaded and remat "full" (under "attn" the two
+   sides' activations overflow the card even so), s/step,
+   peak under the card's memory, the moments' host-card round trip timed
+   alone; (b) a process group of one rank over NCCL in this process: a
+   2-block t2v-1.3B refl + SFT step at 21 frames under each FSDP2 strategy
+   against the unwrapped step ("none" bit for bit, the others' refl
+   forward bit for bit and the rest within the bounds of the reordered
+   gradient sums), ulysses_attention at degree 1 against the plain call
+   bit for bit, and configs/train_prfl_t2v_480.yaml (phase 7's changes)
+   with dataset.sp_size 4 through train_prfl_torch.main for one outer
+   step, sp clamped to 1, its metrics equal to the sp_size-1 run's; the
+   group torn down; (c) the kernels at the shapes sequence parallelism of
+   degree 4 gives t2v-14B at 720*1280, 81 frames (75,600 tokens): K1 and
+   K4 at the Ulysses self-attention (10 heads x 75,600), K3 and K4 at the
+   token-parallel text cross-attention (40 heads x 18,900 queries x 512
+   keys), K6-K9 at [1, 18,900, 5120] with the first rank's rope rows,
+   each against its plain version, timed beside its bound and library
+   call.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
 for R, phase 11's serving and training, phase 12's runs, phase 13's
-and 14's CLIs and phase 15's training step); the last is
+and 14's CLIs, phase 15's training step and phase 16's steps); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -1298,12 +1324,13 @@ GRID_14B_1 = (1, 30, 52)    # one latent frame at 832*480 (1,560 tokens)
 GRID_BENCH = (8, 15, 26)    # bench.py's token grid (3,120)
 
 
-def _norm_kernels_at(results, tag, n, grid, g):
-    """K6-K9 against their plain versions at [1, prod(grid), 128 n] with n
-    heads, timed beside their byte bounds, K7's and K9's outputs bitwise
-    equal on a second call, and K8 (fp32 out) and K9 in turns with
-    F.layer_norm and its backward, the one PyTorch call of their function
-    at batch 1; recorded under ``tag``."""
+def _norm_kernels_at(results, tag, n, grid, g, shard=1):
+    """K6-K9 against their plain versions at [1, prod(grid) / shard, 128 n]
+    with n heads (``shard`` > 1: the first sequence-parallel rank's block of
+    the tokens, its rope rows), timed beside their byte bounds, K7's and
+    K9's outputs bitwise equal on a second call, and K8 (fp32 out) and K9
+    in turns with F.layer_norm and its backward, the one PyTorch call of
+    their function at batch 1; recorded under ``tag``."""
     import torch
 
     from hyvideo_prfl_torch.models.rope import rope_tables_rolled_np
@@ -1314,14 +1341,14 @@ def _norm_kernels_at(results, tag, n, grid, g):
     # Bounds, as at width 1536 (phases 2 and 5): K8 one bf16 ulp of max|out|;
     # K9 1e-5 of each output's max; K6 and K7's dx two bf16 ulps, K7's dw
     # one. Byte bounds: each input read once, each output written once.
-    l, dim = math.prod(grid), n * 128
+    l, dim = math.prod(grid) // shard, n * 128
     x32 = torch.randn(1, l, dim, device=dev, generator=g)
     s_ = 1.0 + 0.1 * torch.randn(1, dim, device=dev, generator=g)
     t_ = 0.1 * torch.randn(1, dim, device=dev, generator=g)
     g32 = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
     xb = torch.randn(1, l, dim, device=dev, generator=g).bfloat16()
     w = 1.0 + 0.1 * torch.randn(dim, device=dev, generator=g)
-    c_tab, s_tab = (torch.from_numpy(a).to(dev) for a in rope_tables_rolled_np(grid, 128))
+    c_tab, s_tab = (torch.from_numpy(a[:l]).to(dev) for a in rope_tables_rolled_np(grid, 128))
     gh = torch.randn(1, n, l, 128, device=dev, generator=g).bfloat16()
     tables = 2 * l * 128 * 4
     cases = {
@@ -1435,8 +1462,8 @@ def phase_wide(results):
     [1, 75,600, 5120] with 40 heads (t2v-14B at 720*1280, 81 frames) and
     at [1, 3,120, 1280] with 10 heads (bench.py's shape), timed beside
     their byte bounds; K1 and K2 against theirs at 40 heads x 18,900 and
-    10 and 5 heads x 75,600; a 2-block t2v-14B model's output and gradients,
-    card against CPU, at one latent frame of 832*480; the same blocks
+    10 and 5 heads x 75,600; a 1-block t2v-14B model's output and gradients,
+    card against CPU, at one latent frame of 832*480; the same block
     forward and backward at 720*1280 and 81 frames on the card, gradients
     finite and launches as derived."""
     import torch
@@ -1486,12 +1513,13 @@ def phase_wide(results):
         del q, k, v, vt
         torch.cuda.empty_cache()
 
-    # 2 blocks of t2v-14B (dim 5120, 40 heads, ffn 13,824), remat "attn" as
-    # the training path runs them: output and gradients, card against CPU
-    cfg = wan_dit.t2v_14b(num_layers=2, remat_policy="attn")
-    state = phase_grad_model(cfg, GRID_14B_1, seed=41, label="t2v-14B 2 blocks, 1,560 tokens: ")
+    # a block of t2v-14B (dim 5120, 40 heads, ffn 13,824), remat "attn" as
+    # the training path runs it: output and gradients, card against CPU (one
+    # block: the check's CPU half is the slow part of this phase)
+    cfg = wan_dit.t2v_14b(num_layers=1, remat_policy="attn")
+    state = phase_grad_model(cfg, GRID_14B_1, seed=41, label="t2v-14B 1 block, 1,560 tokens: ")
 
-    # the same blocks at 720*1280, 81 frames (75,600 tokens), on the card
+    # the same block at 720*1280, 81 frames (75,600 tokens), on the card
     model = wan_dit.WanModel(cfg, device=dev, param_dtype=torch.float32)
     model.load_state_dict(state)
     del state
@@ -1510,7 +1538,7 @@ def phase_wide(results):
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     bad = [name for name, p in model.named_parameters() if not bool(torch.isfinite(p.grad).all())]
-    print(f"  t2v-14B 2 blocks, 720*1280, 81 frames ({math.prod(GRID_14B_81):,} tokens): "
+    print(f"  t2v-14B 1 block, 720*1280, 81 frames ({math.prod(GRID_14B_81):,} tokens): "
           f"forward + backward {dt:.3f} s, peak {peak:.2f} GiB, launches {launches}")
     expect(tuple(out.shape) == (1, f, hh, ww, 16), f"t2v-14B output {tuple(out.shape)}")
     expect(bool(torch.isfinite(out).all()), "t2v-14B output is not finite")
@@ -1979,7 +2007,7 @@ def phase_probes(results):
 
 def phase_i2v(results, root):
     """Phase 11: i2v and flf2v. K3 at the image cross-attention's shapes and
-    K4 at its training shape; 2 i2v-14B blocks card against CPU (output and
+    K4 at its training shape; 1 i2v-14B block card against CPU (output and
     every gradient) and 2 flf2v-14B blocks (output); i2v-14B and flf2v-14B
     served at full width and depth through the CLI path; one i2v PRFL outer
     step through the training CLI. Returns the launches of serving and
@@ -2097,11 +2125,12 @@ def phase_i2v(results, root):
     del q, k, v, o, lse, do, got, ref, qs, ks, vs, out, dot
     torch.cuda.empty_cache()
 
-    # 2 blocks of i2v-14B, output and every gradient (the image branch's
+    # a block of i2v-14B, output and every gradient (the image branch's
     # included), card against CPU, at one latent frame of 832*480, as phase
-    # 10 holds t2v-14B; then 2 blocks of flf2v-14B, output only
-    cfg = wan_dit.i2v_14b(num_layers=2, remat_policy="attn")
-    phase_grad_model(cfg, GRID_14B_1, seed=61, label="i2v-14B 2 blocks, 1,560 tokens: ")
+    # 10 holds t2v-14B (one block: the CPU half is the slow part); then 2
+    # blocks of flf2v-14B, output only
+    cfg = wan_dit.i2v_14b(num_layers=1, remat_policy="attn")
+    phase_grad_model(cfg, GRID_14B_1, seed=61, label="i2v-14B 1 block, 1,560 tokens: ")
     cfg = wan_dit.flf2v_14b(num_layers=2)
     state = from_jax_params(seeded_jax_tree(cfg, seed=63), cfg)
     rng = np.random.default_rng(64)
@@ -2639,22 +2668,17 @@ def _handoff(root, dev):
     return total
 
 
-def _pavrm_kernels(results):
-    """12k: the kernels of the PAVRM step at the shapes 12a gives them
-    (t2v-14B, batch 1, 32,760 tokens, 40 heads) against their plain
-    versions, each timed beside its bound: K1 at the self-attention and K3
-    at the text cross-attention (o and lse), K4 and K5 at both (dq, dk and
-    dv; K5's bitwise equal on a second call), and K6-K9 at [1, 32,760,
-    5120].
-    Phases 2 and 5 hold these kernels at 12 heads and phase 10 K1 at 40
-    heads x 18,900; the persistent grids take other tile counts here."""
+def _attn_kernels_at(results, name, tag, n, lq, lk, label, g, prefix, k5=True, reps=3):
+    """The forward ``name`` (K1, or K3 where the keys fit one block) and
+    K4 (and, with ``k5``, K5, bitwise on a second call) at [1, n, lq x lk,
+    128] against their plain versions, timed beside their bound and SDPA's
+    flash forward and backward; recorded under ``tag``."""
     import torch
 
     from hyvideo_prfl_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1357)
-    n, d, lq = 40, 128, math.prod(GRID_81)
+    d = 128
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def randn(*shape):
@@ -2663,64 +2687,61 @@ def _pavrm_kernels(results):
     # Bounds, as phases 2 and 5: o within two bf16 ulps of max|o|, lse 1e-5
     # max|lse|; dq, dk and dv each within two bf16 ulps of its largest entry
     q = randn(1, n, lq, d)
-    for name, lk, label in (("K1", lq, "self-attention"),
-                            ("K3", TEXT_LEN, "text cross-attention")):
-        single = fa.uses_single_block(lk)
-        expect(single == (name == "K3"), f"{label}: lk {lk} takes the wrong forward")
-        expect(fa.uses_merged_bwd(lq, lk), f"{label}: the backward takes the split route")
-        k, v = randn(1, n, lk, d), randn(1, lk, n, d)
-        vt = v.movedim(1, 2).contiguous()
-        o, lse = fa.flash_fwd_kernel(q, k, v, single)
-        po, plse = fa.flash_attention_plain(q, k, v)
-        err, rmax, fin = max_err(o, po)
-        el, ml, fl = max_err(lse, plse)
-        del po, plse
-        expect(fin and err <= 2.0 ** -6 * rmax, f"{name} at 40 heads x {lq} x {lk}: error {err}")
-        expect(fl and el <= 1e-5 * ml, f"{name} at 40 heads x {lq} x {lk}: lse error {el}")
-        calls = 1 if name == "K1" else 10
-        t = timed_turns({"plain": lambda: fa.flash_attention_plain(q, k, v),
-                         "kernel": lambda: fa.flash_fwd_kernel(q, k, v, single),
-                         "library": lambda: sdpa_flash(q, k, vt)}, reps=3, calls=calls)
-        flop = 4 * n * lq * lk * d
-        bnd = bound(2 * n * (lq + lk) * d * 2, bf16=flop)
-        print(f"  12k {name} [1, 40, {lq:,} x {lk:,}, 128] ({label}): max_abs_err {err:.3e} "
-              f"(bound {2.0 ** -6 * rmax:.3e}), lse {el:.3e} (bound {1e-5 * ml:.3e}); kernel "
-              f"{t['kernel']:.4f} ms ({flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
-              f"{bnd['bound_ms'] / t['kernel']:.3f} of the {bnd['bound_ms']:.4f} ms bound, "
-              f"{bnd['bound_by']}), plain {t['plain']:.4f} ms, SDPA flash "
-              f"{t['library']:.4f} ms; {CARD}")
-        tag = "pavrm_self" if name == "K1" else "pavrm_text"
-        results[name].update({f"{tag}_ms": t["kernel"], f"{tag}_plain_ms": t["plain"],
-                              f"{tag}_library_ms": t["library"],
-                              f"{tag}_bound_ms": bnd["bound_ms"], f"{tag}_max_abs_err": err})
+    single = fa.uses_single_block(lk)
+    expect(single == (name == "K3"), f"{label}: lk {lk} takes the wrong forward")
+    expect(fa.uses_merged_bwd(lq, lk), f"{label}: the backward takes the split route")
+    k, v = randn(1, n, lk, d), randn(1, lk, n, d)
+    vt = v.movedim(1, 2).contiguous()
+    o, lse = fa.flash_fwd_kernel(q, k, v, single)
+    po, plse = fa.flash_attention_plain(q, k, v)
+    err, rmax, fin = max_err(o, po)
+    el, ml, fl = max_err(lse, plse)
+    del po, plse
+    expect(fin and err <= 2.0 ** -6 * rmax, f"{name} at {n} heads x {lq} x {lk}: error {err}")
+    expect(fl and el <= 1e-5 * ml, f"{name} at {n} heads x {lq} x {lk}: lse error {el}")
+    calls = 1 if name == "K1" else 10
+    t = timed_turns({"plain": lambda: fa.flash_attention_plain(q, k, v),
+                     "kernel": lambda: fa.flash_fwd_kernel(q, k, v, single),
+                     "library": lambda: sdpa_flash(q, k, vt)}, reps=reps, calls=calls)
+    flop = 4 * n * lq * lk * d
+    bnd = bound(2 * n * (lq + lk) * d * 2, bf16=flop)
+    print(f"  {prefix} {name} [1, {n}, {lq:,} x {lk:,}, 128] ({label}): max_abs_err {err:.3e} "
+          f"(bound {2.0 ** -6 * rmax:.3e}), lse {el:.3e} (bound {1e-5 * ml:.3e}); kernel "
+          f"{t['kernel']:.4f} ms ({flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
+          f"{bnd['bound_ms'] / t['kernel']:.3f} of the {bnd['bound_ms']:.4f} ms bound, "
+          f"{bnd['bound_by']}), plain {t['plain']:.4f} ms, SDPA flash "
+          f"{t['library']:.4f} ms; {CARD}")
+    results[name].update({f"{tag}_ms": t["kernel"], f"{tag}_plain_ms": t["plain"],
+                          f"{tag}_library_ms": t["library"],
+                          f"{tag}_bound_ms": bnd["bound_ms"], f"{tag}_max_abs_err": err})
 
-        # K4 on the same q, k, v, o and lse with a seeded cotangent
-        do = randn(*o.shape)
-        qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
-        vs = vt.clone().requires_grad_()
-        out = sdpa_flash(qs, ks, vs)
-        dot = do.movedim(1, 2).contiguous()
-        t = timed_turns({"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
-                         "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, True),
-                         "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
-                                                                retain_graph=True)},
-                        reps=3, calls=calls)
-        del qs, ks, vs, out, dot
-        got = fa.bwd_kernel(q, k, v, o, lse, do, True)
-        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-        checks = [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)]
-        flop = 10 * n * lq * lk * d
-        bnd = bound(n * d * 2 * (3 * lq + 4 * lk) + 8 * n * lq, bf16=flop)
-        splits = fa.q_splits(n * -(-lk // 128), -(-lq // 64), sms)
-        part = {}
-        report_many("K4", f"12k {label}, 40 heads x {lq:,} x {lk:,}", checks, part,
-                    (t["kernel"], t["plain"]), library_ms=t["library"], **bnd)
-        print(f"  12k K4 {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
-              f"{bnd['bound_ms'] / t['kernel']:.3f} of the bound, dk/dv q sweep split over "
-              f"{splits} block(s) per key tile; {CARD}")
-        results["K4"].update({f"{tag}_{key}": val for key, val in part["K4"].items()})
-        del got
-
+    # K4 on the same q, k, v, o and lse with a seeded cotangent
+    do = randn(*o.shape)
+    qs, ks = q.clone().requires_grad_(), k.clone().requires_grad_()
+    vs = vt.clone().requires_grad_()
+    out = sdpa_flash(qs, ks, vs)
+    dot = do.movedim(1, 2).contiguous()
+    t = timed_turns({"plain": lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                     "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, True),
+                     "library": lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                            retain_graph=True)},
+                    reps=reps, calls=calls)
+    del qs, ks, vs, out, dot
+    got = fa.bwd_kernel(q, k, v, o, lse, do, True)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    checks = [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)]
+    flop = 10 * n * lq * lk * d
+    bnd = bound(n * d * 2 * (3 * lq + 4 * lk) + 8 * n * lq, bf16=flop)
+    splits = fa.q_splits(n * -(-lk // 128), -(-lq // 64), sms)
+    part = {}
+    report_many("K4", f"{prefix} {label}, {n} heads x {lq:,} x {lk:,}", checks, part,
+                (t["kernel"], t["plain"]), library_ms=t["library"], **bnd)
+    print(f"  {prefix} K4 {label}: {flop / (t['kernel'] * 1e9):.1f} TFLOP/s, "
+          f"{bnd['bound_ms'] / t['kernel']:.3f} of the bound, dk/dv q sweep split over "
+          f"{splits} block(s) per key tile; {CARD}")
+    results["K4"].update({f"{tag}_{key}": val for key, val in part["K4"].items()})
+    del got
+    if k5:
         # K5, the split backward (HYV_FLASH_MERGED_BWD=0 sends a 14B-wide
         # training step there: the route to a bitwise resume), on the same
         # tensors at phase 5's bounds, timed in turns with K4; its dq is
@@ -2733,25 +2754,42 @@ def _pavrm_kernels(results):
                           "kernel": lambda: fa.bwd_kernel(q, k, v, o, lse, do, False)},
                          reps=3, calls=calls)
         part = {}
-        report_many("K5", f"12k {label}, 40 heads x {lq:,} x {lk:,}",
+        report_many("K5", f"{prefix} {label}, {n} heads x {lq:,} x {lk:,}",
                     [(o_, a, b, 2.0 ** -6) for o_, a, b in zip(("dq", "dk", "dv"), got, ref)],
                     part, (t5["kernel"], t["plain"]), library_ms=t["library"], k4_ms=t5["k4"],
                     **bnd)
-        print(f"  12k K5 {label}: {flop / (t5['kernel'] * 1e9):.1f} TFLOP/s, "
+        print(f"  {prefix} K5 {label}: {flop / (t5['kernel'] * 1e9):.1f} TFLOP/s, "
               f"{bnd['bound_ms'] / t5['kernel']:.3f} of the bound (K4 {t5['k4']:.4f} ms in "
               f"the same turns); dq, dk, dv bitwise equal on a second call: {same}; {CARD}")
-        expect(same, f"12k K5 {label}: not deterministic")
+        expect(same, f"{prefix} K5 {label}: not deterministic")
         results["K5"].update({f"{tag}_{key}": val for key, val in part["K5"].items()})
-        del k, v, vt, o, lse, do, got, ref, checks
-        torch.cuda.empty_cache()
-    del q
+        del got
+    del q, k, v, vt, o, lse, do, ref, checks
     torch.cuda.empty_cache()
-    _norm_kernels_at(results, "pavrm_d5120", n, GRID_81, g)
+
+
+def _pavrm_kernels(results):
+    """12k: the kernels of the PAVRM step at the shapes 12a gives them
+    (t2v-14B, batch 1, 32,760 tokens, 40 heads) against their plain
+    versions, each timed beside its bound: K1 at the self-attention and K3
+    at the text cross-attention (o and lse), K4 and K5 at both (dq, dk and
+    dv; K5's bitwise equal on a second call), and K6-K9 at [1, 32,760,
+    5120].
+    Phases 2 and 5 hold these kernels at 12 heads and phase 10 K1 at 40
+    heads x 18,900; the persistent grids take other tile counts here."""
+    import torch
+
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(1357)
+    lq = math.prod(GRID_81)
+    for name, lk, label, tag in (("K1", lq, "self-attention", "pavrm_self"),
+                                 ("K3", TEXT_LEN, "text cross-attention", "pavrm_text")):
+        _attn_kernels_at(results, name, tag, 40, lq, lk, label, g, "12k")
+    _norm_kernels_at(results, "pavrm_d5120", 40, GRID_81, g)
 
 
 def phase_pavrm(results, root, dev="cuda"):
     """Phase 12: the PAVRM trainer at t2v-14B width (ce, the published
-    config) and i2v-14B width (bt), card against CPU, and the LRM handoff
+    config; the i2v-14B bt step is phase 16a's), card against CPU, and the LRM handoff
     to the PRFL trainer with checkpoint export, EMA and resume. Returns
     the launches."""
     import torch
@@ -2778,23 +2816,9 @@ def phase_pavrm(results, root, dev="cuda"):
     del trainer
     torch.cuda.empty_cache()
 
-    # 12b: the i2v-14B width, Bradley-Terry (win and lose in one graph),
-    # 8 blocks, 257 image keys, 2 steps at 21 frames (9,360 tokens): at 81
-    # frames the two sides' activations (2 x 12a's) and the fp32 state do
-    # not fit one card
-    win, null_dir = write_reward_cache(os.path.join(root, "c21"), 21, n=2, i2v=True, seed=51)
-    lose, _ = write_reward_cache(os.path.join(root, "c21"), 21, n=3, i2v=True, seed=52)
-    trainer, hist, got, peak = _pavrm_run(
-        cli, _config(PAVRM_BT_I2V, root, win, null_dir,
-                     dataset__meta_file_lose_list=[lose]),
-        2, "12b i2v-14B bt 21 frames", _add({}, expected_pavrm_launches(8, "bt", i2v=True), 2),
-        dev)
-    print(f"  12b: {CARD}: {min(h['step_time'] for h in hist[1:]):.3f} s/step (the "
-          f"second), peak {peak / 2**30:.2f} GiB; i2v-14B width, 8 blocks, 9,360 tokens, "
-          f"257 image keys; cut: 21 frames, not 81")
-    _add(total, got)
-    del trainer
-    torch.cuda.empty_cache()
+    # 12b, the i2v-14B Bradley-Terry step, runs in phase 16a: at 21 frames
+    # with and without the optimizer state offloaded, then at 81 frames,
+    # which fit the card only with it offloaded
 
     _add(total, _pavrm_card_vs_cpu(card=dev))
     _add(total, _handoff(root, dev))
@@ -4098,6 +4122,444 @@ def phase_preprocess(results, root, dev="cuda"):
     return launches
 
 
+def _offload16(root, dev):
+    """16a: the AdamW moments offloaded to pinned host memory
+    (train.offload_opt_state) on the PAVRM bt step at i2v-14B width: 2
+    steps at 21 frames with and without offload, every backward on K5 so
+    that two runs can agree bit for bit (K4's dq adds in run order), equal
+    in loss and parameters bit for bit; then 2 steps at 81 frames under
+    offload (the moments' 26.7 GB off the card) with remat "full", its
+    s/step, peak and the moments' host-card round trip timed alone.
+    Returns (launches, numbers)."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+
+    cli = load_script("train_pavrm_torch")
+    total, numbers = {}, {}
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    win, null_dir = write_reward_cache(os.path.join(root, "c21"), 21, n=2, i2v=True, seed=51)
+    lose, _ = write_reward_cache(os.path.join(root, "c21"), 21, n=3, i2v=True, seed=52)
+    fa.FLASH_MERGED_BWD = False
+    try:
+        want = _add({}, expected_pavrm_launches(8, "bt", i2v=True, merged_bwd=False), 2)
+        ref = None
+        for offload in (False, True):
+            label = "16a i2v-14B bt 21 frames" + (", moments offloaded" if offload else "")
+            trainer, hist, got, peak = _pavrm_run(
+                cli, _config(PAVRM_BT_I2V, root, win, null_dir,
+                             extra={"train.offload_opt_state": offload},
+                             dataset__meta_file_lose_list=[lose]), 2, label, want, dev)
+            mu = trainer.state.opt_state["mu"] + trainer.state.opt_state["nu"]
+            home = {(m.device.type, m.is_pinned()) for m in mu}
+            expect(home == ({("cpu", True)} if offload else {("cuda", False)}),
+                   f"{label}: the moments lie in {home}")
+            step_s = min(h["step_time"] for h in hist[1:])
+            numbers[f"bt21_{'offload' if offload else 'card'}"] = (step_s, peak)
+            print(f"  {label}: {step_s:.3f} s/step (the second), peak {peak / 2**30:.2f} GiB; "
+                  f"moments on {home}; {CARD}")
+            params = [p.detach() for p in trainer.state.params]
+            if ref is None:
+                ref = (hist, [p.cpu() for p in params])
+            else:
+                same_m = all(a[k] == b[k] for a, b in zip(ref[0], hist)
+                             for k in ("loss", "grad_norm", "acc"))
+                same_p = all(torch.equal(p.cpu(), q) for p, q in zip(params, ref[1]))
+                print(f"  16a: offloaded against on the card: metrics bitwise equal {same_m}, "
+                      f"{len(params)} parameters bitwise equal {same_p}")
+                expect(same_m and same_p, "16a: the offloaded step is not the step")
+            _add(total, got)
+            del trainer, params, mu
+            torch.cuda.empty_cache()
+        del ref
+    finally:
+        fa.FLASH_MERGED_BWD = True
+
+    # 81 frames (32,760 tokens) with the moments off the card, and remat
+    # "full" in place of the config's "attn": under "attn" the two sides'
+    # saved activations alone overflow the card in the second side's
+    # forward (71.47 GiB allocated there on an H100 80GB), moments or not
+    win, null_dir = write_reward_cache(os.path.join(root, "c81"), 81, n=2, i2v=True, seed=53)
+    lose, _ = write_reward_cache(os.path.join(root, "c81"), 81, n=3, i2v=True, seed=54)
+    label = "16a i2v-14B bt 81 frames, moments offloaded, remat full"
+    trainer, hist, got, peak = _pavrm_run(
+        cli, _config(PAVRM_BT_I2V, root, win, null_dir,
+                     extra={"train.offload_opt_state": True, "model.remat_policy": "full"},
+                     dataset__meta_file_lose_list=[lose]), 2, label,
+        _add({}, expected_pavrm_launches(8, "bt", remat_policy="full", i2v=True), 2), dev)
+    _add(total, got)
+    expect(peak < card_bytes, f"{label}: peak {peak} over the card's {card_bytes}")
+    # the moments' round trip of one update, alone: each chunk of 64 to the
+    # card and back, as Optimizer._adamw moves them
+    moments = trainer.state.opt_state["mu"] + trainer.state.opt_state["nu"]
+    nbytes = sum(m.numel() * m.element_size() for m in moments)
+    times = []
+    for _ in range(2):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for i in range(0, len(moments), 64):
+            chunk = [m.to(dev, non_blocking=True) for m in moments[i:i + 64]]
+            for m, c in zip(moments[i:i + 64], chunk):
+                m.copy_(c, non_blocking=True)
+            del chunk
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append(ev0.elapsed_time(ev1))
+    copy_ms = min(times)
+    step_s = min(h["step_time"] for h in hist[1:])
+    numbers["bt81_offload"] = (step_s, peak)
+    numbers["copy_ms"], numbers["copy_bytes"] = copy_ms, nbytes
+    print(f"  {label}: {step_s:.3f} s/step (the second; the first {hist[0]['step_time']:.3f}), "
+          f"peak {peak / 2**30:.2f} GiB of the card's {card_bytes / 2**30:.2f}; the moments' "
+          f"round trip {copy_ms:.1f} ms a step ({nbytes / 1e9:.2f} GB each way, "
+          f"{2 * nbytes / copy_ms / 1e6:.1f} GB/s); {CARD}")
+    del trainer, moments
+    torch.cuda.empty_cache()
+    return total, numbers
+
+
+LATENT_21 = (1, 6, 60, 104, 16)  # a 21-frame 832*480 latent, token-cell channels last
+LR16 = 5e-6  # the learning rate of configs/train_prfl_*_480.yaml
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Recording:
+    """An optimizer that keeps the raw gradients of its first call (this
+    rank's shards, before the clip) and updates as ``tx`` does (also the
+    gloo tests' recorder)."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def __getattr__(self, name):
+        return getattr(self.tx, name)
+
+    def update(self, params, grads, *args, **kw):
+        if self.grads is None:
+            self.grads = [g.detach().clone() for g in grads]
+        return self.tx.update(params, grads, *args, **kw)
+
+
+# the key biases of a softmax over keys without position (the text and image
+# cross-attention's): every logit of a query moves alike, the exact gradient is 0
+ZERO_GRAD16 = ("cross_attn.k.bias", "cross_attn.k_img.bias")
+# behind the bf16 context that each block's cross-attention k and v read: its
+# gradient sums 2 x blocks bf16 terms, in an order FSDP2's hooks on each
+# block's inputs change, so these gradients agree to the 3 roundings of a
+# 4-term bf16 sum (3 x 2^-8 of their largest), not to fp32's
+CONTEXT16 = ("text_0.", "text_2.", "img_emb.")
+
+
+def _grad_bounds16(names, base):
+    """The bound on each refl gradient's difference from the unwrapped
+    step's: 1e-4 of the tensor's largest gradient plus two fp32 ulps of it,
+    as tests/test_torch_parallel_train.py holds them against JAX (a key
+    bias whose exact gradient is 0: 1e-4 of the step's largest; the
+    context's tensors: 3 x 2^-8 of their largest)."""
+    top = max(b.abs().max().item() for b in base)
+    out = []
+    for n, b in zip(names, base):
+        scale = top if n.endswith(ZERO_GRAD16) else b.abs().max().item()
+        rel = 3 * 2 ** -8 if n.startswith(CONTEXT16) else 1e-4
+        out.append(rel * scale + 2 * math.ulp(scale) * 2 ** 29)  # an fp32 ulp
+    return out
+
+
+def _grads_off16(names, got, base, bounds):
+    """The worst refl gradient's |diff| over its bound, and its tensor."""
+    return max(((a - b).abs().max().item() / bound, n)
+               for n, a, b, bound in zip(names, got, base, bounds))
+
+
+def _params_off16(got, base, grads, bounds, eps=1e-8):
+    """The parameters after the refl step's AdamW update against the
+    unwrapped run's. AdamW's first update is lr g / (|g| + eps); two
+    gradients of one sign, each at least m from 0 and at most ``bound``
+    apart, give updates within lr eps bound / (m + eps)^2. Where the
+    unwrapped gradient keeps its sign within its bound (m = |g| - bound
+    >= bound) and that is under 0.1 lr, the weight must agree within 1e-4
+    of it plus 0.1 lr (tests/test_torch_parallel_train.py's rule); any
+    other weight may move anywhere in (-lr, lr) on either side, so within
+    2 lr. Returns (resolved weights beyond the first bound, unresolved
+    weights, their largest |diff| in lr, all weights)."""
+    beyond, loose, loose_lr, total = 0, 0, 0.0, 0
+    for a, b, gr, bound in zip(got, base, grads, bounds):
+        d = (a - b).abs()
+        m = gr.abs() - bound
+        resolved = (m >= bound) & (eps * bound <= 0.1 * (m + eps) ** 2)
+        total += d.numel()
+        beyond += int(((d > 1e-4 * b.abs() + 0.1 * LR16) & resolved).sum().item())
+        loose += int((~resolved).sum().item())
+        if not bool(resolved.all()):
+            loose_lr = max(loose_lr, d[~resolved].max().item() / LR16)
+    return beyond, loose, loose_lr, total
+
+
+def _strategies16(dev, g):
+    """16b's FSDP2 steps: a 2-block t2v-1.3B PRFL model (8 PRFL steps, mid
+    3, seeded, a non-zero head), one refl step and one SFT step at 21
+    frames with the same draws, unwrapped and under each FSDP strategy on
+    the world of one: the metrics, the refl step's raw gradients and the
+    parameters it updates against the unwrapped run's. Returns the
+    launches of the sharded runs."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.parallel import sharding
+    from hyvideo_prfl_torch.schedulers import flow_match as fm
+    from hyvideo_prfl_torch.training import common, prfl
+    from hyvideo_prfl_torch.training.pavrm import PavrmConfig
+
+    cfg = wan_dit.t2v_1_3b(num_layers=2, remat_policy="attn")
+    pc = PavrmConfig(feature_layer=(2,), trainable_blocks=(0, 1))
+    rc = prfl.PrflConfig(inference_steps=8, fixed_mid=3)
+    seed_model = prfl.PrflModel(cfg, pc, rc, device=dev)
+    wan_dit.init_params(seed_model.dit, torch.Generator(device=dev).manual_seed(161))
+    with torch.no_grad():
+        seed_model.dit.head.head.weight.normal_(0.0, cfg.dim ** -0.5, generator=g)
+    seed_model.lrm.init_params(torch.Generator(device=dev).manual_seed(162))
+    weights = ({k: v.clone() for k, v in seed_model.dit.state_dict().items()},
+               {k: v.clone() for k, v in seed_model.lrm.state_dict().items()})
+    del seed_model
+    shape = LATENT_21
+    batch = {"latents": torch.randn(shape, device=dev, generator=g),
+             "text": torch.randn(1, TEXT_LEN, cfg.text_dim, device=dev, generator=g)}
+    sched = fm.train_schedule(1000)
+    t, sigma = fm.sample_train_timestep(sched, 1, "uniform", generator=torch.Generator(
+        device=dev).manual_seed(163))
+    draws = dict(latent0=torch.randn(shape, device=dev, generator=g), t=t, sigma=sigma,
+                 noise=torch.randn(shape, device=dev, generator=g))
+    mesh = sharding.build_mesh(1, dev)
+
+    def run(strategy):
+        model = prfl.PrflModel(cfg, pc, rc, device=dev)
+        model.dit.load_state_dict(weights[0])
+        model.lrm.load_state_dict(weights[1])
+        m = mesh if strategy else None
+        layout = prfl.parallelize(model, mesh, strategy) if strategy else None
+        tx = Recording(common.make_optimizer(learning_rate=LR16))
+        state = common.init_train_state(model.dit, tx, layout)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, mr = prfl.make_refl_step(model, tx, m)(state, batch, latent0=draws["latent0"])
+        params = [sharding.full_of(p, q).detach().clone()
+                  for p, q in zip(state.local_params(), state.params)]
+        state, ms = prfl.make_sft_step(model, tx, sched, m)(
+            state, batch, t=draws["t"], sigma=draws["sigma"], noise=draws["noise"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        metrics = [float(mr["loss"]), float(mr["reward"]), float(mr["grad_norm"]),
+                   float(ms["loss"]), float(ms["grad_norm"])]
+        grads = [sharding.full_of(gr, q) for gr, q in zip(tx.grads, state.params)]
+        sharded = sum(sharding.is_dtensor(p) for p in state.params)
+        return metrics, params, grads, launches, secs, sharded, state.names
+
+    base, base_p, base_g, base_l, secs, _, names = run(None)
+    bounds = _grad_bounds16(names, base_g)
+    want = _add({}, expected_train_launches(2, 2, 3, merged_bwd=False), 1)
+    print(f"  16b unwrapped 2-block t2v-1.3B refl + SFT, 21 frames: {secs:.3f} s; refl_loss "
+          f"{base[0]:.6f}, reward {base[1]:.6f}, grad_norm {base[2]:.6e}, sft_loss "
+          f"{base[3]:.6f}, sft grad_norm {base[4]:.6e}; launches {base_l}")
+    expect(base_l == want, f"16b unwrapped launches {base_l}, expected {want}")
+    expect(all(math.isfinite(x) for x in base) and base[2] > 0, f"16b: metrics {base}")
+    total = {}
+    for strategy in sharding.FSDP_STRATEGIES:
+        got, params, grads, launches, secs, sharded, _ = run(strategy)
+        same_m = got == base
+        same_g = all(torch.equal(a, b) for a, b in zip(grads, base_g))
+        same_p = all(torch.equal(a, b) for a, b in zip(params, base_p))
+        g_ratio, g_name = _grads_off16(names, grads, base_g, bounds)
+        beyond, loose, loose_lr, n_weights = _params_off16(params, base_p, base_g, bounds)
+        print(f"  16b FSDP2 {strategy} at world 1 over NCCL ({sharded} DTensor parameters): "
+              f"{secs:.3f} s; bitwise equal to the unwrapped step: metrics {same_m}, refl "
+              f"gradients {same_g}, refl-updated parameters {same_p}; the worst refl gradient "
+              f"at {g_ratio:.3e} of its bound ({g_name}); {beyond} resolved weights beyond "
+              f"1e-4 + 0.1 lr; {loose:,} of {n_weights:,} weights with gradients their bounds do "
+              f"not resolve, max |diff| {loose_lr:.3f} lr; launches {launches}")
+        expect(launches == want, f"16b {strategy}: launches {launches}, expected {want}")
+        expect((sharded > 0) == (strategy != "none"), f"16b {strategy}: {sharded} DTensors")
+        # FSDP2's hooks on each wrapped block's inputs reorder the sums of
+        # the activation gradients the blocks share (the time embedding, the
+        # context): bitwise where that order holds ("none"), else the refl
+        # forward bitwise, its gradient norm within 1e-5, its gradients and
+        # the parameters it updates as _grad_bounds16 and _params_off16 hold
+        # them, and the SFT metrics, which read those parameters, within 1e-3
+        expect(same_m or (got[:2] == base[:2] and abs(got[2] - base[2]) <= 1e-5 * base[2]
+                          and all(abs(a - b) <= 1e-3 * abs(b)
+                                  for a, b in zip(got[3:], base[3:]))),
+               f"16b {strategy}: metrics {got} against {base}")
+        expect(strategy != "none" or (same_m and same_g and same_p),
+               "16b none: not the unwrapped step bit for bit")
+        expect(g_ratio <= 1.0, f"16b {strategy}: refl gradient {g_name} at {g_ratio:.3e} of "
+                               f"its bound")
+        expect(beyond == 0 and loose_lr <= 2, f"16b {strategy}: {beyond} resolved weights "
+               f"beyond 1e-4 + 0.1 lr; unresolved ones up to {loose_lr:.3f} lr apart")
+        del params, grads
+        _add(total, launches)
+    return total
+
+
+def _serving16(dev, mesh, g):
+    """16b: shard_for_serving on a 2-block t2v-1.3B DiT in its serving
+    storage (bf16 matmul weights, fp32 gains): no parameter recast, each
+    block's bf16 weights sharded and its fp32 ones whole, and the forward
+    on a 21-frame latent bit for bit the unsharded one."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.parallel import sharding
+
+    model = wan_dit.WanModel(wan_dit.t2v_1_3b(num_layers=2), device=dev)
+    wan_dit.init_params(model, torch.Generator(device=dev).manual_seed(164))
+    model.eval()
+    before = {n: p.dtype for n, p in model.named_parameters()}
+    x = torch.randn(LATENT_21, device=dev, generator=g)
+    ctx = torch.randn(1, TEXT_LEN, model.cfg.text_dim, device=dev, generator=g)
+    t = torch.tensor([700.0], device=dev)
+    with torch.no_grad():
+        want = model(x, t, ctx)
+        sharding.shard_for_serving(model, mesh)
+        got = model(x, t, ctx)
+    params = dict(model.named_parameters())
+    recast = [n for n, dt in before.items() if params[n].dtype != dt]
+    wrong = [n for n, p in params.items() if sharding.is_dtensor(p) != (
+        n.startswith("blocks.") and p.dtype == torch.bfloat16)]
+    n_sharded = sum(sharding.is_dtensor(p) for p in params.values())
+    same = torch.equal(got, want)
+    print(f"  16b shard_for_serving, 2-block t2v-1.3B in bf16 storage: {n_sharded} bf16 block "
+          f"weights sharded, {len(recast)} recast, {len(wrong)} misplaced; the forward bitwise "
+          f"equal to the unsharded one {same}")
+    expect(not recast and not wrong and n_sharded > 0,
+           f"16b shard_for_serving: recast {recast[:3]}, misplaced {wrong[:3]}")
+    expect(same, "16b shard_for_serving: the forward is not the unsharded one")
+
+
+def _nccl16(root, dev):
+    """16b: the process group of one rank over NCCL, in this process: the
+    five FSDP strategies' steps against the unwrapped one (_strategies16);
+    ulysses_attention at degree 1 forward and backward against the plain
+    dot_product_attention call; shard_for_serving on a bf16-stored DiT
+    (_serving16); configs/train_prfl_t2v_480.yaml (phase 7's
+    changes) with dataset.sp_size 4 through train_prfl_torch.main for one
+    21-frame outer step, whose sp clamps to 1 as JAX's build_mesh clamps
+    it, against the same run at sp_size 1, every backward on K5 so the two
+    can agree bit for bit. Torn down at the end. Returns the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.ops.attention import dot_product_attention, ulysses_attention
+    from hyvideo_prfl_torch.parallel import sharding
+
+    g = torch.Generator(device=dev).manual_seed(160)
+    t0 = time.perf_counter()
+    # NCCL on the card; gloo only in a CPU rehearsal of the phase
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    print(f"  16b: a process group of one started in {time.perf_counter() - t0:.2f} s "
+          f"(backend {dist.get_backend()})")
+    total = {}
+    fa.FLASH_MERGED_BWD = False
+    try:
+        _add(total, _strategies16(dev, g))
+
+        mesh = sharding.build_mesh(1, dev)
+        sp1 = sharding.SeqParallel(mesh.group("sp"), 1, 0)
+        n, lq = 12, math.prod(LATENT_21[1:4]) // 4
+        q, k = (torch.randn(1, n, lq, 128, device=dev, generator=g).bfloat16()
+                .requires_grad_() for _ in range(2))
+        v = torch.randn(1, lq, n, 128, device=dev, generator=g).bfloat16().requires_grad_()
+        do = torch.randn(1, lq, n, 128, device=dev, generator=g).bfloat16()
+        outs = []
+        for fn in (lambda: ulysses_attention(q, k, v, sp1, "bnld", bounded_logits=True),
+                   lambda: dot_product_attention(q, k, v, qk_layout="bnld",
+                                                 bounded_logits=True)):
+            o = fn()
+            outs.append((o.detach(), *torch.autograd.grad(o, (q, k, v), do)))
+        same = [torch.equal(a, b) for a, b in zip(*outs)]
+        print(f"  16b ulysses_attention at degree 1, [1, {n}, {lq:,}, 128]: out, dq, dk, dv "
+              f"bitwise equal to dot_product_attention: {same}")
+        expect(all(same), "16b: ulysses_attention at degree 1 is not the plain call")
+        del q, k, v, do, outs
+        _serving16(dev, mesh, g)
+
+        cli = load_script("train_prfl_torch")
+        lists, null_dir = write_latent_cache(os.path.join(root, "c16b"), (21,))
+        hist = {}
+        for sp in (4, 1):
+            name, changes = PRFL_T2V
+            config = published(name, {**changes, "dataset.meta_file_list": [lists[21]],
+                                      "dataset.null_dir": null_dir, "dataset.sp_size": sp,
+                                      "save.output_dir": os.path.join(root, f"out16b_{sp}")})
+            path = os.path.join(root, f"prfl16b_sp{sp}.yaml")
+            with open(path, "w") as f:
+                f.write(yaml_text(config) + "\n")
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            (m,) = cli.main(["--config_path", path, "--max_steps", "1", "--device", dev.type])
+            torch.cuda.synchronize()
+            _add(total, dict(_build.LAUNCHES))
+            hist[sp] = {k_: v_ for k_, v_ in m.items() if not k_.startswith("t_")}
+            print(f"  16b train_prfl_torch.main, train_prfl_t2v_480.yaml at t2v-1.3B, "
+                  f"dataset.sp_size {sp}, 21 frames: {hist[sp]}, t_refl {m['t_refl']:.3f} s, "
+                  f"t_sft {m['t_sft']:.3f} s; launches {dict(_build.LAUNCHES)}")
+        expect(hist[4] == hist[1], f"16b: sp_size 4 on one rank {hist[4]} is not sp_size 1's "
+                                   f"{hist[1]}")
+    finally:
+        fa.FLASH_MERGED_BWD = True
+        dist.destroy_process_group()
+    expect(not dist.is_initialized(), "16b: the process group outlived the phase")
+    return total
+
+
+def phase_multi(results, root, dev="cuda"):
+    """Phase 16: the multi-GPU layer on one card: 16a optimizer-state
+    offload, 16b the NCCL world of one (FSDP2 strategies, Ulysses at
+    degree 1, the sp_size-4 config through the CLI), 16c the kernels at
+    the shapes sp 4 gives them. Returns the launches."""
+    import torch
+
+    dev = torch.device(dev)
+    total = {}
+    announce("  16a: optimizer-state offload, PAVRM bt at i2v-14B width")
+    part, numbers = _offload16(root, dev)
+    _add(total, part)
+    announce("  16b: NCCL at world size 1: FSDP2 strategies, Ulysses, sp_size 4 through the CLI")
+    _add(total, _nccl16(root, dev))
+    announce("  16c: the kernels at the sp=4 shard shapes of t2v-14B at 720*1280, 81 frames")
+    g = torch.Generator(device=dev).manual_seed(1616)
+    lq = math.prod(GRID_14B_81)
+    # two turns, not three: the plain backward takes seconds at 75,600 keys
+    _attn_kernels_at(results, "K1", "sp4_self", 10, lq, lq,
+                     "Ulysses self-attention, 40 heads / 4", g, "16c", k5=False, reps=2)
+    _attn_kernels_at(results, "K3", "sp4_text", 40, lq // 4, TEXT_LEN,
+                     "token-parallel text cross-attention, 75,600 / 4 queries", g, "16c",
+                     k5=False)
+    _norm_kernels_at(results, "sp4_d5120", 40, GRID_14B_81, g, shard=4)
+    return total
+
+
+def print_clocks(when: str) -> None:
+    """The card's SM clock, its maximum, temperature and power draw as
+    nvidia-smi reads them (a card that runs slow shows it here)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+                          "power.draw", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(f"card {when}: SM clock, max SM clock, temperature, power: "
+          f"{out.stdout.strip() or out.stderr.strip()}")
+
+
 def print_ptxas(log: str, smem: dict) -> None:
     """Registers and spills of the kernel instances the slice launches, any
     ptxas warning about them (a serialised wgmma pipeline, an ignored
@@ -4231,6 +4693,7 @@ def main() -> int:
     CARD = smi.stdout.strip().splitlines()[0]
     T_START = time.perf_counter()
     print(CARD)
+    print_clocks("at the start")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; CPU: {len(os.sched_getaffinity(0))} cores "
           f"available, {torch.get_num_threads()} torch threads (the card-against-CPU "
@@ -4303,13 +4766,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         preprocess_launches = phase_preprocess(results, root)
     print(f"  phase 15 launches {preprocess_launches}")
+    announce("phase 16: multi-GPU on one card: optimizer-state offload (PAVRM bt at 81 "
+             "frames), NCCL at world size 1 (FSDP2, Ulysses, sp_size 4), the kernels at the "
+             "sp=4 shard shapes")
+    with tempfile.TemporaryDirectory() as root:
+        multi_launches = phase_multi(results, root)
+    print(f"  phase 16 launches {multi_launches}")
 
     launches = {}
     for part in (serve_launches, train_launches, route_launches, probe_launches,
                  unnormed_launches, i2v_launches, pavrm_launches, encoder_launches,
-                 solver_launches, preprocess_launches):
+                 solver_launches, preprocess_launches, multi_launches):
         _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
+    print_clocks("at the end")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; {CARD}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -53,8 +53,22 @@ tokens (``k_img``/``v_img``, int8 under ``quant_dense``, with the RMSNorm
 TeaCache (ops/teacache.py, inference only): ``skip_blocks`` replaces the
 block stack by ``h + residual_in``, and ``output_residual`` also returns
 the time embedding e (the gate's input) and the stack's residual (out -
-in, fp32). Not ported yet: the "dots" remat policies and the sharding
-policies.
+in, fp32). Not ported yet: the "dots" remat policies.
+
+Sequence parallelism (``parallel/sharding.set_sequence_parallel``): with
+an sp group of more than one rank each rank holds a contiguous block of
+the tokens from the patch embedding to the head, with the rope tables
+sliced to it; the time embedding and the context stay replicated. The
+self-attention goes through ``ulysses_attention`` (K6's head-major q and
+k exchanged as they are); the cross-attention, image branch included, is
+the plain call on the rank's queries against the replicated context. A
+video-layout input is split after patchify and the head's output
+gathered before unpatchify (the JAX
+``patchify_sharded``/``unpatchify_sharded``); a token-layout input is
+this rank's block already and comes back as this rank's block, as the
+sampling loop keeps it; the feature taps are gathered, since the reward
+pool sees every token. A token count that does not divide by sp raises a
+ValueError naming the grid.
 """
 
 from __future__ import annotations
@@ -68,7 +82,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, ulysses_attention
 from ..ops.qknorm_rope import rmsnorm_only, rmsnorm_rope
 from ..ops.quant import int8_dense, quantize_weight
 from ..ops.rope import rope_rotate
@@ -266,6 +280,8 @@ class _Attention(nn.Module):
         # qk-normed q/k are head-major (the K6 output), un-normed token-major;
         # qk_int8 applies only to bounded logits, so only under qk_norm
         qk_norm = self.cfg.qk_norm
+        # on a token shard (sp) the cross-attention's queries meet the whole,
+        # replicated context: the plain call, the JAX token_parallel_attention
         return dot_product_attention(q, k, v, qk_layout="bnld" if qk_norm else "blnd",
                                      bounded_logits=qk_norm, qk_int8=qk_int8)
 
@@ -278,6 +294,8 @@ class _Attention(nn.Module):
 class SelfAttention(_Attention):
     """qk-RMSNorm + 3D RoPE + flash attention (the block calls qkv, attend
     and out in turn, so remat can split around the attention)."""
+
+    sp = None  # parallel/sharding.SeqParallel, set by set_sequence_parallel
 
     def qkv(self, x, c_tab, s_tab):
         """-> q, k (head-major [B, N, L, D] under qk_norm, else token-major
@@ -296,7 +314,12 @@ class SelfAttention(_Attention):
         return q, k, _dense(self.v, x, cd).view(b, l, n, d)
 
     def attend(self, q, k, v):
-        return super().attend(q, k, v, qk_int8=self.cfg.quant_attn == "int8")
+        qk_int8 = self.cfg.quant_attn == "int8"
+        if self.sp is not None:
+            qk_norm = self.cfg.qk_norm
+            return ulysses_attention(q, k, v, self.sp, qk_layout="bnld" if qk_norm else "blnd",
+                                     bounded_logits=qk_norm, qk_int8=qk_int8 and qk_norm)
+        return super().attend(q, k, v, qk_int8=qk_int8)
 
 
 class CrossAttention(_Attention):
@@ -516,6 +539,7 @@ class WanModel(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.head = Head(cfg, device) if with_head else None
         self._rope = {}  # (grid, device) -> rolled [L, D] tables
+        self.sp = None  # parallel/sharding.SeqParallel, set by set_sequence_parallel
 
     def rope_tables(self, grid, device):
         key = (tuple(grid), str(device))
@@ -537,13 +561,17 @@ class WanModel(nn.Module):
         if y is not None:
             # a channel concat in token-cell layout is the video-layout one
             x = torch.cat([x, y.to(x.dtype)], dim=-1)
+        sp = self.sp
+        parts = sp.size if sp is not None else 1
         if token_mode:
             b, seq_len, cells, c_in = x.shape
-            if grid is None or cells != pt * ph * pw or seq_len != math.prod(grid):
+            if grid is None or cells != pt * ph * pw or seq_len * parts != math.prod(grid):
                 raise ValueError(f"token-layout input {tuple(x.shape)} needs a "
                                  f"matching grid, got {grid}")
         else:
             x, grid = patchify(x, cfg.patch_size)
+            if sp is not None:
+                x = sp.shard(x, 1, grid)
             b, seq_len, cells, c_in = x.shape
         h = _dense(self.patch_embedding, x.reshape(b, seq_len, cells * c_in), cd).float()
 
@@ -557,6 +585,8 @@ class WanModel(nn.Module):
             ctx = torch.cat([self.img_emb(clip_fea).to(cd), ctx], dim=1)
 
         c_tab, s_tab = self.rope_tables(grid, h.device)
+        if sp is not None:
+            c_tab, s_tab = (tab.narrow(0, sp.rank * seq_len, seq_len) for tab in (c_tab, s_tab))
         sel = tuple(selected_layers)
         if output_features:
             if not sel or max(sel) > len(self.blocks) or min(sel) < 1:
@@ -566,6 +596,8 @@ class WanModel(nn.Module):
                 h = block(h, e0, ctx, c_tab, s_tab)
                 if idx + 1 in sel:
                     taps[idx + 1] = h
+            if sp is not None:
+                return torch.stack([sp.gather(taps[i], 1) for i in sel])
             return torch.stack([taps[i] for i in sel])
         h_in = h
         if skip_blocks:
@@ -578,6 +610,8 @@ class WanModel(nn.Module):
             raise ValueError("a head-less WanModel only returns feature taps")
         out = self.head(h, e).reshape(b, seq_len, cells, cfg.out_dim)
         if not token_mode:
+            if sp is not None:
+                out = sp.gather(out, 1)
             out = unpatchify(out, grid, cfg.patch_size)
         if output_residual:
             return out.float(), e, h - h_in

@@ -161,6 +161,21 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def plain(*tensors) -> None:
+    """Raise TypeError on a DTensor: a kernel takes raw pointers to local
+    memory, and FSDP2 hands a wrapped module's forward plain tensors, so a
+    DTensor here is a sharded parameter that escaped its unshard."""
+    import torch.distributed as dist
+
+    if not dist.is_available():
+        return
+    from hyvideo_prfl_torch.parallel.sharding import is_dtensor
+
+    for t in tensors:
+        if is_dtensor(t):
+            raise TypeError("a kernel was handed a DTensor; pass its local tensor")
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

@@ -317,6 +317,7 @@ def flash_fwd_kernel(q, k, v, single: bool, shifted: bool = False, kvalid=None):
     """Launch K1 or K3 (bounded), K2 or K3s (shifted; single=True for the
     K3 forms) on CUDA tensors -> (o, lse); kvalid [B*N] int32 masks keys
     of the shifted forms."""
+    _build.plain(q, k, v)
     b, n, lq, d = q.shape
     lk = k.shape[2]
     name = FWD_NAMES[bool(single), bool(shifted)]
@@ -349,6 +350,7 @@ def flash_fwd_kernel(q, k, v, single: bool, shifted: bool = False, kvalid=None):
 
 def flash_qk8_kernel(q8, k8, v, c):
     """Launch K10 on CUDA tensors -> (o, lse) as flash_attention_qk8_plain."""
+    _build.plain(q8, k8, v, c)
     b, n, lq, d = q8.shape
     lk = k8.shape[2]
     _build.require(d == 128, f"the kernel takes head_dim 128, got {d}")
@@ -407,6 +409,7 @@ def bwd_kernel(q, k, v, o, lse, do, merged: bool, kvalid=None, dq_splits=None):
     """Launch K4 (merged) or K5 on CUDA tensors -> (dq, dk, dv) as
     flash_attention_bwd_plain, keys past kvalid [B*N] int32 masked.
     dq_splits: K5's split of each q tile's key range (None: q_splits)."""
+    _build.plain(q, k, v, o, lse, do)
     b, n, lq, d = q.shape
     lk = k.shape[2]
     name = "K4" if merged else "K5"

@@ -74,6 +74,7 @@ def rmsnorm_rope_bwd_plain(x, w, c_tab, s_tab, g, num_heads: int, eps: float = 1
 
 
 def _kernel(x, w, c_tab, s_tab, num_heads, eps, do_rope):
+    _build.plain(x, w, c_tab, s_tab)
     b, l, m = x.shape
     n = num_heads
     d = m // n
@@ -108,6 +109,7 @@ def _check_tables(c_tab, s_tab, x, l, d, name):
 
 def bwd_kernel(x, w, c_tab, s_tab, g, num_heads, eps, do_rope):
     """Launch K7 on CUDA tensors -> (dx, dw) as rmsnorm_rope_bwd_plain."""
+    _build.plain(x, w, c_tab, s_tab, g)
     b, l, m = x.shape
     n = num_heads
     d = m // n

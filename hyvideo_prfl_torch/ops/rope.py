@@ -30,6 +30,7 @@ def rope_rotate_plain(x, c_tab, s_tab):
 
 def rope_kernel(x, c_tab, s_tab):
     """Launch R on CUDA tensors -> rope_rotate_plain(x, c_tab, s_tab)."""
+    _build.plain(x, c_tab, s_tab)
     b, l, n, d = x.shape
     _build.require(d == 128, f"R takes head_dim 128, got {d}")
     _build.require(x.dtype in (torch.bfloat16, torch.float32),

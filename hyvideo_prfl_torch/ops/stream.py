@@ -69,6 +69,7 @@ def _check_rows(x, s, name):
 
 
 def _kernel(x, s, t, eps, out_dtype):
+    _build.plain(x, s, t)
     b, l, d = x.shape
     _check_rows(x, s, "K8")
     _build.require(out_dtype in (torch.bfloat16, torch.float32),
@@ -180,6 +181,7 @@ def _k9_sync(device):
 
 def bwd_kernel(x, s, g, eps):
     """Launch K9 on CUDA tensors -> (dx, ds, dt) as ln_scale_shift_bwd_plain."""
+    _build.plain(x, s, g)
     b, l, d = x.shape
     _check_rows(x, s, "K9")
     _build.require(_has_instance(d), f"K9 has no instance for D={d}")

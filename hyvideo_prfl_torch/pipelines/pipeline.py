@@ -13,6 +13,13 @@ ride along with the CFG pair. ``sample_teacache`` samples with UniPC and
 TeaCache's step skipping (ops/teacache.py), whatever the solver says, as
 the JAX package does. The pipeline returns latents; the CLIs decode them
 with ``models.vae.decode`` after the DiT is freed.
+
+Under sequence parallelism (the model's ``sp`` group) each rank keeps its
+block of the tokens through the whole chain, as the JAX ``token_cells``
+policy does: the noise and ``y`` are patchified whole, each rank takes
+its block, the DiT's token-layout forward returns that block, and the
+latents are gathered once at the end. TeaCache's gate reads the
+replicated time embedding, so every rank skips the same steps.
 """
 
 from __future__ import annotations
@@ -32,12 +39,20 @@ from ..schedulers import unipc
 
 
 def latent_size_for(max_area: int, aspect: float, vae_stride=(4, 8, 8),
-                    patch_size=(1, 2, 2), num_frames: int = 81) -> Tuple[int, int, int]:
-    """(F, H, W) latent grid from the pixel budget (one GPU: no widening
-    for a sequence-parallel degree yet)."""
+                    patch_size=(1, 2, 2), num_frames: int = 81,
+                    sp_size: int = 1) -> Tuple[int, int, int]:
+    """(F, H, W) latent grid from the pixel budget; with a sequence-parallel
+    degree ``sp_size`` W widens one patch at a time until the token count
+    divides by it (the JAX rule)."""
     lat_f = (num_frames - 1) // vae_stride[0] + 1
     lat_h = round(math.sqrt(max_area * aspect) / vae_stride[1] / patch_size[1]) * patch_size[1]
     lat_w = round(math.sqrt(max_area / aspect) / vae_stride[2] / patch_size[2]) * patch_size[2]
+    if sp_size > 1:
+        def tokens(w):
+            return lat_f * (lat_h // patch_size[1]) * (w // patch_size[2])
+
+        while tokens(lat_w) % sp_size:
+            lat_w += patch_size[2]
     return lat_f, lat_h, lat_w
 
 
@@ -90,7 +105,8 @@ class WanPipeline:
 
     def _prepare(self, generator, latent_shape, context, noise, y, clip_fea):
         """Noise (drawn unless given), y and clip_fea on the context's
-        device, the first two patchified once -> (noise_t, grid, y_t, clip_fea)."""
+        device, the first two patchified once (and cut to this rank's
+        token block under sp) -> (noise_t, grid, y_t, clip_fea)."""
         device = context.device
         if noise is None:
             noise = torch.randn(latent_shape, generator=generator,
@@ -100,7 +116,17 @@ class WanPipeline:
         y_t = (wan_dit.patchify(y.to(device, torch.float32), self.cfg.patch_size)[0]
                if y is not None else None)
         clip_fea = clip_fea.to(device) if clip_fea is not None else None
+        sp = self.model.sp
+        if sp is not None:
+            noise_t = sp.shard(noise_t, 1, grid)
+            y_t = sp.shard(y_t, 1, grid) if y_t is not None else None
         return noise_t, grid, y_t, clip_fea
+
+    def _finish(self, x, grid):
+        """The chain's tokens (gathered under sp) -> latents [B, F, H, W, C]."""
+        if self.model.sp is not None:
+            x = self.model.sp.gather(x, 1)
+        return wan_dit.unpatchify(x, grid, self.cfg.patch_size)
 
     @torch.inference_mode()
     def sample(self, generator: Optional[torch.Generator], latent_shape, context,
@@ -133,7 +159,7 @@ class WanPipeline:
                 x = fm.euler_step(sched, vel(x, float(sched.timesteps[i])), x, i)
         else:
             raise ValueError(f"unknown solver {gen.sample_solver}")
-        return wan_dit.unpatchify(x, grid, self.cfg.patch_size)
+        return self._finish(x, grid)
 
     @torch.inference_mode()
     def sample_teacache(self, generator: Optional[torch.Generator], latent_shape, context,
@@ -177,7 +203,7 @@ class WanPipeline:
         x, _, _ = unipc.rollout(sched, vel, noise_t,
                                 extra_init=(tc.init_state(noise_t.device), res0))
         self.teacache_skips = skips
-        return wan_dit.unpatchify(x, grid, self.cfg.patch_size)
+        return self._finish(x, grid)
 
 
 class WanT2V(WanPipeline):

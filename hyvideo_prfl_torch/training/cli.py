@@ -1,7 +1,8 @@
 """What the two training CLIs (scripts/train_prfl_torch.py and
 scripts/train_pavrm_torch.py) share: the refusal of the options the port
-lacks, the device, the data stream of a resumed run, the JSON log lines
-and the command line."""
+lacks, the device and the process mesh (``torchrun --nproc_per_node N``:
+one process per GPU, NCCL; gloo under --device cpu), the data stream of a
+resumed run, the JSON log lines (rank 0's) and the command line."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import os
 import torch
 
 from hyvideo_prfl_torch.configs import load_config
-from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler
+from hyvideo_prfl_torch.data.loader import DataParallelLoader
+from hyvideo_prfl_torch.parallel import sharding
 
 
 def exists(path) -> bool:
@@ -21,37 +23,42 @@ def exists(path) -> bool:
 
 
 def start(config, device, **asks) -> torch.device:
-    """Raise NotImplementedError for a config option the port lacks (the
-    shared ones and ``asks``: {description: whether the config asks for
-    it}), then return the device, leaving when CUDA is missing."""
-    asks = {
-        "multi-device training (dataset.sp_size > 1)":
-            int(config.get_path("dataset.sp_size", 1) or 1) > 1,
-        "optimizer-state offload (model.fsdp.use_cpu_offload, train.offload_opt_state)":
-            config.get_path("model.fsdp.use_cpu_offload")
-            or config.get_path("train.offload_opt_state"),
-        **asks,
-    }
+    """Raise NotImplementedError for a config option the port lacks
+    (``asks``: {description: whether the config asks for it}), then join
+    the torchrun process group and return this process's device, leaving
+    when CUDA is missing."""
     missing = [name for name, on in asks.items() if on]
     if missing:
         raise NotImplementedError(f"not ported yet: {'; '.join(missing)}")
+    sharding.fsdp_strategy_from(config)  # an unknown strategy fails before the build
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available (pass --device cpu for a CPU run)")
+    device = sharding.init_distributed(device)
     if config.train.get("debug_nans"):
         torch.autograd.set_detect_anomaly(True)
     return device
 
 
-def make_loader(dataset, config, seed: int, start_step: int):
-    """The batch stream of a run that starts at ``start_step``, one batch a
-    step, read two batches ahead on a background thread: the steps before
-    it are replayed and dropped, so a resumed run reads and draws what an
-    uninterrupted one does."""
-    sampler = BlockDistributedSampler(len(dataset), shuffle=bool(config.dataset.get("shuffle")),
-                                      seed=seed)
-    return iter(BatchIterator(dataset, sampler, batch_size=config.dataset.batch_size,
-                              skip_batches=start_step, prefetch=2))
+def mesh_for(config, device) -> sharding.Mesh:
+    """The (data, sp) mesh of the process group: sp = min(dataset.sp_size,
+    world), Ulysses chunks from train.ulysses_chunks (else
+    HYV_ULYSSES_CHUNKS)."""
+    chunks = config.get_path("train.ulysses_chunks")
+    return sharding.build_mesh(int(config.get_path("dataset.sp_size", 1) or 1), device,
+                               chunks=int(chunks) if chunks else None)
+
+
+def make_loader(dataset, config, seed: int, start_step: int,
+                mesh: sharding.Mesh = sharding.Mesh()):
+    """This data replica's batch stream of a run that starts at
+    ``start_step``, one batch a step, read two batches ahead on a
+    background thread: the steps before it are replayed and dropped, so a
+    resumed run reads and draws what an uninterrupted one does."""
+    return iter(DataParallelLoader(
+        dataset, mesh.data, mesh.data_rank, batch_size=config.dataset.batch_size,
+        shuffle=bool(config.dataset.get("shuffle")), seed=seed, skip_batches=start_step,
+        prefetch=2, sp_size=mesh.sp))
 
 
 def sync(device) -> None:
@@ -67,8 +74,10 @@ def log_path(config, out_dir: str) -> str:
     return os.path.join(log_dir, "log.txt")
 
 
-def log_line(path: str, record) -> None:
-    """One JSON line to stdout and to the log file."""
+def log_line(path: str, record, main: bool = True) -> None:
+    """One JSON line to stdout and to the log file (rank 0's only)."""
+    if not main:
+        return
     line = json.dumps(record)
     print(line, flush=True)
     with open(path, "a") as f:

@@ -19,6 +19,19 @@ is the JAX package's optax chain step for step:
   rate and schedule, after the one clip over all gradients (optax's
   ``chain(clip_by_global_norm, multi_transform(...))``).
 
+Sharded and offloaded state (parallel/sharding.py): the optimizer works
+on each rank's local shards of the parameters and gradients; the global
+norm sums the shards' squares over the ranks that hold disjoint shards
+(``TrainState.layout.norm_group``), so it is the norm of the full
+gradients; under the "none" strategy the replicated gradients are first
+averaged over the ranks. With ``offload`` the AdamW moments live in
+(pinned) host memory between steps: each chunk of 64 parameters copies
+its moments to the card, updates them and copies them back, all on the
+current stream, whose order makes the copies safe to read; the update
+waits for the stream at its end, so the host copies are whole when it
+returns (a checkpoint may read them). The numbers are those of the
+unoffloaded update, bit for bit.
+
 ``TrainState.step`` counts every call (the PRFL loop makes two per outer
 step, refl and SFT); the LR schedule and the bias correction read the
 number of optimizer updates before this one, ``step // k``.
@@ -31,6 +44,9 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import sharding
 
 _CHUNK = 64  # parameters per foreach group: bounds the optimizer's temporaries
 
@@ -100,23 +116,32 @@ class Optimizer:
     lr_head: Optional[Callable[[int], float]] = None
     head_keys: Tuple[str, ...] = ("q_attn", "mlp")
 
-    def init(self, params: List[torch.Tensor], names: Optional[List[str]] = None
-             ) -> Dict[str, List[torch.Tensor]]:
-        """Zero moments (and accumulator); with a head group, ``head`` marks
-        the parameters whose first name part is one of ``head_keys``."""
-        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        state = {"mu": zeros, "nu": [torch.zeros_like(z) for z in zeros]}
+    def init(self, params: List[torch.Tensor], names: Optional[List[str]] = None,
+             offload: bool = False) -> Dict[str, List[torch.Tensor]]:
+        """Zero moments (and accumulator) beside the parameters, or with
+        ``offload`` the moments in host memory (pinned when CUDA is there);
+        with a head group, ``head`` marks the parameters whose first name
+        part is one of ``head_keys``."""
+        def moment(p):
+            if not offload:
+                return torch.zeros_like(p, dtype=torch.float32)
+            return torch.zeros(p.shape, dtype=torch.float32,
+                               pin_memory=torch.cuda.is_available())
+
+        state = {"mu": [moment(p) for p in params], "nu": [moment(p) for p in params]}
         if self.k > 1:
-            state["acc"] = [torch.zeros_like(z) for z in zeros]
+            state["acc"] = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         if self.lr_head is not None:
             if names is None:
                 raise ValueError("a head learning rate needs the parameter names")
             state["head"] = [n.split(".")[0] in self.head_keys for n in names]
         return state
 
-    def update(self, params, grads, opt_state, step: int) -> None:
+    def update(self, params, grads, opt_state, step: int, norm_group=None) -> None:
         """One call at TrainState.step ``step``, in place (``grads`` too:
-        the caller hands over fp32 gradients it no longer needs)."""
+        the caller hands over fp32 gradients it no longer needs); the
+        tensors are this rank's shards, whose squares the norm sums over
+        ``norm_group``."""
         if self.k > 1:
             n = step % self.k + 1
             acc = opt_state["acc"]
@@ -127,7 +152,7 @@ class Optimizer:
                 return
             grads = acc  # zeroed below, once the update has read it
         count = step // self.k  # optimizer updates before this one
-        norm = global_norm(grads)
+        norm = global_norm(grads, norm_group)
         if not bool(norm < self.max_grad_norm):
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
@@ -146,9 +171,14 @@ class Optimizer:
             torch._foreach_zero_(opt_state["acc"])
 
     def _adamw(self, params, grads, mu, nu, lr, bc1, bc2) -> None:
+        offloaded = bool(params) and mu[0].device != params[0].device
         for i in range(0, len(params), _CHUNK):
             p, g = params[i:i + _CHUNK], grads[i:i + _CHUNK]
-            m, v = mu[i:i + _CHUNK], nu[i:i + _CHUNK]
+            m_home, v_home = mu[i:i + _CHUNK], nu[i:i + _CHUNK]
+            m, v = m_home, v_home
+            if offloaded:
+                m = [x.to(p[0].device, non_blocking=True) for x in m_home]
+                v = [x.to(p[0].device, non_blocking=True) for x in v_home]
             torch._foreach_mul_(m, self.b1)
             torch._foreach_add_(m, g, alpha=1.0 - self.b1)
             torch._foreach_mul_(v, self.b2)
@@ -160,6 +190,11 @@ class Optimizer:
             torch._foreach_div_(upd, denom)
             torch._foreach_add_(upd, p, alpha=self.weight_decay)
             torch._foreach_add_(p, upd, alpha=-lr)
+            if offloaded:
+                for home, dev in zip(m_home + v_home, m + v):
+                    home.copy_(dev, non_blocking=True)
+        if offloaded and params[0].is_cuda:
+            torch.cuda.current_stream(params[0].device).synchronize()
 
 
 def make_optimizer(learning_rate: float = 5e-6, adam_beta1: float = 0.9,
@@ -201,35 +236,70 @@ def optimizer_from_config(config) -> Optimizer:
 
 @dataclasses.dataclass
 class TrainState:
-    """Trainable parameters (by name), optimizer state, and the count of
-    optimizer calls."""
+    """Trainable parameters (by name; DTensors under FSDP), optimizer state
+    (on the local shards), the count of optimizer calls and the
+    parameters' layout over the ranks."""
 
     names: List[str]
     params: List[torch.Tensor]
     opt_state: Dict[str, List[torch.Tensor]]
     step: int = 0
+    layout: sharding.Layout = dataclasses.field(default_factory=sharding.Layout)
+
+    def local_params(self) -> List[torch.Tensor]:
+        """This rank's shards of the parameters (the parameters when plain)."""
+        return [sharding.local(p.detach()) for p in self.params]
 
 
-def init_train_state(module: torch.nn.Module, tx: Optimizer) -> TrainState:
+def init_train_state(module: torch.nn.Module, tx: Optimizer,
+                     layout: Optional[sharding.Layout] = None,
+                     offload: bool = False) -> TrainState:
+    """The trainable parameters of ``module`` (sharded already, as
+    ``layout`` says) and the optimizer state of their local shards."""
     named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
     params, names = [p for _, p in named], [n for n, _ in named]
-    return TrainState(names=names, params=params, opt_state=tx.init(params, names), step=0)
+    state = TrainState(names=names, params=params, opt_state={}, step=0,
+                       layout=layout or sharding.Layout())
+    # the optimizer test doubles take no offload argument
+    state.opt_state = tx.init(state.local_params(), names, **(
+        {"offload": True} if offload else {}))
+    return state
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32."""
+def global_norm(tensors, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32; with ``group``
+    the tensors are shards and the squares are summed over its ranks."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if group is None or dist.get_world_size(group) == 1:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square().sum()
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
 def apply_grads(state: TrainState, tx: Optimizer, grads: List[torch.Tensor]
                 ) -> Tuple[TrainState, torch.Tensor]:
     """One optimizer call; returns (state, global norm of ``grads``)."""
-    gnorm = global_norm(grads)
+    group = state.layout.norm_group
+    gnorm = global_norm(grads, group)
     with torch.no_grad():
-        tx.update(state.params, grads, state.opt_state, state.step)
+        tx.update(state.local_params(), grads, state.opt_state, state.step,
+                  **({"norm_group": group} if group is not None else {}))
     state.step += 1
     return state, gnorm
+
+
+def gathered_opt_state(state: TrainState, main: bool = True) -> TrainState:
+    """The state with its optimizer tensors gathered to full host tensors
+    (every rank calls it; only ``main``'s copy holds them), for
+    utils/checkpoint.save_opt_state."""
+    full = {}
+    for key, vals in state.opt_state.items():
+        if all(isinstance(v, torch.Tensor) for v in vals):
+            full[key] = sharding.gather_to_host(vals, state.params, main)
+        else:
+            full[key] = vals
+    return dataclasses.replace(state, opt_state=full)
 
 
 def step_generator(device, seed: int, step: int) -> torch.Generator:
@@ -244,10 +314,15 @@ def collect_grads(state: TrainState, finite: Optional[bool] = True) -> List[torc
     guard: the update still runs, with zero gradients)."""
     grads = []
     for p in state.params:
-        g = p.grad
-        grads.append(torch.zeros_like(p, dtype=torch.float32) if g is None or not finite
-                     else g.float())
+        g = None if p.grad is None else sharding.local(p.grad)
+        grads.append(torch.zeros_like(sharding.local(p.detach()), dtype=torch.float32)
+                     if g is None or not finite else g.float())
         p.grad = None
+    group = state.layout.mean_group
+    if group is not None and finite:
+        for g in grads:
+            dist.all_reduce(g, group=group)
+            g.div_(dist.get_world_size(group))
     return grads
 
 
@@ -265,8 +340,10 @@ def slice_blocks(state_dict: Dict[str, torch.Tensor], k: int) -> Dict[str, torch
 
 
 def validate_params(module: torch.nn.Module) -> dict:
-    """NaN/Inf parameter health check -> {"finite": bool, "bad": [names]}."""
-    bad = [n for n, p in module.named_parameters() if not bool(torch.isfinite(p).all())]
+    """NaN/Inf parameter health check (of this rank's shards) ->
+    {"finite": bool, "bad": [names]}."""
+    bad = [n for n, p in module.named_parameters()
+           if not bool(torch.isfinite(sharding.local(p.detach())).all())]
     return {"finite": not bad, "bad": bad}
 
 

@@ -19,6 +19,13 @@ draws (``t``, ``noise``) injected, so a test can hand it another
 framework's, or draws them from a ``torch.Generator``. The finite guard is
 the JAX package's: a non-finite loss or gradient zeroes every gradient and
 logs loss 0, and the AdamW update still runs.
+
+On a process mesh (``mesh``) every rank draws the global batch's ``t``
+and ``noise`` and keeps its data replica's rows (an injected draw is the
+global batch's too); the tower splits the tokens over the sp ranks and
+gathers the feature taps, so the pool sees every token. The logged loss
+and accuracy are the means over the data replicas; the finite guard
+holds when the mean loss and every rank's gradient shards are finite.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch import nn
 from ..data.dataset import LatentCacheDataset
 from ..models import reward as rw
 from ..models import wan_dit
+from ..parallel import sharding
 from ..schedulers import flow_match as fm
 from ..utils import checkpoint as ck
 from . import common
@@ -144,6 +152,13 @@ class PavrmModel(nn.Module):
             self.q_attn.load_state_dict(ck.load_reward_head(query_attention_path, "qattn"))
         return self
 
+    def parallelize(self, mesh: sharding.Mesh, strategy: str = "full") -> sharding.Layout:
+        """The mesh's sp group for the tower; the tower (each WanBlock,
+        then the DiT) and both heads sharded under ``strategy``."""
+        sharding.set_sequence_parallel(self.dit, mesh.seq())
+        return sharding.shard_model(mesh, [self.dit, self.q_attn, self.mlp], strategy,
+                                    self.dit.blocks)
+
     def freeze_embeddings(self):
         """Only the blocks and the heads train: every other tower parameter
         (patch, text and time embeddings, the i2v img_emb) is frozen."""
@@ -172,25 +187,27 @@ def select_timestep(pc: PavrmConfig, schedule: fm.FlowMatchSchedule, step: int,
                                     pc.logit_mean, pc.logit_std, generator=generator)
 
 
-def make_train_step(model: PavrmModel, tx: common.Optimizer, schedule: fm.FlowMatchSchedule):
+def make_train_step(model: PavrmModel, tx: common.Optimizer, schedule: fm.FlowMatchSchedule,
+                    mesh: Optional[sharding.Mesh] = None):
     """The PAVRM step: step(state, batch, generator=None, t=None, noise=None)
     -> (state, metrics). ``t`` ([B] timesteps; sigma is the schedule's at
     t) and ``noise`` (the latents' shape) replace the step's draws."""
     pc = model.pc
+    mesh = mesh or sharding.Mesh()
 
     def step(state: common.TrainState, batch, generator=None, t=None, noise=None):
         latents = batch["latents"]
-        b, dev = latents.shape[0], latents.device
+        b, dev = latents.shape[0] * mesh.data, latents.device
         if t is None:
             t, sigma = select_timestep(pc, schedule, state.step, b, generator)
         else:
             t = torch.as_tensor(t, dtype=torch.float32).cpu().reshape(b)
             sigma = fm.sigma_for_timestep(schedule, t)
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
-                                device=dev)
-        t, noise = t.to(dev), noise.to(dev, torch.float32)
-        sig5 = sigma.to(dev).reshape(-1, 1, 1, 1, 1)
+            noise = torch.randn((b, *latents.shape[1:]), generator=generator,
+                                dtype=torch.float32, device=dev)
+        t, noise = mesh.rows(t).to(dev), mesh.rows(noise).to(dev, torch.float32)
+        sig5 = mesh.rows(sigma).to(dev).reshape(-1, 1, 1, 1, 1)
         clip_fea = common.reshape_clip(batch.get("clip_fea")) if pc.is_i2v else None
 
         def score(lat, cond_key):
@@ -212,12 +229,15 @@ def make_train_step(model: PavrmModel, tx: common.Optimizer, schedule: fm.FlowMa
             raise ValueError(f"unknown PAVRM loss {pc.loss!r}")
         loss.backward()
         # the finite guard: the loss and every gradient
-        finite = bool(torch.stack([torch.isfinite(loss)] + [
-            torch.isfinite(p.grad).all() for p in state.params if p.grad is not None]).all())
+        loss = mesh.mean_over_data(loss.detach())
+        finite = mesh.all_true(torch.stack([torch.isfinite(loss)] + [
+            torch.isfinite(sharding.local(p.grad)).all()
+            for p in state.params if p.grad is not None]).all())
         grads = common.collect_grads(state, finite)
         state, gnorm = common.apply_grads(state, tx, grads)
-        return state, {"loss": loss.detach() if finite else torch.zeros_like(loss),
-                       "grad_norm": gnorm, "acc": acc.detach(), "probs": probs.detach()}
+        return state, {"loss": loss if finite else torch.zeros_like(loss),
+                       "grad_norm": gnorm, "acc": mesh.mean_over_data(acc.detach()),
+                       "probs": probs.detach()}
 
     return step
 

@@ -26,6 +26,17 @@ and the 16-channel condition latent (patchified once in the refl step, in
 video layout for the SFT step) and the CLIP features reach the rollout,
 the gradient-carrying forward, the frozen LRM and the SFT forward.
 
+On a process mesh (``mesh``, parallel/sharding.Mesh) every rank draws
+the global batch's ``latent0``, ``mid`` and SFT ``t``/``noise`` from the
+same generator, as the JAX step draws once over its mesh, and keeps its
+data replica's rows; the refl step then keeps its sp block of the tokens
+through the rollout, the gradient-carrying forward, the solver step and
+the LRM, whose pool gathers them; the SFT step's DiT splits and gathers
+its video-layout input itself. An injected draw is the global batch's.
+The losses are per replica; the logged values are their mean over the
+data replicas, and the finite guard reads that mean, so every rank takes
+the same branch.
+
 ``rollout_quant="int8"`` runs the no-grad rollout to ``mid`` through the
 int8 serving path (W8A8 block matmuls and the int8 q k^T self-attention,
 K10); the gradient-carrying forward, the LRM and the SFT step stay bf16
@@ -41,6 +52,7 @@ import torch
 
 from ..models import reward as rw
 from ..models import wan_dit
+from ..parallel import sharding
 from ..schedulers import flow_match as fm
 from ..schedulers import unipc
 from . import common
@@ -79,8 +91,22 @@ class PrflModel:
         self.lrm.requires_grad_(False)
 
 
-def _finish(state, tx, loss):
-    """The finite guard, then one optimizer call -> (state, loss, gnorm)."""
+def parallelize(model: PrflModel, mesh: sharding.Mesh, strategy: str = "full"
+                ) -> sharding.Layout:
+    """Give the policy and the frozen LRM the mesh's sp group and shard
+    both under ``strategy`` (each WanBlock, then the DiT; the LRM's small
+    heads stay whole) -> the policy's layout."""
+    sp = mesh.seq()
+    for dit in (model.dit, model.lrm.dit):
+        sharding.set_sequence_parallel(dit, sp)
+    sharding.shard_model(mesh, [model.lrm.dit], strategy, model.lrm.dit.blocks)
+    return sharding.shard_model(mesh, [model.dit], strategy, model.dit.blocks)
+
+
+def _finish(state, tx, loss, mesh: Optional[sharding.Mesh] = None):
+    """The finite guard on the replicas' mean loss, then one optimizer call
+    -> (state, loss, gnorm)."""
+    loss = (mesh or sharding.Mesh()).mean_over_data(loss.detach())
     finite = bool(torch.isfinite(loss))
     grads = common.collect_grads(state, finite)
     state, gnorm = common.apply_grads(state, tx, grads)
@@ -108,10 +134,13 @@ def int8_rollout_model(model: PrflModel):
     return qdit.eval(), pairs
 
 
-def make_refl_step(model: PrflModel, tx: common.Optimizer):
+def make_refl_step(model: PrflModel, tx: common.Optimizer,
+                   mesh: Optional[sharding.Mesh] = None):
     """The PRFL reward step: refl_step(state, batch, generator=None,
     latent0=None, mid=None) -> (state, metrics)."""
     cfg = model.cfg
+    mesh = mesh or sharding.Mesh()
+    sp = mesh.seq()
     sched = unipc.unipc_schedule(cfg.inference_steps, shift=cfg.flow_shift,
                                  num_train_timesteps=cfg.num_train_timesteps)
     patch = model.dit_cfg.patch_size
@@ -119,6 +148,9 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
         # a typo here would silently run the bf16 rollout
         raise ValueError(f"rollout_quant must be one of {ROLLOUT_QUANTS}, "
                          f"got {cfg.rollout_quant!r}")
+    if cfg.rollout_quant == "int8" and mesh.device_mesh is not None:
+        raise NotImplementedError("rollout_quant int8 with a process group: the int8 "
+                                  "rollout model shares the policy's unsharded weights")
     rollout_dit, quant_pairs = (int8_rollout_model(model) if cfg.rollout_quant == "int8"
                                 else (model.dit, []))
 
@@ -126,15 +158,19 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
         text = batch["text"]
         device = text.device
         if latent0 is None:
-            latent0 = torch.randn(batch["latents"].shape, generator=generator,
+            shape = batch["latents"].shape
+            latent0 = torch.randn((shape[0] * mesh.data, *shape[1:]), generator=generator,
                                   dtype=torch.float32, device=device)
         if mid is None:
             mid = (cfg.fixed_mid if cfg.fixed_mid is not None else int(torch.randint(
                 0, cfg.inference_steps - 1, (), generator=generator,
                 device=generator.device if generator is not None else "cpu")))
-        latent0_t, grid = wan_dit.patchify(latent0.to(device, torch.float32), patch)
+        latent0_t, grid = wan_dit.patchify(mesh.rows(latent0).to(device, torch.float32), patch)
         y, clip_fea = common.prepare_conditioning(batch, cfg.is_i2v, cfg.is_flf2v)
         y_t = wan_dit.patchify(y, patch)[0] if y is not None else None
+        if sp is not None:
+            latent0_t = sp.shard(latent0_t, 1, grid)
+            y_t = sp.shard(y_t, 1, grid) if y_t is not None else None
 
         def velocity(x, t, dit=model.dit):
             return dit(x, t, text, y=y_t, clip_fea=clip_fea, grid=grid)
@@ -156,46 +192,51 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer):
         reward = rw.reward_sigmoid(logits)[:, 0]
         loss = rw.prfl_hinge_loss(reward, cfg.target_reward, cfg.hinge_scale)
         loss.backward()
-        state, loss, gnorm = _finish(state, tx, loss)
+        state, loss, gnorm = _finish(state, tx, loss, mesh)
         # one-shot x0 estimate, for the sanity dumps
         sigma_mid1 = float(sched.sigmas[min(mid + 1, cfg.inference_steps)])
         with torch.no_grad():
             pred_x0 = latent_next - sigma_mid1 * v
-        return state, {"loss": loss, "grad_norm": gnorm, "reward": reward.detach().mean(),
-                       "mid": mid,
-                       "latent_next": wan_dit.unpatchify(latent_next.detach(), grid, patch),
+            latent_next = latent_next.detach()
+            if sp is not None:
+                pred_x0, latent_next = sp.gather(pred_x0, 1), sp.gather(latent_next, 1)
+        return state, {"loss": loss, "grad_norm": gnorm,
+                       "reward": mesh.mean_over_data(reward.detach().mean()), "mid": mid,
+                       "latent_next": wan_dit.unpatchify(latent_next, grid, patch),
                        "pred_x0": wan_dit.unpatchify(pred_x0, grid, patch)}
 
     return refl_step
 
 
-def make_sft_step(model: PrflModel, tx: common.Optimizer, schedule: fm.FlowMatchSchedule):
+def make_sft_step(model: PrflModel, tx: common.Optimizer, schedule: fm.FlowMatchSchedule,
+                  mesh: Optional[sharding.Mesh] = None):
     """The flow-matching SFT step: sft_step(state, batch, generator=None,
     t=None, sigma=None, noise=None) -> (state, metrics)."""
     cfg = model.cfg
+    mesh = mesh or sharding.Mesh()
 
     def sft_step(state: common.TrainState, batch, generator=None, t=None, sigma=None,
                  noise=None):
         latents = batch["latents"]
-        b = latents.shape[0]
+        b = latents.shape[0] * mesh.data
         if t is None or sigma is None:
             t, sigma = fm.sample_train_timestep(schedule, b, cfg.weighting_scheme,
                                                 cfg.logit_mean, cfg.logit_std,
                                                 generator=generator)
-        t = torch.as_tensor(t, dtype=torch.float32).to(latents.device)
-        sig5 = torch.as_tensor(sigma, dtype=torch.float32).to(latents.device).reshape(
-            -1, 1, 1, 1, 1)
+        t = mesh.rows(torch.as_tensor(t, dtype=torch.float32)).to(latents.device)
+        sig5 = mesh.rows(torch.as_tensor(sigma, dtype=torch.float32)).to(
+            latents.device).reshape(-1, 1, 1, 1, 1)
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
-                                device=latents.device)
-        noise = noise.to(latents.device, torch.float32)
+            noise = torch.randn((b, *latents.shape[1:]), generator=generator,
+                                dtype=torch.float32, device=latents.device)
+        noise = mesh.rows(noise).to(latents.device, torch.float32)
         noisy = fm.add_noise(latents, noise, sig5)
         target = fm.train_target(latents, noise)
         y, clip_fea = common.prepare_conditioning(batch, cfg.is_i2v, cfg.is_flf2v)
         v = model.dit(noisy, t, batch["text"], y=y, clip_fea=clip_fea)
         loss = torch.mean(fm.loss_weighting(sig5) * torch.square(v - target))
         loss.backward()
-        state, loss, gnorm = _finish(state, tx, loss)
+        state, loss, gnorm = _finish(state, tx, loss, mesh)
         return state, {"loss": loss, "grad_norm": gnorm}
 
     return sft_step

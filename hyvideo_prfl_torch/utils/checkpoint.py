@@ -52,6 +52,7 @@ from ..models.rope import rope_permutation
 from ..models.wan_dit import CLIP_DIM, FIRST_LAST_FRAME_CONTEXT_TOKEN_NUMBER, WanConfig, \
     WanModel, is_i2v
 from ..ops.quant import quantize_weight
+from ..parallel import sharding
 from . import safetensors_io as st
 
 _TOP_DENSE = ("patch_embedding", "text_0", "text_2", "time_0", "time_2", "time_proj")
@@ -522,7 +523,8 @@ def save_opt_state(path: str, state) -> None:
 @torch.no_grad()
 def load_opt_state(path: str, state) -> None:
     """<path>/opt_state.pt -> the TrainState's optimizer state and step, in
-    place."""
+    place; each saved (full) tensor onto this rank's shard of its
+    parameter."""
     saved = torch.load(os.path.join(path, OPT_STATE_FILE), map_location="cpu",
                        weights_only=True)
     if saved["names"] != list(state.names) or set(saved["opt_state"]) != set(state.opt_state):
@@ -531,7 +533,7 @@ def load_opt_state(path: str, state) -> None:
         live = state.opt_state[key]
         for i, v in enumerate(vals):
             if isinstance(v, torch.Tensor):
-                live[i].copy_(v)
+                live[i].copy_(sharding.shard_of(v, state.params[i]))
             else:
                 live[i] = v
     state.step = int(saved["step"])

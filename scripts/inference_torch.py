@@ -3,7 +3,7 @@ scripts/inference.py): t2v, t2i, i2v and flf2v, from prompts and images to
 decoded frames.
 
 Builds the DiT pipeline once and answers each request from it: batched-CFG
-sampling on one GPU. Without --ckpt_dir the DiT gets random weights,
+sampling on one GPU, or on several under torchrun. Without --ckpt_dir the DiT gets random weights,
 seeded, from the port's ``wan_dit.init_params`` (the JAX initialisers'
 distributions).
 
@@ -19,6 +19,19 @@ distributions).
     python3 scripts/inference_torch.py --task i2v-14B --size 832*480 \\
         --image first.png [--last_image last.png] --vae_path Wan2.1_VAE.pth \\
         --clip_path models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth
+    torchrun --nproc_per_node 4 scripts/inference_torch.py --task t2v-14B \
+        --size 1280*720 --ulysses_size 4 [--ulysses_chunks 2] ...
+
+Several GPUs (torchrun, one process each, NCCL): the blocks' weights are
+sharded over all ranks with FSDP2 in their bf16 storage, each block's
+fp32 gains whole on every rank (``parallel/sharding.shard_for_serving``;
+the embeddings and the head stay whole, so TeaCache's gate reads them),
+``--ulysses_size`` ranks split the tokens (Ulysses self-attention in
+``--ulysses_chunks`` head chunks, the cross-attention on each rank's
+queries against the whole context; the latent width widens until the tokens
+divide, as in the JAX CLI), and the world // ulysses_size replicas all
+answer every request; rank 0 decodes and writes. ``--ring_size`` > 1
+(ring attention and USP) raises NotImplementedError.
 
 The weights: ``--transformer_path`` (a post-trained DiT in the reference
 safetensors layout, as ``utils/checkpoint.save_reference_dir`` and the
@@ -75,7 +88,7 @@ weights quantized once after they load and merge; ``--quant_attn int8``
 runs the self-attention's q k^T on the int8 path (kernel K10) wherever
 its keys stream in several blocks. Either flag works alone.
 ``--offload_model``, ``--t5_fsdp``, ``--t5_cpu`` and ``--dit_fsdp`` are
-accepted and do nothing, as in the JAX CLI. Not ported yet: multi-GPU.
+accepted and do nothing, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -100,6 +113,7 @@ from hyvideo_prfl_torch.data.dataset import EvalPromptDataset  # noqa: E402
 from hyvideo_prfl_torch.models import clip as clip_mod  # noqa: E402
 from hyvideo_prfl_torch.models import vae as vae_mod  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
+from hyvideo_prfl_torch.parallel import sharding  # noqa: E402
 from hyvideo_prfl_torch.pipelines.pipeline import (  # noqa: E402
     GenerateConfig, WanFLF2V, WanI2V, WanT2V, latent_size_for,
 )
@@ -163,6 +177,13 @@ def args_init(argv=None):
     p.add_argument("--teacache_thresh", type=float, default=None,
                    help="t2v/t2i: skip the block stack while the time embedding changes "
                         "little (TeaCache; samples with UniPC)")
+    p.add_argument("--ulysses_size", type=int, default=1,
+                   help="ranks that split the tokens (Ulysses sequence parallelism)")
+    p.add_argument("--ring_size", type=int, default=1,
+                   help="ring attention degree (not ported: > 1 raises)")
+    p.add_argument("--ulysses_chunks", type=int,
+                   default=int(os.environ.get("HYV_ULYSSES_CHUNKS", "1")),
+                   help="head chunks of the Ulysses all-to-all exchange")
     p.add_argument("--quant", choices=("none", "int8"), default="none",
                    help="serve the DiT block matmuls as W8A8 int8 GEMMs")
     p.add_argument("--quant_attn", choices=("none", "int8"), default="none",
@@ -188,6 +209,9 @@ def args_init(argv=None):
         args.sample_steps = 40 if "i2v" in args.task else 50
     if args.sample_shift is None:
         args.sample_shift = 3.0 if ("i2v" in args.task and "480" in args.size) else 5.0
+    if args.ring_size > 1:
+        raise NotImplementedError(f"--ring_size {args.ring_size}: ring attention and USP "
+                                  "(ops/ring_attention.py of the JAX package) are not ported")
     if args.base_seed < 0:
         args.base_seed = random.randint(0, 2**31 - 1)
     if args.prompt is not None and not args.t5_path:
@@ -286,10 +310,12 @@ def load_dit(args, cfg, device) -> wan_dit.WanModel:
     return model
 
 
-def build_pipeline(args) -> WanT2V:
+def build_pipeline(args, mesh: sharding.Mesh = sharding.Mesh()) -> WanT2V:
     """The DiT on args.device (``load_dit``), each LoRA merged, then
-    quantized under --quant int8."""
-    device = check_device(torch.device(args.device))
+    quantized under --quant int8; on a mesh of several ranks its blocks
+    sharded over all of them and its tokens over the sp ranks."""
+    device = check_device(mesh.device if mesh.device_mesh is not None
+                          else torch.device(args.device))
     cfg = dit_config_for_task(args.task, quant_attn=None if args.quant_attn == "none"
                               else args.quant_attn)
     model = load_dit(args, cfg, device)
@@ -303,6 +329,8 @@ def build_pipeline(args) -> WanT2V:
     if args.quant == "int8":
         model = ck.quantize_model(model)
         logging.info("quantized the block matmuls to int8 (W8A8)")
+    if mesh.world > 1:
+        sharding.shard_for_serving(model, mesh)
     return pipeline_class(args.task)(model.eval())
 
 
@@ -391,10 +419,12 @@ def load_or_zeros(path, shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
-def latent_grid(size: str, frame_num: int):
+def latent_grid(size: str, frame_num: int, sp_size: int = 1):
+    """The latent grid (F, H, W) of a request; above sp 1 its width widened
+    until the tokens divide by sp (``latent_size_for``)."""
     w, h = SIZE_CONFIGS[size]
     return latent_size_for(MAX_AREA_CONFIGS.get(size, w * h), h / w,
-                           num_frames=frame_num)
+                           num_frames=frame_num, sp_size=sp_size)
 
 
 def clip_shape(task: str):
@@ -465,7 +495,8 @@ def image_conditions(args, records, vae, grid, device) -> List[Dict]:
 
 def run_request(pipe: WanT2V, req: Request, size: str) -> torch.Tensor:
     """Latents [1, F, H, W, 16] fp32 for one request."""
-    lat_f, lat_h, lat_w = latent_grid(size, req.frame_num)
+    sp = pipe.model.sp
+    lat_f, lat_h, lat_w = latent_grid(size, req.frame_num, sp.size if sp is not None else 1)
     gen = GenerateConfig(sampling_steps=req.sample_steps, shift=req.sample_shift,
                          guide_scale=req.guide_scale, sample_solver=req.sample_solver)
     g = torch.Generator(device=req.context.device).manual_seed(req.seed)
@@ -499,16 +530,22 @@ def output_file(save_file: str, idx: int, n: int) -> str:
 def main(argv=None):
     args = args_init(argv)
     logging.basicConfig(level=logging.INFO)
-    device = check_device(torch.device(args.device))
+    device = sharding.init_distributed(check_device(torch.device(args.device)))
+    mesh = sharding.build_mesh(args.ulysses_size, device, chunks=args.ulysses_chunks)
+    if mesh.world > 1:
+        # every rank answers with rank 0's seed (--base_seed -1 draws one)
+        seed = [args.base_seed]
+        torch.distributed.broadcast_object_list(seed, src=0)
+        args.base_seed = seed[0]
     torch.backends.cudnn.allow_tf32 = False  # the towers' fp32 convolutions, not TF32
     cfg = dit_config_for_task(args.task)
-    grid = latent_grid(args.size, args.frame_num)
+    grid = latent_grid(args.size, args.frame_num, mesh.sp)
     records = read_records(args)
     # the text tower first, freed before the DiT is built
     contexts, context_null = text_contexts(args, records, cfg, device)
     vae = encoders.load_reference_vae(args.vae_path, device) if args.vae_path else None
     images = image_conditions(args, records, vae, grid, device)
-    pipe = build_pipeline(args)
+    pipe = build_pipeline(args, mesh)
     latents = []
     for idx, (rec, context, image) in enumerate(zip(records, contexts, images)):
         req = Request(
@@ -523,6 +560,9 @@ def main(argv=None):
     del pipe, images
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if not mesh.is_main:
+        mesh.barrier()
+        return 0
     for idx, lat in enumerate(latents):
         save_file = output_file(args.save_file, idx, len(latents))
         if vae is None:
@@ -533,6 +573,7 @@ def main(argv=None):
             continue
         written = write_frames(vae_mod.decode(vae, lat, args.decode_chunk)[0], save_file)
         logging.info("latents %s decoded -> %s", tuple(lat.shape), written)
+    mesh.barrier()
     return 0
 
 

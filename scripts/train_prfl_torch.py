@@ -3,6 +3,19 @@ scripts/train_prfl.py).
 
     python scripts/train_prfl_torch.py --config_path configs/train_prfl_t2v_480.yaml \
         [--max_steps N] [--device cuda]
+    torchrun --nproc_per_node 4 scripts/train_prfl_torch.py \
+        --config_path configs/train_prfl_t2v_720.yaml
+
+Under torchrun each process drives one GPU (NCCL; gloo with --device
+cpu) on the ("data", "sp") mesh: sp = min(dataset.sp_size, world),
+data = world // sp. The policy and the frozen LRM are sharded with FSDP2
+under model.fsdp.fsdp_sharding_startegy (full, hybrid_full,
+shard_grad_op, hybrid_zero2, none), the tokens split over the sp ranks
+(Ulysses self-attention, token-parallel cross-attention), each data
+replica reads its own block of the dataset, and rank 0 logs, dumps and
+writes the gathered checkpoints. model.fsdp.use_cpu_offload or
+train.offload_opt_state keeps the AdamW moments in pinned host memory
+between steps, at every world size.
 
 Every outer step runs one PRFL reward ("refl") step and then one
 flow-matching SFT step on the same batch, as the JAX loop does, and logs
@@ -32,9 +45,8 @@ refl step's ``pred_x0`` and ``latent_next`` go to ``save.sanity_check_dir``
 ``extra_model.vae.params_path`` (a reference ``.pth``, ``Wan2.1_VAE.pth``;
 streamed one latent frame at a time), written as mp4 or, without a
 writer, uint8 ``_frames.npy``; as latents ``.npy`` where no VAE is given,
-as the JAX trainer does. Options the port does not have yet raise
-NotImplementedError: LoRA, multi-device training and optimizer-state
-offload. ``train.rollout_quant:
+as the JAX trainer does. LoRA raises NotImplementedError, as does
+``train.rollout_quant: int8`` with a process group. ``train.rollout_quant:
 int8`` runs the no-grad rollout through the int8 serving path (W8A8 block
 matmuls, int8 q k^T self-attention), as the JAX trainer does. An i2v or
 flf2v task (``i2v-1.3b``, ``i2v-14b-480p``, ...) conditions every step on
@@ -59,11 +71,12 @@ from hyvideo_prfl_torch.configs import dit_cfg_from  # noqa: E402
 from hyvideo_prfl_torch.data.dataset import LatentCacheDataset  # noqa: E402
 from hyvideo_prfl_torch.models import vae as vae_mod  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
+from hyvideo_prfl_torch.parallel import sharding  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
 from hyvideo_prfl_torch.training import cli, common, ema as ema_mod  # noqa: E402
 from hyvideo_prfl_torch.training.pavrm import PavrmConfig  # noqa: E402
 from hyvideo_prfl_torch.training.prfl import (  # noqa: E402
-    PrflConfig, PrflModel, make_refl_step, make_sft_step,
+    PrflConfig, PrflModel, make_refl_step, make_sft_step, parallelize,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
 from hyvideo_prfl_torch.utils import encoders, video_io  # noqa: E402
@@ -81,14 +94,17 @@ class Trainer:
     out_dir: str
     seed: int
     step: int = 0  # the next outer step
-    ema: Any = None  # fp32 copies of state.params under model.ema.use_ema
+    ema: Any = None  # fp32 copies of the local parameter shards under model.ema.use_ema
     vae: Any = None  # the sanity decode's VAE (extra_model.vae.params_path)
+    mesh: sharding.Mesh = dataclasses.field(default_factory=sharding.Mesh)
 
 
 def build_trainer(config, device="cuda") -> Trainer:
-    """Model (fp32 policy masters + frozen LRM), optimizer, data, steps."""
+    """Model (fp32 policy masters + frozen LRM, sharded over the mesh),
+    optimizer, data, steps."""
     device = cli.start(config, device, **{
         "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora")})
+    mesh = cli.mesh_for(config, device)
     dit_cfg = dit_cfg_from(config)
     is_i2v = "i2v" in config.task or "flf2v" in config.task
     is_flf2v = "flf2v" in config.task
@@ -131,8 +147,9 @@ def build_trainer(config, device="cuda") -> Trainer:
         logging.info("no LRM checkpoint; seeded JAX-initialiser weights")
         model.lrm.init_params(torch.Generator(device=device).manual_seed(1))
 
+    layout = parallelize(model, mesh, sharding.fsdp_strategy_from(config))
     tx = common.optimizer_from_config(config)
-    state = common.init_train_state(model.dit, tx)
+    state = common.init_train_state(model.dit, tx, layout, sharding.offload_from(config))
     if cli.exists(resume) and os.path.isdir(os.path.join(resume, "opt_state")):
         # the moments of train.save_optimizer_state and the step, which
         # counts the optimizer calls, two per outer step
@@ -140,14 +157,14 @@ def build_trainer(config, device="cuda") -> Trainer:
         logging.info("restored the optimizer state from %s/opt_state", resume)
     ema = None
     if config.model.ema.use_ema:
-        ema = ema_mod.ema_init(state.params)
+        ema = ema_mod.ema_init(state.local_params())
         # a resumed run from <out>/checkpoint-<n> continues <out>-ema/checkpoint-<n>
         head, tail = os.path.split(os.path.normpath(resume or "."))
         ema_dir = os.path.join(head + "-ema", tail)
         if cli.exists(resume) and os.path.isdir(ema_dir):
             saved = ck.load_reference_dir(ema_dir, dit_cfg)
-            for name, e in zip(state.names, ema):
-                e.copy_(saved[name])
+            for name, p, e in zip(state.names, state.params, ema):
+                e.copy_(sharding.shard_of(saved[name], p))
             logging.info("restored the EMA from %s", ema_dir)
 
     dataset = LatentCacheDataset(
@@ -155,32 +172,40 @@ def build_trainer(config, device="cuda") -> Trainer:
         uncond_prob=list(config.dataset.uncond_prob),
         text_len=config.extra_model.get_path("text_encoder.t5_text_len", 512),
         null_dir=config.dataset.null_dir, is_i2v=is_i2v, is_flf2v=is_flf2v, seed=seed)
-    loader = cli.make_loader(dataset, config, seed, start_step)
+    loader = cli.make_loader(dataset, config, seed, start_step, mesh)
     out_dir = os.path.join(config.save.output_dir, config.train_id)
     vae_path = config.get_path("extra_model.vae.params_path")
     vae = None
-    if cli.exists(vae_path):
+    if cli.exists(vae_path) and mesh.is_main:
         logging.info("sanity decodes through the VAE of %s", vae_path)
         vae = encoders.load_reference_vae(vae_path, device)
     return Trainer(config=config, device=device, model=model, state=state,
-                   loader=loader, refl_fn=make_refl_step(model, tx),
+                   loader=loader, refl_fn=make_refl_step(model, tx, mesh),
                    sft_fn=make_sft_step(model, tx, fm.train_schedule(
-                       sched_cfg.num_train_timesteps)),
-                   out_dir=out_dir, seed=seed, step=start_step, ema=ema, vae=vae)
+                       sched_cfg.num_train_timesteps), mesh),
+                   out_dir=out_dir, seed=seed, step=start_step, ema=ema, vae=vae, mesh=mesh)
 
 
 def save_checkpoint(trainer: Trainer, step: int) -> None:
     """The policy in the reference layout at <out>/checkpoint-<step>, its
     optimizer state under train.save_optimizer_state, and the EMA at
-    <out>-ema/checkpoint-<step>."""
-    config, model, state = trainer.config, trainer.model, trainer.state
-    path = ck.save_reference_dir(model.dit.state_dict(), model.dit_cfg, trainer.out_dir, step)
-    if config.train.get("save_optimizer_state"):
-        ck.save_opt_state(os.path.join(path, "opt_state"), state)
-    if trainer.ema is not None:
-        ema_state = {**model.dit.state_dict(), **dict(zip(state.names, trainer.ema))}
-        ck.save_reference_dir(ema_state, model.dit_cfg, trainer.out_dir + "-ema", step)
-    logging.info("saved %s", path)
+    <out>-ema/checkpoint-<step>: gathered on every rank, written by rank 0."""
+    config, model, state, mesh = trainer.config, trainer.model, trainer.state, trainer.mesh
+    main = mesh.is_main
+    full = sharding.full_state_dict(model.dit, main)
+    opt = (common.gathered_opt_state(state, main)
+           if config.train.get("save_optimizer_state") else None)
+    ema = (sharding.gather_to_host(trainer.ema, state.params, main)
+           if trainer.ema is not None else None)
+    if main:
+        path = ck.save_reference_dir(full, model.dit_cfg, trainer.out_dir, step)
+        if opt is not None:
+            ck.save_opt_state(os.path.join(path, "opt_state"), opt)
+        if ema is not None:
+            ema_state = {**full, **dict(zip(state.names, ema))}
+            ck.save_reference_dir(ema_state, model.dit_cfg, trainer.out_dir + "-ema", step)
+        logging.info("saved %s", path)
+    mesh.barrier()
 
 
 def sanity_dump(trainer: Trainer, sanity_dir: str, step: int, m_refl) -> None:
@@ -204,7 +229,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     log = cli.log_path(config, trainer.out_dir)
     sanity_dir = config.save.sanity_check_dir or os.path.join(trainer.out_dir, "sanity_check")
     interval = int(config.train.sanity_check_interval)
-    dev = trainer.device
+    dev, main = trainer.device, trainer.mesh.is_main
     history = []
     for step in range(trainer.step, trainer.step + steps):
         raw = next(trainer.loader)
@@ -216,20 +241,20 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
         trainer.state, m_refl = trainer.refl_fn(trainer.state, batch, gen)
         cli.sync(dev)
         t_refl = time.perf_counter() - t0
-        if interval > 0 and step <= 50 and step % interval == 0:
+        if interval > 0 and step <= 50 and step % interval == 0 and main:
             sanity_dump(trainer, sanity_dir, step, m_refl)
         t0 = time.perf_counter()
         trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, gen)
         cli.sync(dev)
         t_sft = time.perf_counter() - t0
         if trainer.ema is not None:
-            ema_mod.ema_update(trainer.ema, trainer.state.params,
+            ema_mod.ema_update(trainer.ema, trainer.state.local_params(),
                                float(config.model.ema.ema_decay))
         metrics = {"step": step, "refl_loss": float(m_refl["loss"]),
                    "reward": float(m_refl["reward"]), "grad_norm": float(m_refl["grad_norm"]),
                    "sft_loss": float(m_sft["loss"]), "mid": int(m_refl["mid"]),
                    "t_refl": t_refl, "t_sft": t_sft}
-        cli.log_line(log, metrics)
+        cli.log_line(log, metrics, main)
         if (step + 1) % 100 == 0:
             health = common.validate_params(trainer.model.dit)
             if not health["finite"]:

@@ -273,7 +273,7 @@ def _tiny_i2v(monkeypatch, cli, model_type="t2v"):
                               compute_dtype=torch.float32, **kw)
 
     monkeypatch.setattr(cli, "dit_config_for_task", cfg)
-    monkeypatch.setattr(cli, "latent_grid", lambda size, frames: (3, 4, 4))
+    monkeypatch.setattr(cli, "latent_grid", lambda size, frames, sp_size=1: (3, 4, 4))
 
 
 def test_serving_cli_from_prompt_and_image_to_frames(tmp_path, monkeypatch, stub_tokenizer):

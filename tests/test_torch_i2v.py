@@ -669,7 +669,7 @@ def test_serving_cli_answers_an_image_request(monkeypatch, tmp_path, kind):
     cli = _load_script("inference_torch")
     monkeypatch.setattr(cli, "dit_config_for_task",
                         lambda task, **kw: _tcfg(kind, torch.bfloat16, **kw))
-    monkeypatch.setattr(cli, "latent_grid", lambda size, frames: (2, 4, 4))
+    monkeypatch.setattr(cli, "latent_grid", lambda size, frames, sp_size=1: (2, 4, 4))
     rng = np.random.RandomState(20)
     np.save(tmp_path / "clip.npy", rng.randn(_frames(kind), 257, 1280).astype(np.float32))
     np.save(tmp_path / "cond.npy", rng.randn(2, 4, 4, 16).astype(np.float32))

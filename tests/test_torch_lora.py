@@ -226,7 +226,8 @@ def _tiny_cli(monkeypatch, dtype=torch.float32):
     cli = _load_script("inference_torch")
     monkeypatch.setattr(cli, "dit_config_for_task",
                         lambda task, **kw: tdit.tiny_test(**TINY, compute_dtype=dtype, **kw))
-    monkeypatch.setattr(cli, "latent_grid", lambda size, frames: ((frames - 1) // 4 + 1, 4, 4))
+    monkeypatch.setattr(cli, "latent_grid",
+                        lambda size, frames, sp_size=1: ((frames - 1) // 4 + 1, 4, 4))
     return cli
 
 

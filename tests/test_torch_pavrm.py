@@ -797,12 +797,19 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, trainer):
 
 
 def test_pavrm_cli_refuses_what_is_not_ported(tmp_path):
+    # an unknown FSDP strategy raises; dataset.sp_size > 1 (sp clamps to
+    # one process's 1) and optimizer-state offload build and step
+    # (tests/test_torch_parallel_train.py runs them on gloo)
     cli = _load_script("train_pavrm_torch")
-    for key, value, name in (("dataset__sp_size", 2, "multi-device"),
-                             ("train__offload_opt_state", True, "offload")):
-        with pytest.raises(NotImplementedError, match=name):
-            cli.build_trainer(_cli_config("smoke_pavrm", tmp_path, tmp_path / "o",
-                                          **{key: value}), "cpu")
+    with pytest.raises(ValueError, match="zero3"):
+        cli.build_trainer(_cli_config("smoke_pavrm", tmp_path, tmp_path / "o", model__fsdp={
+            "fsdp_sharding_startegy": "zero3"}), "cpu")
+    trainer = cli.build_trainer(_cli_config("smoke_pavrm", tmp_path, tmp_path / "o",
+                                            dataset__sp_size=2, train__offload_opt_state=True),
+                                "cpu")
+    assert trainer.mesh.sp == 1
+    (m,) = cli.run(trainer, 1)
+    assert np.isfinite(m["loss"]) and m["grad_norm"] > 0
 
 
 def test_pavrm_handoff_through_the_clis(tmp_path):
@@ -945,6 +952,10 @@ def test_port_imports_no_jax_nor_safetensors(tmp_path):
         "assert pcfg.optimizer.learning_rate == 1e-5\n"
         "from hyvideo_prfl_torch.models import xlm_roberta\n"
         "from hyvideo_prfl_torch.data import dataset, loader, native_loader, utils\n"
+        "from hyvideo_prfl_torch.parallel import sharding\n"
+        "from hyvideo_prfl_torch.ops import attention\n"
+        "from hyvideo_prfl_torch.training import cli, common, prfl\n"
+        "assert sharding.build_mesh(4, 'cpu').world == 1 and attention.ulysses_chunks(40, 4) == 1\n"
         "for name in ('train_pavrm_torch', 'inference_pavrm_torch', 'train_prfl_torch',\n"
         "             'inference_torch', 'decode_latents_torch', 'encode_captions_torch',\n"
         "             'gen_latents_torch'):\n"

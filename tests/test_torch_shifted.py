@@ -300,7 +300,7 @@ def test_cli_serves_on_the_shifted_route(monkeypatch):
     bounded = _spy(monkeypatch, "flash_attention_plain")
     monkeypatch.setattr(tfa, "FLASH_BOUNDED", False)
     cli = _load_script("inference_torch")
-    monkeypatch.setattr(cli, "latent_grid", lambda size, frame_num: (3, 8, 8))
+    monkeypatch.setattr(cli, "latent_grid", lambda size, frame_num, sp_size=1: (3, 8, 8))
     cfg = tdit.tiny_test(**TINY, compute_dtype=torch.float32)
     model = tdit.init_params(tdit.WanModel(cfg), torch.Generator().manual_seed(0))
     ctx = torch.from_numpy(np.random.RandomState(6).randn(1, 16, 64).astype(np.float32))

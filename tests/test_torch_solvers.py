@@ -304,7 +304,7 @@ def _tiny_cli(monkeypatch):
     monkeypatch.setattr(cli, "dit_config_for_task",
                         lambda task, **kw: tdit.tiny_test(**TINY, compute_dtype=torch.float32,
                                                           **kw))
-    monkeypatch.setattr(cli, "latent_grid", lambda size, frames: (frames // 4 + 1, 4, 4))
+    monkeypatch.setattr(cli, "latent_grid", lambda size, frames, sp_size=1: (frames // 4 + 1, 4, 4))
     return cli
 
 

@@ -396,19 +396,27 @@ def test_cli_trains_two_steps_on_the_smoke_config(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    # LoRA, multi-device training and optimizer-state offload still raise;
-    # EMA, resume, optimizer-state export, LRM loading and a run past
-    # save_interval are ported (tests/test_torch_pavrm.py holds them to the
-    # JAX trainer), and so is the VAE sanity decode (tests/test_torch_vae.py)
+    # LoRA still raises, an unknown FSDP strategy too; dataset.sp_size > 1
+    # (one process: sp clamps to 1, as the JAX build_mesh clamps it) and
+    # optimizer-state offload build (tests/test_torch_parallel_train.py
+    # runs them on gloo); EMA, resume, optimizer-state export, LRM loading
+    # and a run past save_interval are ported (tests/test_torch_pavrm.py
+    # holds them to the JAX trainer), and so is the VAE sanity decode
+    # (tests/test_torch_vae.py)
     cli = _load_script("train_prfl_torch", os.path.join(REPO, "scripts", "train_prfl_torch.py"))
-    for key, value, name in (("model.lora", {"use_lora": True}, "LoRA"),
-                             ("dataset.sp_size", 2, "multi-device"),
-                             ("train.offload_opt_state", True, "offload")):
-        cfg = _smoke_config(tmp_path)
-        section, leaf = key.split(".")
-        cfg[section][leaf] = value
-        with pytest.raises(NotImplementedError, match=name):
-            cli.build_trainer(cfg, "cpu")
+    cfg = _smoke_config(tmp_path)
+    cfg["model"]["lora"] = {"use_lora": True}
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        cli.build_trainer(cfg, "cpu")
+    cfg = _smoke_config(tmp_path)
+    cfg["model"]["fsdp"] = {"fsdp_sharding_startegy": "zero3"}
+    with pytest.raises(ValueError, match="zero3"):
+        cli.build_trainer(cfg, "cpu")
+    cfg = _smoke_config(tmp_path)
+    cfg["dataset"]["sp_size"] = 2
+    cfg["train"]["offload_opt_state"] = True
+    trainer = cli.build_trainer(cfg, "cpu")
+    assert trainer.mesh.sp == 1 and trainer.state.opt_state["mu"][0].device.type == "cpu"
     cfg = _smoke_config(tmp_path)  # asks for EMA; save_interval 4
     trainer = cli.build_trainer(cfg, "cpu")
     cli.run(trainer, int(cfg.train.save_interval))

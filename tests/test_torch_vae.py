@@ -218,7 +218,7 @@ def _tiny_dit_cli(monkeypatch, cli):
                               compute_dtype=torch.float32, **kw)
 
     monkeypatch.setattr(cli, "dit_config_for_task", cfg)
-    monkeypatch.setattr(cli, "latent_grid", lambda size, frames: (3, 4, 4))
+    monkeypatch.setattr(cli, "latent_grid", lambda size, frames, sp_size=1: (3, 4, 4))
 
 
 def test_serving_cli_writes_decoded_frames(tmp_path, monkeypatch):
