@@ -31,7 +31,8 @@ Phases, each of which raises on failure:
    form K3s at the cross-attention shape (timed as K3, in turns with K3,
    SDPA and the shifted streaming form), and the rope R forward and
    backward (bit for bit).
-3. Whole-model check: WanModel at t2v-1.3B width with 2 blocks on the
+3. Whole-model check: WanModel at t2v-1.3B width with 1 block (cut from
+   2 for phase 17's room) on the
    9-frame grid (4,680 tokens), seeded weights with a non-zero head, loaded
    through utils/checkpoint.from_jax_params, on the card against the same
    module on the CPU (which runs the plain versions); then the same for
@@ -85,7 +86,7 @@ Phases, each of which raises on failure:
    the reps split over a thread-block cluster; exact against their plain
    versions, int8 and bf16 TOPS beside torch._int_mm's and torch.matmul's.
 9. The un-normed DiT (qk_norm off, the shifted route by nature, R for its
-   rope): 2 blocks (and no norm3) card against CPU, output and every
+   rope): 1 block (cut from 2; no norm3) card against CPU, output and every
    gradient, as phases 3 and 6; then 30 blocks at 81 frames, one
    batched-CFG forward through the pipeline, latents finite and the R,
    K2 and K3s launches as derived.
@@ -138,7 +139,7 @@ Phases, each of which raises on failure:
    moved, the embeddings not, launches as derived
    (expected_pavrm_launches); (b) its i2v-14B Bradley-Terry form runs in
    phase 16a; (c) one
-   ce step of 2 t2v-14B blocks with the heads at 1,560 tokens, the loss and
+   ce step of 1 t2v-14B block (cut from 2) with the heads at 1,560 tokens, the loss and
    every gradient card against CPU at phases 3 and 6's bounds; (d) the
    handoff at t2v-1.3B width: 2 PAVRM steps export the LRM, which
    scripts/inference_pavrm_torch.py's main scores from a --config_path
@@ -243,13 +244,37 @@ Phases, each of which raises on failure:
    keys), K6-K9 at [1, 18,900, 5120] with the first rank's rope rows,
    each against its plain version, timed beside its bound and library
    call.
+17. The last ported modules: (a) configs/train_prfl_t2v_480.yaml (phase
+   7's changes) with model.lora.use_lora (rank 128 on the self- and
+   cross-attention q/k/v/o) and EMA through scripts/train_prfl_torch.py,
+   one outer step at 21 frames and one at 81: metrics finite, launches as
+   derived (expected_train_launches(lora=True)), the base bit for bit
+   unchanged, B moved, t_refl, t_sft and the peak printed; the checkpoint
+   holds the merged DiT and lora_{transformer,kohya,diffusers}.safetensors
+   and no optimizer state, the EMA's beside it, and the merged weights
+   equal the base plus A B of the saved factors exactly; then 2 t2v-1.3B
+   blocks with rank-128 factors at one latent frame, the factors'
+   gradients card against CPU; (b) ring attention on one card through
+   ops/ring_attention.py's own hop loops with a local rotation of r
+   virtual ranks, at the t2v-14B 720*1280 81-frame USP shard of ring 2 x
+   Ulysses 4 on 8 GPUs (batch 2, 10 heads, 75,600 tokens: 37,800 a rank at
+   r = 2, 18,900 at r = 4; K1 and K4 per hop), the shifted route at 18,900
+   tokens (K2, K5), and K3 hops at 2 x 12 heads x 9,360 over r = 4: output
+   and gradients against the whole-sequence kernels and, on two heads,
+   the plain versions; one hop's forward, merge and backward timed beside
+   their bounds; (c) phase 7's 21-frame step under remat "dots_all" against
+   "attn": the same reward, the grad norm within 1%, the time and peak of
+   each; (d) inference_torch.main --ring_size 2 on one card: clamped to
+   ring 1, the latents of --ring_size 1 bit for bit; (e) the metric
+   logger: TensorBoard's event file where it imports, else log.txt alone.
 
 The line before the last is a JSON object of per-kernel results (launches
 counted on the main paths: serving and training for the forward and
 backward kernels, the split-route gradient call and the split-backward
 training step for K5, the probe scripts for P1/P2, the un-normed pipeline
 for R, phase 11's serving and training, phase 12's runs, phase 13's
-and 14's CLIs, phase 15's training step and phase 16's steps); the last is
+and 14's CLIs, phase 15's training step, phase 16's steps and phase 17's
+LoRA steps, rings, remat steps and CLI runs); the last is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is available or the package is missing.
 """
@@ -371,16 +396,22 @@ def dit_launches(n_layers, backward, ctx_grad=1, head=True, remat_policy="attn",
 
 
 def expected_train_launches(n_policy, n_lrm, mid, remat_policy="attn", rollout_quant=None,
-                            shifted=False, merged_bwd=True, i2v=False):
+                            shifted=False, merged_bwd=True, i2v=False, lora=False):
     """Kernel launches of one outer PRFL step: the refl step (mid no-grad
     rollout forwards, through the int8 model under rollout_quant "int8",
     one policy forward and backward, one forward and backward of the
     head-less LRM, whose text and image context need no gradient) and the
     SFT step (one policy forward and backward, whose image context does,
     through img_emb); ``shifted`` for HYV_FLASH_BOUNDED=0, ``merged_bwd``
-    False for HYV_FLASH_MERGED_BWD=0, ``i2v`` for an i2v/flf2v model."""
+    False for HYV_FLASH_MERGED_BWD=0, ``i2v`` for an i2v/flf2v model. Under
+    ``lora`` (model.lora.use_lora on q/k/v/o) the base is frozen: the first
+    block's first adaLN norm then reads a stream and a modulation that need
+    no gradient, so each policy backward has one K9 fewer; every other norm
+    and attention still has a differentiated input (the factors)."""
     policy = dit_launches(n_policy, True, remat_policy=remat_policy, shifted=shifted,
                           merged_bwd=merged_bwd, i2v=i2v)
+    if lora:
+        policy = _add(policy, {"K9": -1})
     lrm = dit_launches(n_lrm, True, ctx_grad=0, head=False, remat_policy=remat_policy,
                        shifted=shifted, merged_bwd=merged_bwd, i2v=i2v)
     rollout = dit_launches(n_policy, False, qk8=rollout_quant == "int8", shifted=shifted,
@@ -791,7 +822,7 @@ def phase_shifted_kernels(results):
 
 
 def phase_model():
-    """Phase 3: 2-block full-width WanModel, card against CPU, in bf16 and
+    """Phase 3: a 1-block full-width WanModel, card against CPU, in bf16 and
     as the int8 model."""
     import torch
 
@@ -800,7 +831,8 @@ def phase_model():
     from hyvideo_prfl_torch.utils.checkpoint import (
         from_jax_params, quantize_state, seeded_jax_tree)
 
-    cfg = wan_dit.t2v_1_3b(num_layers=2)
+    # 1 block (cut from 2 for phase 17's room)
+    cfg = wan_dit.t2v_1_3b(num_layers=1)
     state = from_jax_params(seeded_jax_tree(cfg, seed=7), cfg)
     rng = np.random.default_rng(8)
     f, hh, ww = GRID_9[0], GRID_9[1] * 2, GRID_9[2] * 2
@@ -826,7 +858,7 @@ def phase_model():
         err, rmax, fin = max_err(outs["cuda"], outs["cpu"])
         # Bound: bf16 matmuls accumulate in another order on the card than on
         # the CPU and activations round to bf16 at a dozen points per block,
-        # so after two blocks a few bf16 ulps of the largest value remain:
+        # so after a block a few bf16 ulps of the largest value remain:
         # 3e-2 max|cpu|, the CPU tests' bf16 tolerance against JAX. The int8
         # model quantizes those activations, so a value that rounds apart
         # may land on the neighbouring int8 step: one step is 1/127 of a
@@ -1552,7 +1584,7 @@ def phase_wide(results):
 
 def phase_unnormed():
     """Phase 9: the un-normed DiT (qk_norm off) at t2v-1.3B width: a
-    2-block card-against-CPU check of the output and every gradient on the
+    1-block card-against-CPU check of the output and every gradient on the
     9-frame grid, then a 30-block batched-CFG forward at 81 frames through
     the pipeline; returns the pipeline's launches."""
     import torch
@@ -1564,7 +1596,8 @@ def phase_unnormed():
 
     # no qk-norm and no norm3 (no K6, K7 or norm3 K8/K9: R, K2 and K3s in
     # their place), remat "full" (the training path runs "attn")
-    cfg = wan_dit.t2v_1_3b(num_layers=2, qk_norm=False, cross_attn_norm=False,
+    # 1 block (cut from 2 for phase 17's room)
+    cfg = wan_dit.t2v_1_3b(num_layers=1, qk_norm=False, cross_attn_norm=False,
                            remat_policy="full")
     state = from_jax_params(seeded_jax_tree(cfg, seed=31), cfg)
     rng = np.random.default_rng(32)
@@ -1597,7 +1630,7 @@ def phase_unnormed():
 
     # Output bound: 3e-2 max|cpu|, phase 3's (bf16 roundings in another order)
     err, rmax, fin = max_err(outs["card"], outs["cpu"])
-    print(f"  un-normed 2-block output: max_abs_err {err:.3e} (bound {3e-2 * rmax:.3e}, "
+    print(f"  un-normed 1-block output: max_abs_err {err:.3e} (bound {3e-2 * rmax:.3e}, "
           f"max|cpu| {rmax:.3e})")
     expect(fin and rmax > 0 and err <= 3e-2 * rmax, f"un-normed output: error {err}")
     # Gradient bounds, phase 6's: 2e-2 of each norm against the CPU bf16
@@ -1799,13 +1832,17 @@ def phase_train(root):
     changes = {**changes, "dataset.meta_file_list": [lists[21]], "dataset.null_dir": null_dir,
                "save.output_dir": os.path.join(root, "out")}
     dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     trainer, config, build_s = _build_trainer(cli, published(cfg_name, changes), dev)
     model = trainer.model
     cfg = model.dit_cfg
     n_lrm = model.lrm.dit_cfg.num_layers
     print(f"  trainer built in {build_s:.2f} s: policy "
           f"{sum(p.numel() for p in model.dit.parameters()) / 1e9:.3f} B fp32 master params, "
-          f"{cfg.num_layers} blocks; LRM {n_lrm} blocks, frozen")
+          f"{cfg.num_layers} blocks; LRM {n_lrm} blocks, frozen; it holds "
+          f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before it")
     watched = {name: p.detach().clone() for name, p in model.dit.named_parameters()
                if name in ("blocks.0.ffn_0.weight", "blocks.29.self_attn.q.weight",
                            "blocks.15.modulation", "blocks.0.self_attn.norm_q")}
@@ -1835,7 +1872,9 @@ def phase_train(root):
     expect(torch.equal(model.lrm.mlp.Dense_0.weight, lrm_before), "the frozen LRM moved")
     print(f"  launches over 2 outer steps {got}, derived {want} (per step {per_step})")
     expect(got == want, f"launches {got}, expected {want}")
-    print(f"  peak device memory at 21 frames {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  peak device memory at 21 frames {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} above what was held "
+          f"before the trainer; {CARD}")
 
     ds81 = LatentCacheDataset([lists[81]], uncond_prob=[0.1, 0.0], text_len=512,
                               null_dir=null_dir, seed=1)
@@ -1852,7 +1891,8 @@ def phase_train(root):
           f"t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s")
     print(f"  peak device memory at 81 frames {peak / 2**30:.2f} GiB "
           f"({peak / 1e9:.2f} GB of the card's "
-          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)")
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB), "
+          f"{(peak - held) / 2**30:.2f} GiB above what was held before the trainer; {CARD}")
     for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
         expect(math.isfinite(m[key]), f"{key} is not finite at 81 frames: {m}")
     expect(peak < 80e9, f"peak memory {peak} does not fit 80 GB")
@@ -2432,9 +2472,10 @@ class _GradCapture:
 
 
 def _pavrm_card_vs_cpu(seed=71, card="cuda", cfg=None):
-    """12c: one PAVRM ce step of 2 t2v-14B blocks with both heads at one
-    latent frame (1,560 tokens), card against CPU: the loss at phase 3's
-    bound and every gradient at phase 6's. Returns the card's launches."""
+    """12c: one PAVRM ce step of 1 t2v-14B block (cut from 2) with both
+    heads at one latent frame (1,560 tokens), card against CPU: the loss at
+    phase 3's bound and every gradient at phase 6's. Returns the card's
+    launches."""
     import torch
 
     from hyvideo_prfl_torch.models import reward as rw
@@ -2446,8 +2487,9 @@ def _pavrm_card_vs_cpu(seed=71, card="cuda", cfg=None):
     from hyvideo_prfl_torch.training.pavrm import PavrmConfig, PavrmModel, make_train_step
     from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
 
-    cfg = cfg or wan_dit.t2v_14b(num_layers=2, remat_policy="attn")
-    pc = PavrmConfig(feature_layer=(2,), trainable_blocks=(0, 1), timesteps=(500,),
+    cfg = cfg or wan_dit.t2v_14b(num_layers=1, remat_policy="attn")
+    pc = PavrmConfig(feature_layer=(cfg.num_layers,),
+                     trainable_blocks=tuple(range(cfg.num_layers)), timesteps=(500,),
                      task="t2v-14b")
     q_attn = rw.QueryAttention(cfg.dim, pc.num_queries, pc.num_heads, pc.return_type)
     mlp = rw.RewardMLP(cfg.dim)
@@ -2528,7 +2570,7 @@ def _pavrm_card_vs_cpu(seed=71, card="cuda", cfg=None):
     print(f"  12c: the other {len(worst)} gradients within 2e-2 of the CPU bf16 run's, "
           f"relative to their norms; the largest: "
           + ", ".join(f"{n} {e:.3e}" for e, n in worst[:4]))
-    want = expected_pavrm_launches(2, "ce", self_single=fa.uses_single_block(1560))
+    want = expected_pavrm_launches(cfg.num_layers, "ce", self_single=fa.uses_single_block(1560))
     print(f"  12c: launches {launches}, derived {want}")
     expect(launches == want, f"12c: launches {launches}, expected {want}")
     torch.cuda.empty_cache()
@@ -4550,6 +4592,402 @@ def phase_multi(results, root, dev="cuda"):
     return total
 
 
+# -- phase 17: LoRA training, the ring, the matmul-keeping remat, the clamp, the logger -----
+
+
+def _lora_grads17(dev, rank=128, seed=171):
+    """17a card against CPU: a 2-block t2v-1.3B DiT at one latent frame of
+    832*480 (1,560 tokens) with seeded rank-``rank`` factors attached
+    (non-zero B, so A has a gradient): the factors' gradients on the card
+    and on the CPU at bf16 compute, and on the CPU at fp32 (phase 6's
+    bounds: 2e-2 of each gradient's norm against the CPU bf16 run)."""
+    import torch
+
+    from hyvideo_prfl_torch.models import wan_dit
+    from hyvideo_prfl_torch.training import lora as lora_mod
+    from hyvideo_prfl_torch.utils.checkpoint import from_jax_params, seeded_jax_tree
+
+    cfg = wan_dit.t2v_1_3b(num_layers=2, remat_policy="attn")
+    state = from_jax_params(seeded_jax_tree(cfg, seed=seed), cfg)
+    tree = seeded_lora(cfg, rank, seed, torch.device("cpu"))
+    rng = np.random.default_rng(seed + 1)
+    f, hh, ww = GRID_14B_1[0], GRID_14B_1[1] * 2, GRID_14B_1[2] * 2
+    x = torch.from_numpy(rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((1, TEXT_LEN, cfg.text_dim), dtype=np.float32))
+    r = torch.from_numpy(rng.standard_normal((1, f, hh, ww, 16), dtype=np.float32))
+    grads = {}
+    for key, d, cd in (("card", dev, torch.bfloat16), ("cpu", torch.device("cpu"), torch.bfloat16),
+                       ("cpu fp32", torch.device("cpu"), torch.float32)):
+        model = wan_dit.WanModel(dataclasses.replace(cfg, compute_dtype=cd), device=d,
+                                 param_dtype=torch.float32)
+        model.load_state_dict(state)
+        lora_mod.attach_lora(model, tree)
+        out = model(x.to(d), torch.tensor([700.0], device=d), ctx.to(d))
+        (out * r.to(d)).sum().backward()
+        grads[key] = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                      if p.requires_grad}
+        expect(all(p.grad is None for p in model.parameters() if not p.requires_grad),
+               "17a: a frozen base weight got a gradient")
+        del model, out
+    worst = max((_rel(grads["card"][n], g), n) for n, g in grads["cpu"].items())
+    noise = max(_rel(g, grads["cpu fp32"][n]) for n, g in grads["cpu"].items())
+    print(f"  17a card against CPU, 2 blocks, 1,560 tokens, rank {rank}: {len(grads['cpu'])} "
+          f"factor gradients; the largest relative error {worst[0]:.3e} ({worst[1]}; bound "
+          f"2e-2); the CPU bf16 run against fp32 at most {noise:.3e}")
+    expect(worst[0] <= 2e-2, f"17a: LoRA gradient {worst[1]} off by {worst[0]:.3e}")
+    torch.cuda.empty_cache()
+
+
+def _lora17(root, dev):
+    """17a: phase 7's config with model.lora.use_lora (rank 128, q/k/v/o)
+    and EMA on through train_prfl_torch: one outer step at 21 frames and
+    one at 81, saved after the second; returns the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.data.dataset import LatentCacheDataset
+    from hyvideo_prfl_torch.data.loader import BatchIterator, BlockDistributedSampler
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.training import lora as lora_mod
+    from hyvideo_prfl_torch.utils import checkpoint as ck
+    from hyvideo_prfl_torch.utils import safetensors_io
+
+    cli = load_script("train_prfl_torch")
+    lists, null_dir = write_latent_cache(os.path.join(root, "c17a"), (21, 81))
+    name, changes = PRFL_T2V
+    out = os.path.join(root, "out17a")
+    config = published(name, {**changes, "dataset.meta_file_list": [lists[21]],
+                              "dataset.null_dir": null_dir, "save.output_dir": out,
+                              "model.lora.use_lora": True, "model.lora.lora_rank": 128,
+                              "model.lora.target_modules": ["q", "k", "v", "o"],
+                              "model.ema.use_ema": True, "train.save_interval": 2})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    trainer, config, build_s = _build_trainer(cli, config, dev)
+    model, cfg = trainer.model, trainer.model.dit_cfg
+    n_trained = sum(p.numel() for p in trainer.state.params)
+    n_base = sum(p.numel() for n, p in model.dit.named_parameters()
+                 if not lora_mod.is_lora_name(n))
+    print(f"  17a LoRA trainer built in {build_s:.2f} s: {len(trainer.state.names)} factors, "
+          f"{n_trained / 1e6:.2f} M trained of {n_base / 1e9:.3f} B frozen; AdamW moments "
+          f"{sum(m.numel() for m in trainer.state.opt_state['mu']) / 1e6:.2f} M a moment; it "
+          f"holds {(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before it")
+    expect(all(lora_mod.is_lora_name(n) for n in trainer.state.names)
+           and len(trainer.state.names) == 2 * 2 * 4 * cfg.num_layers, "17a: trained names")
+    # the base's copy in host memory, so that the peaks are the trainer's own
+    base = {n: p.detach().cpu() for n, p in model.dit.named_parameters()
+            if not lora_mod.is_lora_name(n)}
+    b_before = model.dit.blocks[-1].self_attn.q.lora_B.detach().clone()
+    per_step = expected_train_launches(cfg.num_layers, model.lrm.dit_cfg.num_layers,
+                                       int(config.train.fixed_mid), cfg.remat_policy, lora=True)
+    ds81 = LatentCacheDataset([lists[81]], uncond_prob=[0.1, 0.0], text_len=512,
+                              null_dir=null_dir, seed=1)
+    total = {}
+    for frames in (21, 81):
+        if frames == 81:
+            trainer.loader = iter(BatchIterator(ds81, BlockDistributedSampler(len(ds81))))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        (m,) = cli.run(trainer, 1)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        _add(total, launches)
+        print(f"  17a LoRA, {frames} frames: refl_loss {m['refl_loss']:.6f}, reward "
+              f"{m['reward']:.6f}, grad_norm {m['grad_norm']:.6e}, sft_loss {m['sft_loss']:.6f}, "
+              f"t_refl {m['t_refl']:.3f} s, t_sft {m['t_sft']:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} above what was held "
+              f"before the trainer; {CARD}")
+        for key in ("refl_loss", "reward", "grad_norm", "sft_loss"):
+            expect(math.isfinite(m[key]), f"17a: {key} is not finite: {m}")
+        expect(m["grad_norm"] > 0, f"17a: grad norm {m['grad_norm']} is not above 0")
+        expect(launches == per_step, f"17a: launches {launches}, expected {per_step}")
+    moved = (model.dit.blocks[-1].self_attn.q.lora_B.detach() != b_before).float().mean().item()
+    same = all(torch.equal(p.detach().cpu(), base[n]) for n, p in model.dit.named_parameters()
+               if not lora_mod.is_lora_name(n))
+    print(f"  17a: the base bit for bit unchanged: {same}; the last block's self_attn.q.lora_B: "
+          f"{moved:.1%} of its entries moved")
+    expect(same, "17a: a frozen base weight moved")
+    expect(moved > 0, "17a: B did not move")
+
+    ckpt = os.path.join(out, config.train_id, "checkpoint-2")
+    files = sorted(os.listdir(ckpt))
+    want = [f"lora_{f}.safetensors" for f in ("diffusers", "kohya", "transformer")]
+    print(f"  17a: {ckpt} holds {files}")
+    # the merged DiT in the reference layout: one file, or 5 GB shards and their index
+    expect(all(f in files for f in want) and "opt_state" not in files
+           and any(f.startswith("diffusion_pytorch_model") for f in files), f"17a: files {files}")
+    expect(os.path.isdir(os.path.join(out, config.train_id + "-ema", "checkpoint-2")),
+           "17a: no EMA checkpoint")
+    t0 = time.perf_counter()
+    saved = ck.load_reference_dir(ckpt, cfg)
+    tree = lora_mod.lora_from_state_dict(
+        safetensors_io.read_file(os.path.join(ckpt, "lora_transformer.safetensors")),
+        head_dim=cfg.head_dim)
+    want_state = lora_mod.merged_state(base, tree)
+    worst = max(float((saved[k] - v).abs().max()) for k, v in want_state.items())
+    print(f"  17a: the merged checkpoint against base + A B of the saved factors: max abs "
+          f"difference {worst:.3e} over {len(want_state)} tensors ({time.perf_counter() - t0:.2f}"
+          f" s to read and merge)")
+    expect(worst == 0.0, f"17a: the merged checkpoint is {worst} off base + A B")
+    del trainer, model, saved, want_state, base
+    torch.cuda.empty_cache()
+    _lora_grads17(dev)
+    return total
+
+
+def _ring_case17(label, q, k, v, do, r, bounded, plain_heads=2):
+    """The ring of ``r`` virtual ranks (LocalRing) on q, k [B, N, L, D] and
+    v, do [B, L, N, D], forward and backward, against the whole-sequence
+    kernels (K1/K3 or K2/K3s, K4 or K5) and, on batch 0's first
+    ``plain_heads`` heads, the plain versions. Bounds: o within 2^-6 of
+    max|o| (phase 2's), dq/dk/dv within 2^-5 of their largest (two bf16
+    roundings a hop: each hop's partial is rounded before the fp32 sum).
+    Returns (launches of the ring's forward and backward, seconds)."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.ops import ring_attention as ra
+
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    o = ra.ring_attention(*xs, ra.LocalRing(r), qk_layout="bnld", bounded_logits=bounded)
+    grads = torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    ow = fa.flash_attention(*ys, qk_layout="bnld", bounded_logits=bounded)
+    gw = torch.autograd.grad(ow, ys, do)
+    checks = [("o", o, ow, 2.0 ** -6)] + [(n, a, b, 2.0 ** -5)
+                                           for n, a, b in zip(("dq", "dk", "dv"), grads, gw)]
+    report_many("ring", f"{label} against the whole-sequence kernels", checks)
+    del ow, gw, ys
+    h = slice(0, plain_heads)
+    qh, kh, vh, doh = q[:1, h], k[:1, h], v[:1, :, h], do[:1, :, h]
+    po, plse = (fa.flash_attention_plain(qh, kh, vh) if bounded
+                else fa.flash_attention_shifted_plain(qh, kh, vh))
+    pg = fa.flash_attention_bwd_plain(qh, kh, vh, po, plse, doh)
+    checks = [("o", o[:1, :, h], po, 2.0 ** -6)] + [
+        (n, a, b, 2.0 ** -5) for n, a, b in zip(
+            ("dq", "dk", "dv"), (grads[0][:1, h], grads[1][:1, h], grads[2][:1, :, h]), pg)]
+    report_many("ring", f"{label}, batch 0, heads 0-{plain_heads - 1}, against the plain "
+                f"versions", checks)
+    print(f"  17b {label}: ring forward + backward {dt * 1e3:.1f} ms wall (first call); "
+          f"launches {launches}")
+    del o, grads, po, plse, pg, xs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _hop_times17(results, tag, q, k, v, do, r, bounded, merged=True):
+    """One hop of the ring at its real shape (rank 0's queries against one
+    key block) timed in turns: the forward (_block_attention_with_lse), the
+    merge and the backward (_block_bwd), beside the forward's and the
+    backward's bounds; recorded under the kernels' ``tag``."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+    from hyvideo_prfl_torch.ops import ring_attention as ra
+
+    b, n, l, d = q.shape
+    lq = lk = l // r
+    qr, kr, vr, dor = q[:, :, :lq], k[:, :, lk:2 * lk], v[:, lk:2 * lk], do[:, :lq]
+    o, lse = ra._block_attention_with_lse(qr, kr, vr, bounded)
+    o16 = o.to(q.dtype)
+    fwd = ("K3" if fa.uses_single_block(lk) else "K1") if bounded else \
+        ("K3s" if fa.uses_single_block(lk) else "K2")
+    bwd = "K4" if merged else "K5"
+    t = timed_turns({"fwd": lambda: ra._block_attention_with_lse(qr, kr, vr, bounded),
+                     "merge": lambda: ra._merge(o, lse, o, lse),
+                     "bwd": lambda: fa.bwd_kernel(qr, kr, vr, o16, lse, dor, merged)},
+                    reps=3, calls=2)
+    bf = bound(2 * b * n * (lq + lk) * d * 2, bf16=4 * b * n * lq * lk * d)
+    bb = bound(b * n * d * 2 * (3 * lq + 4 * lk) + 8 * b * n * lq, bf16=10 * b * n * lq * lk * d)
+    print(f"  17b {tag}: one hop of {r}, [{b}, {n}, {lq:,} x {lk:,}, 128]: {fwd} {t['fwd']:.4f}"
+          f" ms ({bf['bound_ms'] / t['fwd']:.3f} of its {bf['bound_ms']:.4f} ms bound), the "
+          f"merge {t['merge']:.4f} ms, {bwd} {t['bwd']:.4f} ms ({bb['bound_ms'] / t['bwd']:.3f} "
+          f"of its {bb['bound_ms']:.4f} ms bound); {CARD}")
+    results[fwd][f"{tag}_hop_ms"] = t["fwd"]
+    results[fwd][f"{tag}_hop_bound_ms"] = bf["bound_ms"]
+    results[bwd][f"{tag}_hop_ms"] = t["bwd"]
+    results[bwd][f"{tag}_hop_bound_ms"] = bb["bound_ms"]
+    results[fwd][f"{tag}_merge_ms"] = t["merge"]
+    del o, o16, lse
+    torch.cuda.empty_cache()
+
+
+def _ring17(results, dev):
+    """17b: the ring on one card through the port's own ring functions with
+    a local rotation (r virtual ranks). The t2v-14B 720*1280, 81-frame USP
+    shard at ring 2 x Ulysses 4 on 8 GPUs: batch 2 (CFG), 10 heads, 37,800
+    queries a rank, 75,600 keys in 2 blocks (r = 2, K1 and K4 per hop) and
+    the same sequence over r = 4 (18,900 a rank); the shifted route (K2, and
+    K5 under HYV_FLASH_MERGED_BWD=0) at 18,900 tokens over r = 2; K3 hops
+    at t2v-1.3B's 21-frame self-attention (2 x 12 heads x 9,360) over r = 4
+    (2,340 keys a hop). Returns the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(172)
+
+    def qkv(b, n, l):
+        return (torch.randn(b, n, l, 128, device=dev, generator=g).bfloat16(),
+                torch.randn(b, n, l, 128, device=dev, generator=g).bfloat16(),
+                torch.randn(b, l, n, 128, device=dev, generator=g).bfloat16(),
+                torch.randn(b, l, n, 128, device=dev, generator=g).bfloat16())
+
+    total = {}
+    q, k, v, do = qkv(2, 10, 75_600)
+    for r in (2, 4):
+        launches = _ring_case17(f"r = {r}, [2, 10, 75,600, 128]", q, k, v, do, r, True)
+        expect(launches == {"K1": r * r, "K4": r * r},
+               f"17b r = {r}: launches {launches}, expected K1 and K4 {r} x {r}")
+        _add(total, launches)
+    _hop_times17(results, "ring17", q, k, v, do, 2, True)
+    del q, k, v, do
+    q, k, v, do = qkv(2, 10, 18_900)
+    fa.FLASH_MERGED_BWD = False
+    try:
+        launches = _ring_case17("shifted, r = 2, [2, 10, 18,900, 128]", q, k, v, do, 2, False)
+        expect(launches == {"K2": 4, "K5": 4}, f"17b shifted: launches {launches}")
+        _add(total, launches)
+        _hop_times17(results, "ring17_shifted", q, k, v, do, 2, False, merged=False)
+    finally:
+        fa.FLASH_MERGED_BWD = True
+    del q, k, v, do
+    q, k, v, do = qkv(2, 12, 9_360)
+    launches = _ring_case17("r = 4, [2, 12, 9,360, 128]", q, k, v, do, 4, True)
+    expect(launches.get("K3") == 16, f"17b K3 hops: launches {launches}")
+    _add(total, launches)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return total
+
+
+def _remat17(root, dev):
+    """17c: phase 7's config at 21 frames, two outer steps under remat
+    "attn" and two under "dots_all", from the same weights, data and
+    draws: the first step's reward the same (the forward does not depend
+    on remat) and its grad norm within 1% (K4's dq adds in run order); the
+    warm second step's times and the peak of each. Returns the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+
+    cli = load_script("train_prfl_torch")
+    lists, null_dir = write_latent_cache(os.path.join(root, "c17c"), (21,))
+    name, changes = PRFL_T2V
+    runs, total = {}, {}
+    for policy in ("attn", "dots_all"):
+        config = published(name, {**changes, "dataset.meta_file_list": [lists[21]],
+                                   "dataset.null_dir": null_dir, "model.remat_policy": policy,
+                                   "save.output_dir": os.path.join(root, f"out17c_{policy}")})
+        trainer, config, _ = _build_trainer(cli, config, dev)
+        expect(trainer.model.dit_cfg.remat_policy == policy, f"17c: remat {policy} not taken")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        m, warm = cli.run(trainer, 2)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        _add(total, dict(_build.LAUNCHES))
+        runs[policy] = m
+        print(f"  17c remat {policy!r}, 21 frames: first step reward {m['reward']:.6f}, "
+              f"grad_norm {m['grad_norm']:.6e}, t_refl {m['t_refl']:.3f} s, t_sft "
+              f"{m['t_sft']:.3f} s; second step t_refl {warm['t_refl']:.3f} s, t_sft "
+              f"{warm['t_sft']:.3f} s; peak {peak / 2**30:.2f} GiB; launches over both "
+              f"{dict(_build.LAUNCHES)}; {CARD}")
+        del trainer
+        torch.cuda.empty_cache()
+    a, d = runs["attn"], runs["dots_all"]
+    g = abs(d["grad_norm"] / a["grad_norm"] - 1)
+    expect(d["reward"] == a["reward"] and math.isfinite(d["sft_loss"]),
+           f"17c: dots_all's reward {d['reward']} is not attn's {a['reward']}")
+    expect(g <= 0.01, f"17c: dots_all's grad norm lies {g:.3e} from attn's")
+    print(f"  17c: reward equal; grad norm {g:.2e} relative apart (bound 0.01)")
+    return total
+
+
+def _clamp17(root, dev):
+    """17d: inference_torch.main --ring_size 2 on one card runs ring 1 (the
+    JAX clamp), and its latents are --ring_size 1's bit for bit. Returns
+    the launches."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import _build
+
+    cli = load_script("inference_torch")
+    lat, total = {}, {}
+    for ring in (2, 1):
+        save = os.path.join(root, f"ring{ring}.mp4")
+        _build.reset_launches()
+        rc, dt, _ = _timed(lambda: cli.main(
+            ["--task", "t2v-1.3B", "--size", SIZE, "--frame_num", "21", "--sample_steps", "2",
+             "--ring_size", str(ring), "--save_file", save, "--device", dev.type]), dev)
+        _add(total, dict(_build.LAUNCHES))
+        expect(rc == 0, f"17d: --ring_size {ring} exited {rc}")
+        lat[ring] = np.load(os.path.join(root, f"ring{ring}_latents.npy"))
+        print(f"  17d: inference_torch.main --ring_size {ring}, t2v-1.3B, 21 frames, 2 steps: "
+              f"{dt:.3f} s, latents {lat[ring].shape}; launches {dict(_build.LAUNCHES)}")
+    same = np.array_equal(lat[2], lat[1])
+    print(f"  17d: --ring_size 2 clamped to ring 1 on one card: latents bit for bit those of "
+          f"--ring_size 1: {same}")
+    expect(same and np.isfinite(lat[1]).all(), "17d: --ring_size 2 on one card differs")
+    torch.cuda.empty_cache()
+    return total
+
+
+def _logger17(root):
+    """17e: the trainers' metric logger writes TensorBoard scalars where
+    torch.utils.tensorboard imports, and keeps to log.txt otherwise."""
+    from hyvideo_prfl_torch.configs import config_from_dict
+    from hyvideo_prfl_torch.training import cli as tcli
+
+    log_dir = os.path.join(root, "logs17")
+    log = tcli.MetricLogger(config_from_dict({"save": {"log_dir": log_dir}}), root)
+    tensorboard = log.writer is not None
+    log.log({"step": 0, "refl_loss": 0.5}, 0, {"refl_loss": 0.5})
+    log.close()
+    events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents")]
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        lines = f.read().splitlines()
+    print(f"  17e: log.txt {lines}; "
+          + (f"TensorBoard event file {events}" if tensorboard else
+             "torch.utils.tensorboard does not import here: text only"))
+    expect(lines == [json.dumps({"step": 0, "refl_loss": 0.5})], "17e: log.txt")
+    expect(bool(events) == tensorboard, f"17e: event files {events}, writer {tensorboard}")
+
+
+def phase_rest(results, root, dev="cuda"):
+    """Phase 17: 17a LoRA PRFL training, 17b the ring on one card, 17c the
+    "dots_all" remat policy, 17d the serving CLI's --ring_size clamp, 17e
+    the metric logger. Returns the launches."""
+    import torch
+
+    dev = torch.device(dev)
+    total = {}
+    t0 = time.perf_counter()
+    _add(total, _lora17(root, dev))
+    print(f"  17a in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(total, _ring17(results, dev))
+    print(f"  17b in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(total, _remat17(root, dev))
+    print(f"  17c in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(total, _clamp17(root, dev))
+    print(f"  17d in {time.perf_counter() - t0:.1f} s")
+    _logger17(root)
+    return total
+
+
 def print_clocks(when: str) -> None:
     """The card's SM clock, its maximum, temperature and power draw as
     nvidia-smi reads them (a card that runs slow shows it here)."""
@@ -4772,11 +5210,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         multi_launches = phase_multi(results, root)
     print(f"  phase 16 launches {multi_launches}")
+    announce("phase 17: LoRA PRFL training, the ring on one card (r virtual ranks), the "
+             "dots_all remat policy, the serving CLI's --ring_size clamp, the metric logger")
+    with tempfile.TemporaryDirectory() as root:
+        rest_launches = phase_rest(results, root)
+    print(f"  phase 17 launches {rest_launches}")
 
     launches = {}
     for part in (serve_launches, train_launches, route_launches, probe_launches,
                  unnormed_launches, i2v_launches, pavrm_launches, encoder_launches,
-                 solver_launches, preprocess_launches, multi_launches):
+                 solver_launches, preprocess_launches, multi_launches, rest_launches):
         _add(launches, part)
     expect(all(launches.get(k, 0) > 0 for k in KERNELS), f"a kernel never launched: {launches}")
     print_clocks("at the end")

@@ -25,16 +25,43 @@ def _xavier(shape, generator):
     return (torch.rand(shape, generator=generator, device=generator.device) * 2.0 - 1.0) * bound
 
 
+class _Dense(nn.Module):
+    """A flax Dense in its own orientation: ``x @ kernel + bias``, kernel [in, out]."""
+
+    def __init__(self, d_in: int, d_out: int, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(d_in, d_out, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+
+    def forward(self, x):
+        b = x.shape[:-1]
+        return (x.reshape(-1, x.shape[-1]) @ self.kernel + self.bias).reshape(*b, -1)
+
+
+def _fp32_layernorm(x, eps: float = 1e-6):
+    """LayerNorm without an affine, in fp32 (the JAX _fp32_layernorm)."""
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
 class QueryAttention(nn.Module):
     """Learnable-query attention pooling over [B, L, D] features
     (multi-head, fp32). ``return_type="query"`` adds the mean query to the
-    pooled output; dropout is omitted (every shipped config sets 0)."""
+    pooled output; dropout is omitted (every shipped config sets 0). The
+    JAX pool's options, off in every shipped config: ``layer_norm``
+    normalises the features and the pooled output (no affine), and
+    ``product_text`` multiplies the output by ``text_proj`` of a [B,
+    text_dim] text embedding when one is given."""
 
     def __init__(self, feature_dim: int, num_queries: int = 1, num_heads: int = 8,
-                 return_type: Optional[str] = None, device=None):
+                 return_type: Optional[str] = None, device=None, layer_norm: bool = False,
+                 product_text: bool = False, text_dim: int = 768):
         super().__init__()
         d = feature_dim
         self.num_queries, self.num_heads, self.return_type = num_queries, num_heads, return_type
+        self.layer_norm, self.product_text = layer_norm, product_text
 
         def p(*shape):
             return nn.Parameter(torch.zeros(*shape, device=device))
@@ -42,6 +69,7 @@ class QueryAttention(nn.Module):
         self.queries = p(num_queries, d)
         self.wq, self.wk, self.wv, self.wo = p(d, d), p(d, d), p(d, d), p(d, d)
         self.bq, self.bk, self.bv, self.bo = p(d), p(d), p(d), p(d)
+        self.text_proj = _Dense(text_dim, d, device) if product_text else None
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator):
@@ -51,14 +79,17 @@ class QueryAttention(nn.Module):
             w.copy_(_xavier(tuple(w.shape), generator))
         for name in ("bq", "bk", "bv", "bo"):
             getattr(self, name).zero_()
+        if self.text_proj is not None:
+            self.text_proj.kernel.copy_(_xavier(tuple(self.text_proj.kernel.shape), generator))
+            self.text_proj.bias.zero_()
         return self
 
-    def forward(self, x):
+    def forward(self, x, text=None):
         # Every product is a 2D one: torch.matmul picks the kernel of a
         # batched product by whether an operand requires grad, so the trained
         # tower (whose weights do) and the same weights loaded for scoring
         # would round apart.
-        x = x.float()
+        x = _fp32_layernorm(x) if self.layer_norm else x.float()
         b, l, d = x.shape
         nh, nq = self.num_heads, self.num_queries
         hd = d // nh
@@ -70,8 +101,12 @@ class QueryAttention(nn.Module):
         attended = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b * nq, d)
         attended = (attended @ self.wo + self.bo).reshape(b, nq, d)
         out = attended.mean(dim=1) if nq > 1 else attended[:, 0]
+        if self.layer_norm:
+            out = _fp32_layernorm(out)
         if self.return_type == "query":
             out = out + self.queries.mean(dim=0)[None]
+        if self.product_text and text is not None:
+            return self.text_proj(text.float()) * out
         return out
 
 

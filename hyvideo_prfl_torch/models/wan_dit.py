@@ -27,10 +27,12 @@ passes ``bounded_logits=cfg.qk_norm``. ``cross_attn_norm=False`` drops the
 affine norm3 before the cross-attention (no K8 there).
 
 Training features: per-block activation checkpointing (``cfg.remat``,
-policies "full" and "attn") and the feature taps the reward model reads
-(``output_features``). The state dict keys follow the JAX parameter tree
-(``blocks.{i}.self_attn.q`` for ``params/blocks/self_attn/q`` at layer i),
-with torch's [out, in] weight layout.
+policies "full", "attn", "dots" and "dots_all", the JAX package's), the
+LoRA factors training attaches (``merged_weight``) and the feature taps
+the reward model reads (``output_features``). The state dict keys follow
+the JAX parameter tree (``blocks.{i}.self_attn.q`` for
+``params/blocks/self_attn/q`` at layer i), with torch's [out, in] weight
+layout.
 
 The int8 serving path: ``cfg.quant_dense = "int8"`` makes the ten block
 matmuls (self and cross q/k/v/o, ``ffn_0``, ``ffn_2``; twelve with the
@@ -53,14 +55,16 @@ tokens (``k_img``/``v_img``, int8 under ``quant_dense``, with the RMSNorm
 TeaCache (ops/teacache.py, inference only): ``skip_blocks`` replaces the
 block stack by ``h + residual_in``, and ``output_residual`` also returns
 the time embedding e (the gate's input) and the stack's residual (out -
-in, fp32). Not ported yet: the "dots" remat policies.
+in, fp32).
 
 Sequence parallelism (``parallel/sharding.set_sequence_parallel``): with
 an sp group of more than one rank each rank holds a contiguous block of
 the tokens from the patch embedding to the head, with the rope tables
 sliced to it; the time embedding and the context stay replicated. The
 self-attention goes through ``ulysses_attention`` (K6's head-major q and
-k exchanged as they are); the cross-attention, image branch included, is
+k exchanged as they are), or under USP (a ring in the sp group)
+``usp_attention``: Ulysses over the Ulysses ranks, ring attention over
+the ring; the cross-attention, image branch included, is
 the plain call on the rank's queries against the replicated context. A
 video-layout input is split after patchify and the head's output
 gathered before unpatchify (the JAX
@@ -82,9 +86,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention, ulysses_attention
+from ..ops.attention import dot_product_attention
 from ..ops.qknorm_rope import rmsnorm_only, rmsnorm_rope
 from ..ops.quant import int8_dense, quantize_weight
+from ..ops.ring_attention import usp_attention
 from ..ops.rope import rope_rotate
 from ..ops.stream import ln_scale_shift
 from .rope import rope_tables_rolled_np
@@ -120,7 +125,8 @@ class WanConfig:
     # activation checkpointing per block while gradients are on: "full"
     # recomputes the whole block in the backward; "attn" keeps the flash
     # attention's saved tensors and recomputes only the segments between
-    # the attention calls, so the backward never re-runs K1/K3
+    # the attention calls, so the backward never re-runs K1/K3; "dots"
+    # and "dots_all" keep the matmul outputs and recompute the rest
     remat: bool = True
     remat_policy: str = "full"
     # "int8": the block matmuls run as W8A8 int8 GEMMs (serving and the
@@ -248,12 +254,25 @@ def _block_linear(cfg: WanConfig, in_f, out_f, device, dtype):
     return _linear(in_f, out_f, device, dtype)
 
 
+def merged_weight(layer: nn.Linear) -> torch.Tensor:
+    """The layer's weight [out, in] in its storage dtype, with its LoRA
+    factors merged where training attached them (training/lora.py): W +
+    (A @ B)^T, the product in fp32 and cast to W's dtype before the
+    add, as the JAX ``apply_lora`` merges inside the loss. Differentiable
+    in A and B; W is frozen."""
+    a = getattr(layer, "lora_A", None)
+    if a is None:
+        return layer.weight
+    w = layer.weight
+    return w + (a.float() @ layer.lora_B.float()).t().to(w.dtype)
+
+
 def _dense(layer, x, dtype):
     """The layer in `dtype`, whatever its storage: masters cast at use; an
     int8 layer quantizes x in `dtype` and writes `dtype`."""
     if isinstance(layer, QuantLinear):
         return layer(x.to(dtype))
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    return F.linear(x.to(dtype), merged_weight(layer).to(dtype), layer.bias.to(dtype))
 
 
 def _param(*shape, device):
@@ -317,8 +336,8 @@ class SelfAttention(_Attention):
         qk_int8 = self.cfg.quant_attn == "int8"
         if self.sp is not None:
             qk_norm = self.cfg.qk_norm
-            return ulysses_attention(q, k, v, self.sp, qk_layout="bnld" if qk_norm else "blnd",
-                                     bounded_logits=qk_norm, qk_int8=qk_int8 and qk_norm)
+            return usp_attention(q, k, v, self.sp, qk_layout="bnld" if qk_norm else "blnd",
+                                 bounded_logits=qk_norm, qk_int8=qk_int8 and qk_norm)
         return super().attend(q, k, v, qk_int8=qk_int8)
 
 
@@ -420,6 +439,9 @@ class WanBlock(nn.Module):
             return self._body(x, e6, context, c_tab, s_tab, _call)
         if cfg.remat_policy == "full":
             return _ckpt(self._body, x, e6, context, c_tab, s_tab, _call)
+        if cfg.remat_policy in _SAVED_MATMULS:
+            return _ckpt(self._body, x, e6, context, c_tab, s_tab, _call,
+                         policy=cfg.remat_policy)
         return self._body(x, e6, context, c_tab, s_tab, _ckpt)
 
 
@@ -427,18 +449,48 @@ def _call(fn, *args):
     return fn(*args)
 
 
-def _ckpt(fn, *args):
+def _ckpt(fn, *args, policy=None):
     # Launch counts under remat: the backward re-runs a checkpointed
     # segment's forward up to its last op that saved a tensor (early stop).
     # Under "attn" that re-runs, per block, the K8 launches (three, two
     # without norm3) and the self q/k and cross q K6 launches, plus the
     # cross k K6 when the context needs a gradient (un-normed: the two R
     # launches of the self q/k); never the attention forward. Under "full"
-    # it re-runs the whole block.
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    # it re-runs the whole block, and under "dots"/"dots_all" the whole
+    # block but its matmuls, whose outputs the forward kept.
+    if policy is None:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(
+                          _saves(_SAVED_MATMULS[policy])))
 
 
-REMAT_POLICIES = ("full", "attn")
+def _saves(ops):
+    """A selective-checkpoint policy: keep the outputs of ``ops`` (names of
+    aten ops), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    keep = {getattr(torch.ops.aten, name).default for name in ops}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+# The JAX policies that keep matmul outputs (jax.checkpoint_policies):
+# "dots" is dots_with_no_batch_dims_saveable, which in this model keeps
+# every dense layer's output (a Dense is a dot with no batch dimension:
+# jax.ad_checkpoint.print_saved_residuals lists the block's ten dense
+# outputs beside its input); "dots_all" is dots_saveable, which also keeps
+# batched products. The attention and norm kernels are not matmuls under
+# either (custom calls in JAX, ctypes launches here): they re-run as under
+# "full". On the CPU the plain attention's batched products make the only
+# difference between the two.
+_SAVED_MATMULS = {"dots": ("mm", "addmm"), "dots_all": ("mm", "addmm", "bmm", "baddbmm")}
+REMAT_POLICIES = ("full", "attn", *_SAVED_MATMULS)
 
 
 class Head(nn.Module):

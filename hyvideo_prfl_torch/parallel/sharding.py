@@ -17,7 +17,11 @@ with two all-to-alls (ops/attention.ulysses_attention); the text/image
 cross-attention runs each rank's queries against the replicated context
 (the plain call, no collective); token-wise ops need nothing. ``gather``
 rebuilds the full token axis where every token meets: the head's output,
-the reward model's feature taps.
+the reward model's feature taps. Serving under USP (``build_mesh``'s
+``ring_size``; the JAX ``make_usp_mesh`` and ``usp_policy``) splits the
+sp axis into (ring, ulysses), ring the slower: the tokens lie over both
+jointly, the all-to-all runs over the Ulysses ranks and ring attention
+(ops/ring_attention.py) rotates the keys over the ring ranks.
 
 The gradients' convention: every rank runs the loss on the gathered,
 replicated tensors, and ``gather``'s backward is a reduce-scatter (a sum
@@ -55,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS, SP_AXIS = "data", "sp"
+RING_AXIS, ULYSSES_AXIS = "ring", "ulysses"  # the sp axis under USP, ring the slower
 FSDP_STRATEGIES = ("full", "hybrid_full", "shard_grad_op", "hybrid_zero2", "none")
 
 
@@ -97,13 +102,24 @@ def init_distributed(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class SeqParallel:
-    """One sp group: this rank holds tokens [rank * L/size, (rank + 1) * L/size)."""
+    """One sp group: this rank holds tokens [rank * L/size, (rank + 1) * L/size).
+
+    Under USP (``ring``, an ops/ring_attention.DistRing) the group's ranks
+    form ring x Ulysses, rank r * ulysses + u being ring rank r and Ulysses
+    rank u: the all-to-all runs over ``ulysses_group`` and the key/value
+    rotation over the ring."""
 
     group: Any
     size: int
     rank: int
     # Ulysses head chunks (--ulysses_chunks); None reads HYV_ULYSSES_CHUNKS
     chunks: Optional[int] = None
+    ring: Any = None
+    ulysses_group: Any = None
+
+    @property
+    def ulysses_size(self) -> int:
+        return self.size // self.ring.size if self.ring is not None else self.size
 
     def shard(self, x: torch.Tensor, dim: int, grid=None) -> torch.Tensor:
         """This rank's block of ``x``'s token axis ``dim`` (a view; its
@@ -121,10 +137,12 @@ class SeqParallel:
         return _Gather.apply(x, self.group, self.size, dim)
 
     def all_to_all(self, x: torch.Tensor, scatter_dim: int, gather_dim: int) -> torch.Tensor:
-        """Split ``scatter_dim`` into ``size`` blocks, send block i to rank
-        i and concatenate what arrives along ``gather_dim``, in rank order;
-        differentiable (the backward is the inverse exchange)."""
-        return _AllToAll.apply(x, self.group, self.size, scatter_dim, gather_dim)
+        """Split ``scatter_dim`` into ``ulysses_size`` blocks, send block i
+        to Ulysses rank i and concatenate what arrives along ``gather_dim``,
+        in rank order; differentiable (the backward is the inverse
+        exchange)."""
+        group = self.group if self.ring is None else self.ulysses_group
+        return _AllToAll.apply(x, group, self.ulysses_size, scatter_dim, gather_dim)
 
 
 def _all_to_all(x, group, size, scatter_dim, gather_dim):
@@ -168,7 +186,9 @@ class _Gather(torch.autograd.Function):
 
 @dataclasses.dataclass
 class Mesh:
-    """The ("data", "sp") process mesh; the default is one process."""
+    """The ("data", "sp") process mesh; the default is one process. Under
+    USP the sp axis is (ring, ulysses) with ring the slower: ``ring`` > 1
+    and ``usp`` the DeviceMesh (data, ring, ulysses)."""
 
     data: int = 1
     sp: int = 1
@@ -177,6 +197,8 @@ class Mesh:
     device_mesh: Any = None  # DeviceMesh (data, sp), None without a process group
     flat: Any = None  # DeviceMesh over all ranks
     chunks: Optional[int] = None
+    ring: int = 1
+    usp: Any = None
 
     @property
     def world(self) -> int:
@@ -203,7 +225,13 @@ class Mesh:
         """The sp group of this rank, None at sp 1."""
         if self.sp == 1:
             return None
-        return SeqParallel(self.group(SP_AXIS), self.sp, self.sp_rank, self.chunks)
+        if self.ring == 1:
+            return SeqParallel(self.group(SP_AXIS), self.sp, self.sp_rank, self.chunks)
+        from ..ops.ring_attention import DistRing
+
+        return SeqParallel(self.group(SP_AXIS), self.sp, self.sp_rank, self.chunks,
+                           ring=DistRing(self.usp.get_group(RING_AXIS)),
+                           ulysses_group=self.usp.get_group(ULYSSES_AXIS))
 
     def rows(self, x):
         """This data replica's rows of a global-batch tensor."""
@@ -233,23 +261,30 @@ class Mesh:
             dist.barrier(group=self.group("world"))
 
 
-def build_mesh(sp_size: int, device, chunks: Optional[int] = None) -> Mesh:
+def build_mesh(sp_size: int, device, chunks: Optional[int] = None,
+               ring_size: int = 1) -> Mesh:
     """The mesh of the running process group (one process: ``Mesh()``):
-    sp = min(sp_size, world), data = world // sp."""
+    Ulysses u = min(sp_size, world), ring r = min(ring_size, world // u)
+    (the JAX serving CLI's clamps), sp = r u and data = world // sp."""
     device = torch.device(device)
     if not dist.is_initialized():
         return Mesh(device=device, chunks=chunks)
     from torch.distributed.device_mesh import init_device_mesh
 
     world, rank = dist.get_world_size(), dist.get_rank()
-    sp = max(1, min(int(sp_size or 1), world))
+    uly = max(1, min(int(sp_size or 1), world))
+    ring = max(1, min(int(ring_size or 1), world // uly))
+    sp = uly * ring
     if world % sp:
         raise ValueError(f"world size {world} does not divide by the sp degree {sp}")
     data = world // sp
     dm = init_device_mesh(device.type, (data, sp), mesh_dim_names=(DATA_AXIS, SP_AXIS))
     flat = init_device_mesh(device.type, (world,), mesh_dim_names=("world",))
+    usp = (init_device_mesh(device.type, (data, ring, uly),
+                            mesh_dim_names=(DATA_AXIS, RING_AXIS, ULYSSES_AXIS))
+           if ring > 1 else None)
     return Mesh(data=data, sp=sp, rank=rank, device=device, device_mesh=dm, flat=flat,
-                chunks=chunks)
+                chunks=chunks, ring=ring, usp=usp)
 
 
 def fsdp_strategy_from(config) -> str:

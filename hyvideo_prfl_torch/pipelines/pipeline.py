@@ -14,9 +14,10 @@ TeaCache's step skipping (ops/teacache.py), whatever the solver says, as
 the JAX package does. The pipeline returns latents; the CLIs decode them
 with ``models.vae.decode`` after the DiT is freed.
 
-Under sequence parallelism (the model's ``sp`` group) each rank keeps its
-block of the tokens through the whole chain, as the JAX ``token_cells``
-policy does: the noise and ``y`` are patchified whole, each rank takes
+Under sequence parallelism (the model's ``sp`` group; under USP its ring
+x Ulysses ranks, as the JAX ``usp_policy`` shards the token cells over
+both) each rank keeps its block of the tokens through the whole chain, as
+the JAX ``token_cells`` policy does: the noise and ``y`` are patchified whole, each rank takes
 its block, the DiT's token-layout forward returns that block, and the
 latents are gathered once at the end. TeaCache's gate reads the
 replicated time embedding, so every rank skips the same steps.

@@ -1,8 +1,9 @@
 """What the two training CLIs (scripts/train_prfl_torch.py and
-scripts/train_pavrm_torch.py) share: the refusal of the options the port
-lacks, the device and the process mesh (``torchrun --nproc_per_node N``:
-one process per GPU, NCCL; gloo under --device cpu), the data stream of a
-resumed run, the JSON log lines (rank 0's) and the command line."""
+scripts/train_pavrm_torch.py) share: the device and the process mesh
+(``torchrun --nproc_per_node N``: one process per GPU, NCCL; gloo under
+--device cpu), the data stream of a
+resumed run, the metrics (rank 0's JSON log lines and TensorBoard
+scalars) and the command line."""
 
 from __future__ import annotations
 
@@ -22,14 +23,9 @@ def exists(path) -> bool:
     return bool(path) and os.path.exists(path)
 
 
-def start(config, device, **asks) -> torch.device:
-    """Raise NotImplementedError for a config option the port lacks
-    (``asks``: {description: whether the config asks for it}), then join
-    the torchrun process group and return this process's device, leaving
-    when CUDA is missing."""
-    missing = [name for name, on in asks.items() if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {'; '.join(missing)}")
+def start(config, device) -> torch.device:
+    """Join the torchrun process group and return this process's device,
+    leaving when CUDA is missing (an unknown FSDP strategy fails first)."""
     sharding.fsdp_strategy_from(config)  # an unknown strategy fails before the build
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -66,22 +62,47 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def log_path(config, out_dir: str) -> str:
-    """<save.log_dir or out_dir/logs>/log.txt, its directories made."""
-    os.makedirs(out_dir, exist_ok=True)
-    log_dir = config.save.log_dir or os.path.join(out_dir, "logs")
-    os.makedirs(log_dir, exist_ok=True)
-    return os.path.join(log_dir, "log.txt")
+class MetricLogger:
+    """Rank 0's metrics: one JSON line a record to stdout and to
+    ``<save.log_dir or out_dir/logs>/log.txt``, and TensorBoard scalars in
+    the same directory where ``torch.utils.tensorboard`` imports (the JAX
+    MetricLogger's tags: ``<prefix>/<key>``, ``train`` for the steps and
+    ``val_t<t>`` for an evaluation). Without TensorBoard it logs one line
+    and keeps to the text, as the JAX logger does; other ranks write
+    nothing."""
 
+    def __init__(self, config, out_dir: str, main: bool = True):
+        self.main, self.writer = main, None
+        log_dir = config.save.log_dir or os.path.join(out_dir, "logs")
+        self.path = os.path.join(log_dir, "log.txt")
+        if not main:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            logging.info("tensorboard unavailable; logging to text only")
+            return
+        self.writer = SummaryWriter(log_dir)
 
-def log_line(path: str, record, main: bool = True) -> None:
-    """One JSON line to stdout and to the log file (rank 0's only)."""
-    if not main:
-        return
-    line = json.dumps(record)
-    print(line, flush=True)
-    with open(path, "a") as f:
-        f.write(line + "\n")
+    def log(self, record, step: int, scalars, prefix: str = "train") -> None:
+        """``record`` as a JSON line; ``scalars`` ({key: number}) as the
+        scalars ``<prefix>/<key>`` at ``step``."""
+        if not self.main:
+            return
+        line = json.dumps(record)
+        print(line, flush=True)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")
+        if self.writer is not None:
+            for key, value in scalars.items():
+                self.writer.add_scalar(f"{prefix}/{key}", float(value), step)
+            self.writer.flush()
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
 
 
 def main(build_trainer, run, argv=None):

@@ -17,13 +17,26 @@ way when a reference-format LoRA is read (``lora_from_state_dict`` with
 and merges into a reference state dict, whose attention keys are the same.
 
 Serving merges a LoRA before the weights are quantized to int8: an int8
-model has no float weight to merge into. LoRA training is not ported.
+model has no float weight to merge into.
+
+Training (``model.lora.use_lora``): ``lora_init`` draws the tree as the
+JAX package does (A ~ N(0, std), B = 0, so the first merge changes
+nothing), and ``attach_lora`` freezes the DiT and gives each targeted
+``nn.Linear`` its block's factors as parameters ``lora_A`` [in, r] and
+``lora_B`` [r, out]. The DiT's dense call then merges them into the
+weight at every use (models/wan_dit.merged_weight: the JAX ``apply_lora``
+inside the loss, differentiable in A and B only), so the factors sit in
+the same module, and under FSDP2 in the same unit, as the weight they
+change, and the trainer's state, optimizer moments and EMA hold them
+alone. ``lora_tree`` reads the stacked tree back from parameters by name,
+``split_lora_state`` takes it out of a full state dict and
+``merged_state`` adds it to the base for a checkpoint.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +44,10 @@ import torch
 from ..utils.checkpoint import rope_perm_full
 
 DEFAULT_TARGETS = ("q", "k", "v", "o")  # configs/train_*.yaml target_modules
+
+# the attention projections a LoRA may target, per block
+ATTNS = ("self_attn", "cross_attn")
+_PARAM = re.compile(r"^blocks\.(\d+)\.(self_attn|cross_attn)\.(q|k|v|o)\.lora_([AB])$")
 
 _KEY = re.compile(r"(?:transformer\.)?blocks[._](\d+)[._](self_attn|cross_attn)[._]"
                   r"(q|k|v|o)\.(?:lora_A|lora_down|lora_B|lora_up)\.weight$")
@@ -101,7 +118,7 @@ def lora_state_dict(lora: Dict, fmt: str = "transformer",
 def lora_from_jax(tree_np: Dict) -> Dict:
     """The JAX package's factor tree (numpy leaves; already in the half
     rope layout) -> the port's (fp32 CPU tensors)."""
-    return {"lora": {attn: {m: {k: torch.from_numpy(np.asarray(v, np.float32))
+    return {"lora": {attn: {m: {k: torch.from_numpy(np.array(v, np.float32))
                                 for k, v in ab.items()}
                             for m, ab in mods.items()}
                      for attn, mods in tree_np["lora"].items()}}
@@ -134,3 +151,90 @@ def merge_lora(model: torch.nn.Module, lora: Dict, scale: float = 1.0) -> torch.
                          "weights to merge into")
     merge_lora_state(dict(model.named_parameters()), lora, scale)
     return model
+
+
+def lora_init(model: torch.nn.Module, rank: int = 128,
+              target_modules: Sequence[str] = DEFAULT_TARGETS, std: float = 0.01,
+              generator: Optional[torch.Generator] = None) -> Dict:
+    """The factor tree of a WanModel's targeted attention projections (the
+    JAX ``lora_init``): A ~ N(0, std) [L, in, r] and B = 0 [L, r, out],
+    fp32 on the model's device, for each of ``target_modules`` in every
+    block's self- and cross-attention (the image keys ``k_img``/``v_img``
+    are never targets)."""
+    blocks = model.blocks
+    device = next(model.parameters()).device
+    out: Dict = {}
+    for attn in ATTNS:
+        sub = {}
+        for m in target_modules:
+            if m not in ("q", "k", "v", "o"):
+                continue
+            layer = getattr(getattr(blocks[0], attn), m)
+            dout, din = layer.weight.shape
+            a = torch.randn((len(blocks), din, rank), generator=generator, device=device,
+                            dtype=torch.float32) * std
+            sub[m] = {"A": a, "B": torch.zeros((len(blocks), rank, dout), device=device,
+                                                 dtype=torch.float32)}
+        out[attn] = sub
+    return {"lora": out}
+
+
+def attach_lora(model: torch.nn.Module, lora: Dict) -> torch.nn.Module:
+    """Freeze every parameter of a float WanModel and give each targeted
+    projection of block i the trainable ``lora_A`` = A[i], ``lora_B`` =
+    B[i] (copies, fp32, on the weight's device); returns the model."""
+    if getattr(model.cfg, "quant_dense", None):
+        raise ValueError("LoRA trains a float model; an int8 model has no float weights")
+    model.requires_grad_(False)
+    for attn, mods in lora["lora"].items():
+        for m, ab in mods.items():
+            if ab["A"].shape[0] != len(model.blocks):
+                raise ValueError(f"the LoRA has {ab['A'].shape[0]} blocks, the model "
+                                 f"{len(model.blocks)}")
+            for i, block in enumerate(model.blocks):
+                layer = getattr(getattr(block, attn), m)
+                dev = layer.weight.device
+                layer.lora_A = torch.nn.Parameter(ab["A"][i].to(dev, torch.float32).clone())
+                layer.lora_B = torch.nn.Parameter(ab["B"][i].to(dev, torch.float32).clone())
+    return model
+
+
+def is_lora_name(name: str) -> bool:
+    return _PARAM.match(name) is not None
+
+
+def lora_tree(named: Dict[str, torch.Tensor]) -> Dict:
+    """{``blocks.i.attn.m.lora_A``/``_B``: tensor} (the trainable
+    parameters by name, or their gathered copies, e.g. the EMA's) -> the
+    stacked factor tree; other names are passed over."""
+    per: Dict = {}
+    for name, t in named.items():
+        hit = _PARAM.match(name)
+        if hit:
+            i, attn, m, which = int(hit.group(1)), hit.group(2), hit.group(3), hit.group(4)
+            per.setdefault((attn, m), {}).setdefault(which, {})[i] = t.detach()
+    out: Dict = {}
+    for (attn, m), ab in per.items():
+        out.setdefault(attn, {})[m] = {w: torch.stack([ab[w][i] for i in range(len(ab[w]))])
+                                       for w in ("A", "B")}
+    return {"lora": out}
+
+
+def split_lora_state(state: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """A WanModel state dict with LoRA factors attached -> (the base state
+    without them, their stacked tree)."""
+    base = {k: v for k, v in state.items() if not is_lora_name(k)}
+    return base, lora_tree({k: v for k, v in state.items() if is_lora_name(k)})
+
+
+def merged_state(base: Dict[str, torch.Tensor], lora: Dict) -> Dict[str, torch.Tensor]:
+    """A copy of the base state with the tree merged (``merge_lora_state``;
+    the JAX trainer's saved ``apply_lora(params, lora)``)."""
+    out = dict(base)
+    for attn, mods in lora["lora"].items():
+        for m, ab in mods.items():
+            for i in range(ab["A"].shape[0]):
+                key = f"blocks.{i}.{attn}.{m}.weight"
+                out[key] = out[key].clone()
+    merge_lora_state(out, lora)
+    return out

@@ -41,6 +41,12 @@ the same branch.
 int8 serving path (W8A8 block matmuls and the int8 q k^T self-attention,
 K10); the gradient-carrying forward, the LRM and the SFT step stay bf16
 with fp32 masters.
+
+LoRA (the JAX ``lora_mode``): with factors attached to the policy
+(training/lora.attach_lora) the base is frozen and every policy call,
+the rollout's included, merges them into the weights it reads, so both
+steps train A and B alone; the int8 rollout quantizes the merged weights.
+The frozen LRM is a model of its own and carries no factors.
 """
 
 from __future__ import annotations
@@ -120,7 +126,9 @@ def int8_rollout_model(model: PrflModel):
     Every tensor that is not quantized is the policy's own fp32 master, so
     the rollout always sees the live weights there; the JAX package
     re-derives the same tensors from the live parameters every step. The
-    QuantLinear buffers are refilled from the masters once per refl step."""
+    QuantLinear buffers are refilled from the masters once per refl step,
+    with a LoRA's factors merged in (the JAX step quantizes the merged
+    parameters)."""
     qcfg = dataclasses.replace(model.dit_cfg, quant_dense="int8", quant_attn="int8")
     device = next(model.dit.parameters()).device
     qdit = wan_dit.WanModel(qcfg, device=device, param_dtype=torch.float32)
@@ -179,7 +187,7 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer,
             # the int8 weights follow the live masters: quantized in place,
             # once per step, before the rollout reads them
             for qlayer, layer in quant_pairs:
-                qlayer.quantize_(layer.weight, layer.bias)
+                qlayer.quantize_(wan_dit.merged_weight(layer), layer.bias)
             latent, solver_state = unipc.rollout(
                 sched, lambda x, t: velocity(x, t, rollout_dit), latent0_t, num_steps=mid)
 

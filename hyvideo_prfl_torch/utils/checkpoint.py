@@ -175,7 +175,10 @@ def reward_heads_from_jax(q_tree: Dict, m_tree: Dict) -> Dict[str, torch.Tensor]
     the MLP's kernels transpose to torch's [out, in])."""
     q = q_tree["params"] if "params" in q_tree else q_tree
     m = m_tree["params"] if "params" in m_tree else m_tree
-    state = {f"q_attn.{k}": _t(np.asarray(v)) for k, v in q.items()}
+    state = {f"q_attn.{k}": _t(np.asarray(v)) for k, v in q.items() if k != "text_proj"}
+    if "text_proj" in q:  # the pool's product_text Dense, in its own orientation
+        state.update({f"q_attn.text_proj.{k}": _t(np.asarray(v))
+                      for k, v in q["text_proj"].items()})
     for name, node in m.items():
         state[f"mlp.{name}.weight"] = _t(np.asarray(node["kernel"]).T)
         state[f"mlp.{name}.bias"] = _t(node["bias"])
@@ -452,18 +455,21 @@ def query_attention_to_reference(q_state: Dict[str, torch.Tensor]
                                  ) -> Dict[str, torch.Tensor]:
     """QueryAttention state (queries, w*/b*) -> queries and multihead_attn.*"""
     q = {k: v.detach().cpu().float() for k, v in q_state.items()}
-    return {"queries": q["queries"],
-            "multihead_attn.in_proj_weight": torch.cat([q["wq"].T, q["wk"].T, q["wv"].T]),
-            "multihead_attn.in_proj_bias": torch.cat([q["bq"], q["bk"], q["bv"]]),
-            "multihead_attn.out_proj.weight": q["wo"].T.contiguous(),
-            "multihead_attn.out_proj.bias": q["bo"]}
+    out = {"queries": q["queries"],
+           "multihead_attn.in_proj_weight": torch.cat([q["wq"].T, q["wk"].T, q["wv"].T]),
+           "multihead_attn.in_proj_bias": torch.cat([q["bq"], q["bk"], q["bv"]]),
+           "multihead_attn.out_proj.weight": q["wo"].T.contiguous(),
+           "multihead_attn.out_proj.bias": q["bo"]}
+    if "text_proj.kernel" in q:  # product_text: a torch Linear in the reference
+        out["text_proj.weight"] = q["text_proj.kernel"].T.contiguous()
+        out["text_proj.bias"] = q["text_proj.bias"]
+    return out
 
 
 def query_attention_from_reference(state: Dict[str, torch.Tensor]
                                    ) -> Dict[str, torch.Tensor]:
-    """The inverse. A ``text_proj`` (the reference's product_text option,
-    on in no shipped config) is not read: the pool has none, as the JAX
-    pool uses none without product_text."""
+    """The inverse; a ``text_proj`` (the pool's product_text option, on in
+    no shipped config) comes across too."""
     w_in, b_in = state["multihead_attn.in_proj_weight"].float(), \
         state["multihead_attn.in_proj_bias"].float()
     d = w_in.shape[1]
@@ -473,6 +479,9 @@ def query_attention_from_reference(state: Dict[str, torch.Tensor]
         out[f"b{name}"] = b_in[i * d:(i + 1) * d].contiguous()
     out["wo"] = state["multihead_attn.out_proj.weight"].float().T.contiguous()
     out["bo"] = state["multihead_attn.out_proj.bias"].float()
+    if "text_proj.weight" in state:
+        out["text_proj.kernel"] = state["text_proj.weight"].float().T.contiguous()
+        out["text_proj.bias"] = state["text_proj.bias"].float()
     return out
 
 

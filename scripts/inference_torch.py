@@ -21,6 +21,8 @@ distributions).
         --clip_path models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth
     torchrun --nproc_per_node 4 scripts/inference_torch.py --task t2v-14B \
         --size 1280*720 --ulysses_size 4 [--ulysses_chunks 2] ...
+    torchrun --nproc_per_node 8 scripts/inference_torch.py --task t2v-14B \
+        --size 1280*720 --ulysses_size 4 --ring_size 2 ...
 
 Several GPUs (torchrun, one process each, NCCL): the blocks' weights are
 sharded over all ranks with FSDP2 in their bf16 storage, each block's
@@ -30,8 +32,12 @@ the embeddings and the head stay whole, so TeaCache's gate reads them),
 ``--ulysses_chunks`` head chunks, the cross-attention on each rank's
 queries against the whole context; the latent width widens until the tokens
 divide, as in the JAX CLI), and the world // ulysses_size replicas all
-answer every request; rank 0 decodes and writes. ``--ring_size`` > 1
-(ring attention and USP) raises NotImplementedError.
+answer every request; rank 0 decodes and writes. ``--ring_size`` r
+splits the tokens over r x ``--ulysses_size`` ranks (USP: ring attention
+rotates the keys over the r ring ranks, ops/ring_attention.py), clamped
+to world // ulysses_size as in the JAX CLI (one GPU runs ring 1);
+``--quant_attn int8`` with ``--ring_size`` > 1 warns and keeps bf16
+attention, as the JAX CLI does.
 
 The weights: ``--transformer_path`` (a post-trained DiT in the reference
 safetensors layout, as ``utils/checkpoint.save_reference_dir`` and the
@@ -180,7 +186,8 @@ def args_init(argv=None):
     p.add_argument("--ulysses_size", type=int, default=1,
                    help="ranks that split the tokens (Ulysses sequence parallelism)")
     p.add_argument("--ring_size", type=int, default=1,
-                   help="ring attention degree (not ported: > 1 raises)")
+                   help="ring attention degree (USP: ring x ulysses ranks split the "
+                        "tokens); clamped to world // ulysses_size")
     p.add_argument("--ulysses_chunks", type=int,
                    default=int(os.environ.get("HYV_ULYSSES_CHUNKS", "1")),
                    help="head chunks of the Ulysses all-to-all exchange")
@@ -209,9 +216,10 @@ def args_init(argv=None):
         args.sample_steps = 40 if "i2v" in args.task else 50
     if args.sample_shift is None:
         args.sample_shift = 3.0 if ("i2v" in args.task and "480" in args.size) else 5.0
-    if args.ring_size > 1:
-        raise NotImplementedError(f"--ring_size {args.ring_size}: ring attention and USP "
-                                  "(ops/ring_attention.py of the JAX package) are not ported")
+    if args.quant_attn == "int8" and args.ring_size > 1:
+        logging.warning("--quant_attn int8 needs ring_size 1 (pure Ulysses); keeping bf16 "
+                        "attention")
+        args.quant_attn = "none"
     if args.base_seed < 0:
         args.base_seed = random.randint(0, 2**31 - 1)
     if args.prompt is not None and not args.t5_path:
@@ -531,7 +539,8 @@ def main(argv=None):
     args = args_init(argv)
     logging.basicConfig(level=logging.INFO)
     device = sharding.init_distributed(check_device(torch.device(args.device)))
-    mesh = sharding.build_mesh(args.ulysses_size, device, chunks=args.ulysses_chunks)
+    mesh = sharding.build_mesh(args.ulysses_size, device, chunks=args.ulysses_chunks,
+                               ring_size=args.ring_size)
     if mesh.world > 1:
         # every rank answers with rank 0's seed (--base_seed -1 draws one)
         seed = [args.base_seed]

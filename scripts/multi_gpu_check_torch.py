@@ -18,7 +18,15 @@ also runs each check alone, unsharded, and compares:
    (data 1, sp = world) and, for four ranks, (data 2, sp 2), against the
    one-card step on the global batch; seconds per step on each side;
 4. a 2-step UniPC sample at ulysses = world, blocks sharded, against the
-   one-card sample.
+   one-card sample;
+5. USP (``usp_attention``: ring attention over 2 ring ranks, Ulysses over
+   world / 2) forward and backward against the one-card attention, as 1;
+6. a 2-step UniPC sample at ring 2 x ulysses world / 2 (the serving CLI's
+   ``--ring_size 2 --ulysses_size world/2``), blocks sharded, against the
+   one-card sample;
+7. the teacher-student collectives (``parallel/teacher_student.py``):
+   each rank's value swapped with its partner's, the teacher's broadcast
+   within each pair, both halves' gathered.
 
 Prints one JSON line of the numbers (rank 0). Exits non-zero when a check
 fails.
@@ -42,7 +50,8 @@ from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.ops import _build  # noqa: E402
 from hyvideo_prfl_torch.ops import flash_attention as fa  # noqa: E402
 from hyvideo_prfl_torch.ops.attention import dot_product_attention, ulysses_attention  # noqa: E402
-from hyvideo_prfl_torch.parallel import sharding  # noqa: E402
+from hyvideo_prfl_torch.ops.ring_attention import usp_attention  # noqa: E402
+from hyvideo_prfl_torch.parallel import sharding, teacher_student  # noqa: E402
 from hyvideo_prfl_torch.pipelines import pipeline  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
 from hyvideo_prfl_torch.training import common, prfl  # noqa: E402
@@ -76,9 +85,11 @@ class Check:
             print(f"  {key}: {value}{text}", flush=True)
 
 
-def check_ulysses(mesh, dev, lq, ck):
-    """1: Ulysses fwd + bwd at sp = world against the whole sequence."""
-    sp = sharding.build_mesh(mesh.world, dev).seq()
+def check_ulysses(mesh, dev, lq, ck, ring=1):
+    """1: Ulysses fwd + bwd at sp = world against the whole sequence; 5:
+    with ``ring`` 2, USP (ring 2 x Ulysses world / 2)."""
+    sp = sharding.build_mesh(mesh.world // ring, dev, ring_size=ring).seq()
+    tag = "ulysses" if ring == 1 else "usp"
     g = torch.Generator(device=dev).manual_seed(1)
     n = 12
     q, k = (torch.randn(1, n, lq, 128, device=dev, generator=g).bfloat16() for _ in range(2))
@@ -86,7 +97,8 @@ def check_ulysses(mesh, dev, lq, ck):
     do = torch.randn(1, lq, n, 128, device=dev, generator=g).bfloat16()
     leaves = [sp.shard(x, dim).detach().clone().requires_grad_()
               for x, dim in ((q, 2), (k, 2), (v, 1))]
-    o = ulysses_attention(*leaves, sp, "bnld", bounded_logits=True)
+    o = (ulysses_attention(*leaves, sp, "bnld", bounded_logits=True) if ring == 1
+         else usp_attention(*leaves, sp, "bnld", bounded_logits=True))
     grads = torch.autograd.grad(o, leaves, sp.shard(do, 1))
     with torch.no_grad():
         got = [sp.gather(o, 1)] + [sp.gather(gr, dim) for gr, dim in zip(grads, (2, 2, 1))]
@@ -97,12 +109,18 @@ def check_ulysses(mesh, dev, lq, ck):
         same = torch.equal(got[0], ref[0])
         errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
                 for a, b in zip(got, ref)]
-        ck.note("ulysses_out_bitwise", same)
-        ck.note("ulysses_rel_max_err", [round(e, 6) for e in errs], " (o, dq, dk, dv)")
-        # each head's attention is the same kernel on the same rows: o the
-        # same bits; dq, dk, dv within two bf16 ulps of their largest entry
-        ck.expect(same, "ulysses forward differs from the one-card attention")
-        ck.expect(all(e <= 2.0 ** -6 for e in errs[1:]), f"ulysses gradients {errs}")
+        ck.note(f"{tag}_out_bitwise", same)
+        ck.note(f"{tag}_rel_max_err", [round(e, 6) for e in errs], " (o, dq, dk, dv)")
+        if ring == 1:
+            # each head's attention is the same kernel on the same rows: o the
+            # same bits; dq, dk, dv within two bf16 ulps of their largest entry
+            ck.expect(same, "ulysses forward differs from the one-card attention")
+            ck.expect(all(e <= 2.0 ** -6 for e in errs[1:]), f"ulysses gradients {errs}")
+        else:
+            # the ring merges bf16 hop outputs in fp32: o within two bf16 ulps
+            # of max|o|, the gradients (a bf16 partial a hop) within four
+            ck.expect(errs[0] <= 2.0 ** -6 and all(e <= 2.0 ** -5 for e in errs[1:]),
+                      f"usp errors {errs}")
 
 
 def _dit(cfg, dev, seed):
@@ -194,8 +212,9 @@ def check_steps(mesh_sp, dev, cfg, shape, ck, world):
                       and rel[1] <= 1e-2, f"{key}: metrics {got} against {ref}")
 
 
-def check_sample(mesh, dev, cfg, shape, ck):
-    """4: 2 UniPC steps at ulysses = world against one card."""
+def check_sample(mesh, dev, cfg, shape, ck, ring=1):
+    """4: 2 UniPC steps at ulysses = world against one card; 6: with
+    ``ring`` 2, at ring 2 x ulysses world / 2."""
     g = torch.Generator(device=dev).manual_seed(8)
     ctx = torch.randn(1, TEXT_LEN, cfg.text_dim, device=dev, generator=g)
     null = torch.randn(1, TEXT_LEN, cfg.text_dim, device=dev, generator=g) * 0.1
@@ -204,7 +223,8 @@ def check_sample(mesh, dev, cfg, shape, ck):
     model = _dit(cfg, dev, 9)
     if ck.main:
         ref = pipeline.WanT2V(model).generate(None, ctx, null, *shape[1:4], gen, noise=noise)
-    sharding.shard_for_serving(model, sharding.build_mesh(mesh.world, dev))
+    sharding.shard_for_serving(model, sharding.build_mesh(mesh.world // ring, dev,
+                                                          ring_size=ring))
     _sync(dev)
     t0 = time.perf_counter()
     got = pipeline.WanT2V(model).generate(None, ctx, null, *shape[1:4], gen, noise=noise)
@@ -212,8 +232,28 @@ def check_sample(mesh, dev, cfg, shape, ck):
     secs = time.perf_counter() - t0
     if ck.main:
         rel = _rel(got, ref)
-        ck.note("sample_rel_l2", rel, f" ({secs:.3f} s for 2 steps sharded)")
-        ck.expect(bool(torch.isfinite(got).all()) and rel <= 2e-2, f"sample {rel} apart")
+        tag = "sample" if ring == 1 else "usp_sample"
+        ck.note(f"{tag}_rel_l2", rel, f" ({secs:.3f} s for 2 steps sharded)")
+        ck.expect(bool(torch.isfinite(got).all()) and rel <= 2e-2, f"{tag} {rel} apart")
+
+
+def check_teacher_student(dev, ck):
+    """7: swap, broadcast from the teacher and gather of each rank's value."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    ts = teacher_student.make_ts_groups()
+    x = torch.full((3,), float(rank), device=dev)
+    got = torch.cat([teacher_student.ts_unit_swap(x, ts)[:1],
+                     teacher_student.broadcast_from_teacher(x, ts)[:1],
+                     teacher_student.all_gather_ts(x, ts)[:, 0]])
+    parts = [torch.empty_like(got) for _ in range(world)]
+    dist.all_gather(parts, got)
+    if ck.main:
+        half = world // 2
+        want = [[(r + half) % world, r % half + half, r % half, r % half + half]
+                for r in range(world)]
+        seen = [[int(v) for v in p.tolist()] for p in parts]
+        ck.note("teacher_student", seen, " (swap, broadcast, gathered student and teacher)")
+        ck.expect(seen == want, f"teacher-student collectives {seen}, expected {want}")
 
 
 def main(argv=None):
@@ -246,7 +286,10 @@ def main(argv=None):
     for name, fn in (("ulysses", lambda: check_ulysses(mesh, dev, lat_f * h * w // 4, ck)),
                      ("forward", lambda: check_forward(mesh, dev, cfg, shape, ck)),
                      ("steps", lambda: check_steps(mesh, dev, cfg, step_shape, ck, world)),
-                     ("sample", lambda: check_sample(mesh, dev, cfg, shape, ck))):
+                     ("sample", lambda: check_sample(mesh, dev, cfg, shape, ck)),
+                     ("usp", lambda: check_ulysses(mesh, dev, lat_f * h * w // 4, ck, ring=2)),
+                     ("usp sample", lambda: check_sample(mesh, dev, cfg, shape, ck, ring=2)),
+                     ("teacher-student", lambda: check_teacher_student(dev, ck))):
         if ck.main:
             print(f"{name} (at {time.perf_counter() - t0:.1f} s)", flush=True)
         fn()

@@ -147,7 +147,7 @@ def export_lrm_artifacts(model: PavrmModel, out_dir: str, step: int,
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     """``steps`` more steps; returns their metrics."""
     config = trainer.config
-    log = cli.log_path(config, trainer.out_dir)
+    logger = cli.MetricLogger(config, trainer.out_dir, trainer.mesh.is_main)
     dev, mesh = trainer.device, trainer.mesh
     history = []
     for step in range(trainer.step, trainer.step + steps):
@@ -161,7 +161,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
         cli.sync(dev)
         metrics = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                    "acc": float(m["acc"]), "step_time": time.perf_counter() - t0}
-        cli.log_line(log, metrics, mesh.is_main)
+        logger.log(metrics, step, {k: v for k, v in metrics.items() if k != "step"})
         if (step + 1) % 100 == 0:
             health = common.validate_params(trainer.model)
             if not health["finite"]:
@@ -184,8 +184,12 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
                 for key, val in evaluate(trainer.eval_fn, trainer.val_dataset,
                                          config.eval.timestep, int(config.eval.seed), dev,
                                          int(config.eval.get("batch_size") or 8)).items():
-                    cli.log_line(log, {"step": step + 1, "val": key, **val}, mesh.is_main)
+                    # the scalars are the JAX trainer's: the classification metrics
+                    scalars = {k: v for k, v in val.items() if k != "mean_reward"}
+                    logger.log({"step": step + 1, "val": key, **val}, step + 1, scalars,
+                               prefix=f"val_t{key[2:]}")
         history.append(metrics)
+    logger.close()
     trainer.step += steps
     return history
 

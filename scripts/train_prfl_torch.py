@@ -45,8 +45,14 @@ refl step's ``pred_x0`` and ``latent_next`` go to ``save.sanity_check_dir``
 ``extra_model.vae.params_path`` (a reference ``.pth``, ``Wan2.1_VAE.pth``;
 streamed one latent frame at a time), written as mp4 or, without a
 writer, uint8 ``_frames.npy``; as latents ``.npy`` where no VAE is given,
-as the JAX trainer does. LoRA raises NotImplementedError, as does
-``train.rollout_quant: int8`` with a process group. ``train.rollout_quant:
+as the JAX trainer does. ``model.lora.use_lora`` trains rank
+``lora_rank`` factors of ``target_modules`` (the self- and cross-attention
+q/k/v/o) on a frozen base (training/lora.py): the optimizer moments and
+the EMA hold the factors alone, a checkpoint is the merged DiT with the
+factors beside it in three key formats, and a resumed LoRA run takes that
+merged DiT as its base under fresh factors, as the JAX trainer does.
+``train.rollout_quant: int8`` with a process group raises
+NotImplementedError. ``train.rollout_quant:
 int8`` runs the no-grad rollout through the int8 serving path (W8A8 block
 matmuls, int8 q k^T self-attention), as the JAX trainer does. An i2v or
 flf2v task (``i2v-1.3b``, ``i2v-14b-480p``, ...) conditions every step on
@@ -74,12 +80,17 @@ from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.parallel import sharding  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
 from hyvideo_prfl_torch.training import cli, common, ema as ema_mod  # noqa: E402
+from hyvideo_prfl_torch.training import lora as lora_mod  # noqa: E402
 from hyvideo_prfl_torch.training.pavrm import PavrmConfig  # noqa: E402
 from hyvideo_prfl_torch.training.prfl import (  # noqa: E402
     PrflConfig, PrflModel, make_refl_step, make_sft_step, parallelize,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
-from hyvideo_prfl_torch.utils import encoders, video_io  # noqa: E402
+from hyvideo_prfl_torch.utils import encoders, safetensors_io, video_io  # noqa: E402
+
+LORA_FORMATS = ("transformer", "kohya", "diffusers")
+# the JAX trainer's TensorBoard scalars, train/<key>
+TB_KEYS = ("refl_loss", "reward", "sft_loss", "grad_norm", "t_refl", "t_sft")
 
 
 @dataclasses.dataclass
@@ -97,13 +108,13 @@ class Trainer:
     ema: Any = None  # fp32 copies of the local parameter shards under model.ema.use_ema
     vae: Any = None  # the sanity decode's VAE (extra_model.vae.params_path)
     mesh: sharding.Mesh = dataclasses.field(default_factory=sharding.Mesh)
+    lora: bool = False  # model.lora.use_lora: the state holds the factors alone
 
 
 def build_trainer(config, device="cuda") -> Trainer:
     """Model (fp32 policy masters + frozen LRM, sharded over the mesh),
     optimizer, data, steps."""
-    device = cli.start(config, device, **{
-        "LoRA (model.lora.use_lora)": config.get_path("model.lora.use_lora")})
+    device = cli.start(config, device)
     mesh = cli.mesh_for(config, device)
     dit_cfg = dit_cfg_from(config)
     is_i2v = "i2v" in config.task or "flf2v" in config.task
@@ -139,6 +150,16 @@ def build_trainer(config, device="cuda") -> Trainer:
     else:
         logging.info("no base checkpoint; seeded JAX-initialiser weights")
         wan_dit.init_params(model.dit, torch.Generator(device=device).manual_seed(seed))
+    use_lora = bool(config.get_path("model.lora.use_lora"))
+    if use_lora:
+        # the base frozen, the factors trained (the JAX lora_init's seed + 1)
+        lora = config.model.lora
+        tree = lora_mod.lora_init(
+            model.dit, int(lora.lora_rank), tuple(lora.target_modules),
+            generator=torch.Generator(device=device).manual_seed(seed + 1))
+        lora_mod.attach_lora(model.dit, tree)
+        logging.info("LoRA rank %d on %s: the base is frozen", int(lora.lora_rank),
+                     list(lora.target_modules))
     if cli.exists(config.model.lrm_transformer_path):
         logging.info("loading the LRM from %s", config.model.lrm_transformer_path)
         model.lrm.load_reference(config.model.lrm_transformer_path, config.model.lrm_mlp_path,
@@ -150,7 +171,10 @@ def build_trainer(config, device="cuda") -> Trainer:
     layout = parallelize(model, mesh, sharding.fsdp_strategy_from(config))
     tx = common.optimizer_from_config(config)
     state = common.init_train_state(model.dit, tx, layout, sharding.offload_from(config))
-    if cli.exists(resume) and os.path.isdir(os.path.join(resume, "opt_state")):
+    # a LoRA run resumes as the JAX trainer does: its merged checkpoint is
+    # the new base under fresh factors, with fresh moments and EMA
+    if cli.exists(resume) and os.path.isdir(os.path.join(resume, "opt_state")) \
+            and not use_lora:
         # the moments of train.save_optimizer_state and the step, which
         # counts the optimizer calls, two per outer step
         ck.load_opt_state(os.path.join(resume, "opt_state"), state)
@@ -161,7 +185,7 @@ def build_trainer(config, device="cuda") -> Trainer:
         # a resumed run from <out>/checkpoint-<n> continues <out>-ema/checkpoint-<n>
         head, tail = os.path.split(os.path.normpath(resume or "."))
         ema_dir = os.path.join(head + "-ema", tail)
-        if cli.exists(resume) and os.path.isdir(ema_dir):
+        if cli.exists(resume) and os.path.isdir(ema_dir) and not use_lora:
             saved = ck.load_reference_dir(ema_dir, dit_cfg)
             for name, p, e in zip(state.names, state.params, ema):
                 e.copy_(sharding.shard_of(saved[name], p))
@@ -183,27 +207,45 @@ def build_trainer(config, device="cuda") -> Trainer:
                    loader=loader, refl_fn=make_refl_step(model, tx, mesh),
                    sft_fn=make_sft_step(model, tx, fm.train_schedule(
                        sched_cfg.num_train_timesteps), mesh),
-                   out_dir=out_dir, seed=seed, step=start_step, ema=ema, vae=vae, mesh=mesh)
+                   out_dir=out_dir, seed=seed, step=start_step, ema=ema, vae=vae, mesh=mesh,
+                   lora=use_lora)
 
 
 def save_checkpoint(trainer: Trainer, step: int) -> None:
     """The policy in the reference layout at <out>/checkpoint-<step>, its
     optimizer state under train.save_optimizer_state, and the EMA at
-    <out>-ema/checkpoint-<step>: gathered on every rank, written by rank 0."""
+    <out>-ema/checkpoint-<step>: gathered on every rank, written by rank 0.
+    Under LoRA, as the JAX trainer saves: the base with the factors merged,
+    the factors alone beside it in the three key formats
+    (``lora_{transformer,kohya,diffusers}.safetensors``, the self-attention
+    q/k factors in the reference's rope layout), no optimizer state, and
+    the EMA's factors merged into the base."""
     config, model, state, mesh = trainer.config, trainer.model, trainer.state, trainer.mesh
     main = mesh.is_main
     full = sharding.full_state_dict(model.dit, main)
     opt = (common.gathered_opt_state(state, main)
-           if config.train.get("save_optimizer_state") else None)
+           if config.train.get("save_optimizer_state") and not trainer.lora else None)
     ema = (sharding.gather_to_host(trainer.ema, state.params, main)
            if trainer.ema is not None else None)
     if main:
-        path = ck.save_reference_dir(full, model.dit_cfg, trainer.out_dir, step)
+        cfg = model.dit_cfg
+        if trainer.lora:
+            base, tree = lora_mod.split_lora_state(full)
+            path = ck.save_reference_dir(lora_mod.merged_state(base, tree), cfg,
+                                         trainer.out_dir, step)
+            for fmt in LORA_FORMATS:
+                safetensors_io.write_file(
+                    lora_mod.lora_state_dict(tree, fmt, head_dim=cfg.head_dim),
+                    os.path.join(path, f"lora_{fmt}.safetensors"))
+        else:
+            path = ck.save_reference_dir(full, cfg, trainer.out_dir, step)
         if opt is not None:
             ck.save_opt_state(os.path.join(path, "opt_state"), opt)
         if ema is not None:
-            ema_state = {**full, **dict(zip(state.names, ema))}
-            ck.save_reference_dir(ema_state, model.dit_cfg, trainer.out_dir + "-ema", step)
+            named = dict(zip(state.names, ema))
+            ema_state = (lora_mod.merged_state(base, lora_mod.lora_tree(named))
+                         if trainer.lora else {**full, **named})
+            ck.save_reference_dir(ema_state, cfg, trainer.out_dir + "-ema", step)
         logging.info("saved %s", path)
     mesh.barrier()
 
@@ -226,7 +268,7 @@ def sanity_dump(trainer: Trainer, sanity_dir: str, step: int, m_refl) -> None:
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     """``steps`` more outer steps (refl then SFT); returns their metrics."""
     config = trainer.config
-    log = cli.log_path(config, trainer.out_dir)
+    logger = cli.MetricLogger(config, trainer.out_dir, trainer.mesh.is_main)
     sanity_dir = config.save.sanity_check_dir or os.path.join(trainer.out_dir, "sanity_check")
     interval = int(config.train.sanity_check_interval)
     dev, main = trainer.device, trainer.mesh.is_main
@@ -254,7 +296,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
                    "reward": float(m_refl["reward"]), "grad_norm": float(m_refl["grad_norm"]),
                    "sft_loss": float(m_sft["loss"]), "mid": int(m_refl["mid"]),
                    "t_refl": t_refl, "t_sft": t_sft}
-        cli.log_line(log, metrics, main)
+        logger.log(metrics, step, {k: metrics[k] for k in TB_KEYS})
         if (step + 1) % 100 == 0:
             health = common.validate_params(trainer.model.dit)
             if not health["finite"]:
@@ -262,6 +304,7 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
         if (step + 1) % int(config.train.save_interval) == 0:
             save_checkpoint(trainer, step + 1)
         history.append(metrics)
+    logger.close()
     trainer.step += steps
     return history
 

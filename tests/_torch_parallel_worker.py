@@ -27,11 +27,11 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
-from hyvideo_prfl_torch.ops import attention  # noqa: E402
-from hyvideo_prfl_torch.parallel import sharding  # noqa: E402
+from hyvideo_prfl_torch.ops import attention, ring_attention  # noqa: E402
+from hyvideo_prfl_torch.parallel import sharding, teacher_student  # noqa: E402
 from hyvideo_prfl_torch.pipelines import pipeline  # noqa: E402
 from hyvideo_prfl_torch.schedulers import flow_match as fm  # noqa: E402
-from hyvideo_prfl_torch.training import common, pavrm, prfl  # noqa: E402
+from hyvideo_prfl_torch.training import common, lora, pavrm, prfl  # noqa: E402
 from chip_smoke import Recording  # noqa: E402
 
 torch.set_num_threads(1)
@@ -42,12 +42,12 @@ STEPS, MID = 4, 1
 _MESHES = {}
 
 
-def mesh(sp: int) -> sharding.Mesh:
-    """One (data, sp) mesh per sp degree, built once (every rank builds
-    them in the same order)."""
-    if sp not in _MESHES:
-        _MESHES[sp] = sharding.build_mesh(sp, "cpu")
-    return _MESHES[sp]
+def mesh(sp: int, ring: int = 1) -> sharding.Mesh:
+    """One (data, sp) mesh per Ulysses and ring degree, built once (every
+    rank builds them in the same order)."""
+    if (sp, ring) not in _MESHES:
+        _MESHES[sp, ring] = sharding.build_mesh(sp, "cpu", ring_size=ring)
+    return _MESHES[sp, ring]
 
 
 def full(x, sp, dim=1):
@@ -88,6 +88,37 @@ def ulysses(inp, sp_size, chunks, layout):
             "dv": full(vl.grad, sp)}
 
 
+def usp(inp, uly, ring, chunks, bounded, layout="bnld"):
+    """USP attention (ring x Ulysses) forward and backward on this rank's
+    tokens, gathered."""
+    sp = dataclasses.replace(mesh(uly, ring).seq(), chunks=chunks)
+    assert sp.ring is not None and sp.ring.size == ring and sp.ulysses_size == uly
+    q, k, v, g = (t_(inp[n]) for n in ("uq", "uk", "uv", "ug"))
+    ql, kl, vl = (sp.shard(x, 1).clone().requires_grad_() for x in (q, k, v))
+    qa, ka = (ql.transpose(1, 2), kl.transpose(1, 2)) if layout == "bnld" else (ql, kl)
+    out = ring_attention.usp_attention(qa, ka, vl, sp, qk_layout=layout,
+                                       bounded_logits=bounded)
+    (out * sp.shard(g, 1)).sum().backward()
+    return {"out": full(out, sp), "dq": full(ql.grad, sp), "dk": full(kl.grad, sp),
+            "dv": full(vl.grad, sp)}
+
+
+def ts_collectives(inp):
+    """The teacher-student exchanges of each rank's row, gathered in rank order."""
+    ts = teacher_student.make_ts_groups()
+    x = t_(inp["ts_x"])[dist.get_rank()]
+    out = {"swap": teacher_student.ts_unit_swap(x, ts),
+           "bcast": teacher_student.broadcast_from_teacher(x, ts),
+           "gather": teacher_student.all_gather_ts(x, ts),
+           "ts_index": torch.tensor([float(teacher_student.is_teacher_half(ts.ts_index))])}
+    res = {}
+    for key, val in out.items():
+        parts = [torch.empty_like(val) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, val.contiguous())
+        res[key] = torch.stack(parts)
+    return res
+
+
 def token_parallel(inp):
     sp = mesh(2).seq()
     q = sp.shard(t_(inp["tq"]), 1).clone().requires_grad_()
@@ -124,8 +155,8 @@ def uneven(inp):
     return {"msg": np.array("no error")}
 
 
-def sample(inp):
-    model = sharding.shard_for_serving(dit_model(inp, None), mesh(2))
+def sample(inp, uly=2, ring=1):
+    model = sharding.shard_for_serving(dit_model(inp, None), mesh(uly, ring))
     gen = pipeline.GenerateConfig(sampling_steps=2, guide_scale=5.0, shift=5.0)
     out = pipeline.WanT2V(model).generate(None, t_(inp["ctx"]), t_(inp["ctx_null"]), 3, 8, 8,
                                           gen, noise=t_(inp["noise"]))
@@ -171,15 +202,18 @@ def rows(m, batch):
     return {k: m.rows(t_(v)) for k, v in batch.items()}
 
 
-def prfl_step(inp, sp, strategy="full", offload=False):
+def prfl_step(inp, sp, strategy="full", offload=False, use_lora=False):
     """One refl step and one SFT step (AdamW) with the JAX draws of the
-    global batch."""
+    global batch; with ``use_lora`` the factors of ``lora.*`` train on the
+    frozen base (each in its block's FSDP2 unit)."""
     m = mesh(sp)
     model = prfl.PrflModel(tiny_cfg(), pavrm.PavrmConfig(feature_layer=(2,),
                                                          trainable_blocks=(0, 1)),
                            prfl.PrflConfig(inference_steps=STEPS, fixed_mid=MID))
     model.dit.load_state_dict(weights(inp, "policy."))
     model.lrm.load_state_dict(weights(inp, "lrm."))
+    if use_lora:
+        lora.attach_lora(model.dit, lora.lora_tree(weights(inp, "lora.")))
     layout = prfl.parallelize(model, m, strategy)
     tx = Recording(common.make_optimizer(learning_rate=LR))
     state = common.init_train_state(model.dit, tx, layout, offload)
@@ -269,9 +303,18 @@ def cases(group, inp, out_dir):
             yield "dit_forward", lambda: dit_forward(inp)
             yield "sample", lambda: sample(inp)
             yield "serve_bf16", lambda: serve_bf16(inp)
+            for bounded in (True, False):
+                yield f"ring2_b{int(bounded)}", lambda b=bounded: usp(inp, 1, 2, 1, b)
+        else:
+            yield "ring4", lambda: usp(inp, 1, 4, 1, True)
+            yield "usp_r2u2_c1", lambda: usp(inp, 2, 2, 1, True)
+            yield "usp_r2u2_c2_shifted", lambda: usp(inp, 2, 2, 2, False, "blnd")
+            yield "usp_sample", lambda: sample(inp, 2, 2)
+            yield "ts", lambda: ts_collectives(inp)
     elif group == "train" and world == 2:
         yield "prfl_d1_sp2", lambda: prfl_step(inp, 2)
         yield "prfl_d2_sp1", lambda: prfl_step(inp, 1)
+        yield "prfl_d1_sp2_lora", lambda: prfl_step(inp, 2, use_lora=True)
         yield "prfl_d1_sp2_offload", lambda: prfl_step(inp, 2, offload=True)
         yield "pavrm_ce", lambda: pavrm_step(inp, "ce")
         yield "pavrm_bt", lambda: pavrm_step(inp, "bt")

@@ -311,9 +311,13 @@ def test_remat_policies_give_equal_grads():
 
 
 def test_dots_remat_policies_are_not_ported():
+    # the JAX package's four policies are ported ("dots"/"dots_all" give the
+    # other policies' gradients: tests/test_torch_remat_ring.py); a policy
+    # it lacks still raises
     for policy in ("dots", "dots_all"):
-        with pytest.raises(NotImplementedError, match=policy):
-            tdit.WanModel(dataclasses.replace(tdit.tiny_test(), remat_policy=policy))
+        assert tdit.WanModel(dataclasses.replace(tdit.tiny_test(), remat_policy=policy))
+    with pytest.raises(NotImplementedError, match="offload"):
+        tdit.WanModel(dataclasses.replace(tdit.tiny_test(), remat_policy="offload"))
 
 
 def _chip_smoke():

@@ -3,7 +3,10 @@
 The port's ranks run in spawned processes that import no JAX
 (tests/_torch_parallel_worker.py, started with torchrun's variables),
 once per world size for every case of this file: Ulysses attention at
-sp 2 and 4 (head chunks 1 and 2, head-major and token-major q/k), the
+sp 2 and 4 (head chunks 1 and 2, head-major and token-major q/k), ring
+attention at ring 2 and 4 and USP at ring 2 x Ulysses 2 (forward and
+backward; and a 2-step sample), the teacher-student collectives at
+world 4, the
 cross-attention on a token shard with the image keys, a 2-block DiT forward
 and a 2-step UniPC sample at sp 2 (blocks sharded with FSDP2), a served
 model's bf16 weights sharded as they are stored, and the uneven token
@@ -93,6 +96,7 @@ def _inputs():
     inp["ctx_null"] = rng.randn(1, 16, 64).astype(np.float32) * 0.1
     key = jax.random.PRNGKey(5)
     inp["noise"] = np.array(jax.random.normal(key, SHAPE, jnp.float32))
+    inp["ts_x"] = rng.randn(4, 3).astype(np.float32)
     return inp, tree, key
 
 
@@ -122,9 +126,32 @@ def run(tmp_path_factory):
                        tq, tk, tv, tki, tvi)
     ref["token_parallel"] = dict(zip(("out", "dq", "dk", "dv", "dki", "dvi"),
                                      map(np.asarray, (out, *vjp(jnp.asarray(inp["tg"]))))))
+    ref["ts"] = _jax_ts(inp["ts_x"])
     for procs in groups:
         wait_group(procs)
     return dirs, ref
+
+
+def _jax_ts(x):
+    """The JAX teacher-student collectives on a ("ts" 2, "data" 2, "sp" 1)
+    mesh of 4 devices, device (t, d) holding row 2 t + d -> each device's
+    result, in device order."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from hyvideo_prfl_tpu.parallel import teacher_student as jts
+
+    mesh = jts.make_ts_mesh(data=2, sp=1, devices=jax.devices()[:4])
+    spec = P(("ts", "data"), None)
+    out = {}
+    with jax.set_mesh(mesh):
+        xs = jax.device_put(jnp.asarray(x), NamedSharding(mesh, spec))
+        for key, fn in (("swap", jts.ts_unit_swap), ("bcast", jts.broadcast_from_teacher),
+                        ("gather", jts.all_gather_ts)):
+            y = np.asarray(jax.jit(jax.shard_map(
+                fn, mesh=jax.sharding.get_abstract_mesh(), in_specs=spec,
+                out_specs=P(("ts", "data")), check_vma=False))(xs))
+            # all_gather_ts gives each device [2, 1, 3]: both halves' rows
+            out[key] = y.reshape(4, 2, 3) if key == "gather" else y
+    return out
 
 
 def _read(d, name):
@@ -170,6 +197,37 @@ def test_ulysses_sample_matches_jax(run):
     got = _read(dirs[2], "sample")["out"]
     assert got.shape == SHAPE
     _close(got, ref["sample"], rel=1e-4)
+
+
+@pytest.mark.parametrize("world,name", [
+    (2, "ring2_b1"), (2, "ring2_b0"), (4, "ring4"), (4, "usp_r2u2_c1"),
+    (4, "usp_r2u2_c2_shifted")])
+def test_ring_attention_matches_jax(run, world, name):
+    """Ring attention (ring 2, ring 4: the bounded and the shifted forms)
+    and USP (ring 2 x Ulysses 2, head chunks 1 and 2, head-major and
+    token-major q/k), forward and backward, against the one-device JAX
+    attention, to the Ulysses cases' 1e-5 of each tensor's largest."""
+    dirs, ref = run
+    got = _read(dirs[world], name)
+    for key in ("out", "dq", "dk", "dv"):
+        _close(got[key], ref["ulysses"][key])
+
+
+def test_usp_sample_matches_jax(run):
+    """A 2-step UniPC sample at ring 2 x Ulysses 2 (blocks sharded over the
+    4 ranks) against the JAX one-device sample."""
+    dirs, ref = run
+    got = _read(dirs[4], "usp_sample")["out"]
+    assert got.shape == SHAPE
+    _close(got, ref["sample"], rel=1e-4)
+
+
+def test_teacher_student_collectives_match_jax(run):
+    dirs, ref = run
+    got = _read(dirs[4], "ts")
+    for key in ("swap", "bcast", "gather"):
+        np.testing.assert_array_equal(got[key], ref["ts"][key], err_msg=key)
+    np.testing.assert_array_equal(got["ts_index"].ravel(), [0, 0, 1, 1])
 
 
 def test_serving_shards_bf16_weights_as_stored(run):

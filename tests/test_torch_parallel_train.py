@@ -5,7 +5,8 @@ The ranks run in spawned processes that import no JAX
 size: at world 2 one refl + SFT step at (data 1, sp 2) and (data 2, sp 1),
 the first again with the optimizer state offloaded, a PAVRM ce and a bt
 step at sp 2, and scripts/train_prfl_torch.py saved and resumed at
-(data 2, sp 1); at world 4 the refl + SFT step at (data 2, sp 2) under
+(data 2, sp 1), and a LoRA refl + SFT step at (data 1, sp 2); at world 4
+the refl + SFT step at (data 2, sp 2) under
 each of the five FSDP strategies. Every step takes the JAX draws of the
 global batch (2 rows); the JAX one-device steps and the port's unsharded
 steps run here. The tolerances are tests/test_torch_training.py's against
@@ -32,8 +33,10 @@ from hyvideo_prfl_tpu.training import pavrm as jpavrm
 from hyvideo_prfl_tpu.training import prfl as jprfl
 from hyvideo_prfl_torch.configs import AttrDict, load_config
 from hyvideo_prfl_torch.models import wan_dit as tdit
+from hyvideo_prfl_torch.parallel import sharding as tsharding
 from hyvideo_prfl_torch.schedulers import flow_match as tfm
 from hyvideo_prfl_torch.training import common as tcommon
+from hyvideo_prfl_torch.training import lora as tlora
 from hyvideo_prfl_torch.training import pavrm as tpavrm
 from hyvideo_prfl_torch.training import prfl as tprfl
 from hyvideo_prfl_torch.utils import checkpoint as tck
@@ -120,8 +123,9 @@ def _prfl_jax(inp, policy, jmodel, lrm):
     return state.params, grads, {k: float(v) for k, v in metrics.items()}
 
 
-def _prfl_port(inp):
-    """The port's unsharded refl + SFT step on the global batch."""
+def _prfl_port(inp, use_lora=False):
+    """The port's unsharded refl + SFT step on the global batch (with
+    ``use_lora`` the factors of ``lora.*`` on the frozen base)."""
     model = tprfl.PrflModel(_tcfg(), tpavrm.PavrmConfig(feature_layer=(2,),
                                                         trainable_blocks=(0, 1)),
                             tprfl.PrflConfig(inference_steps=STEPS, fixed_mid=MID))
@@ -129,6 +133,9 @@ def _prfl_port(inp):
                                if k.startswith("policy.")})
     model.lrm.load_state_dict({k[4:]: torch.from_numpy(v) for k, v in inp.items()
                                if k.startswith("lrm.")})
+    if use_lora:
+        tlora.attach_lora(model.dit, tlora.lora_tree({k[5:]: torch.from_numpy(v) for k, v
+                                                      in inp.items() if k.startswith("lora.")}))
     tx = SMOKE.Recording(tcommon.make_optimizer(learning_rate=LR))
     state = tcommon.init_train_state(model.dit, tx)
     batch = {"latents": torch.from_numpy(inp["p_latents"]),
@@ -211,6 +218,16 @@ def run(tmp_path_factory):
                                tprfl.PrflConfig()).lrm
     inp.update({f"lrm.{k}": v.numpy() for k, v in tck.lrm_from_jax(
         lrm_dit, _np(qp), _np(mp), lrm_port.dit_cfg).items()})
+    # LoRA factors (rank 4) with a non-zero B, so that A has a gradient
+    tree = tlora.lora_init(tprfl.PrflModel(tcfg, tpavrm.PavrmConfig(feature_layer=(2,)),
+                                           tprfl.PrflConfig()).dit, rank=4,
+                           generator=torch.Generator().manual_seed(2))
+    for mods in tree["lora"].values():
+        for ab in mods.values():
+            ab["B"] = torch.from_numpy(rng.randn(*ab["B"].shape).astype(np.float32) * 0.02)
+    inp.update({f"lora.blocks.{i}.{attn}.{m}.lora_{w}": ab[w][i].numpy()
+                for attn, mods in tree["lora"].items() for m, ab in mods.items()
+                for w in ("A", "B") for i in range(TINY["num_layers"])})
     pav_steps = {}
     for loss in ("ce", "bt"):
         pinp, pav_steps[loss] = _pavrm_setup(loss)
@@ -224,12 +241,13 @@ def run(tmp_path_factory):
     jparams, jgrads, jmet = _prfl_jax(inp, policy, jmodel, {"dit": lrm_dit, "q": qp, "m": mp})
     pav = {loss: step() for loss, step in pav_steps.items()}
     port = _prfl_port(inp)
+    port_lora = _prfl_port(inp, use_lora=True)
     for procs in groups:
         wait_group(procs, timeout=600)
     want, gwant = (tck.from_jax_params(_np(tree), tcfg) for tree in (jparams, jgrads))
     return dirs, {"jax": ({k: v.numpy() for k, v in want.items()},
                           {k: v.numpy() for k, v in gwant.items()}, jmet),
-                  "port": port, "pavrm": pav}
+                  "port": port, "pavrm": pav, "port_lora": port_lora}
 
 
 def _read(d, name):
@@ -315,6 +333,25 @@ def test_sharded_gradients_match_jax(run, name):
         _, jgrads, _ = ref["pavrm"][name[6:]]
     assert set(got) == set(jgrads)
     _assert_grads(got, jgrads)
+
+
+def test_lora_step_under_fsdp2_matches_the_unsharded_one(run):
+    """LoRA at (data 1, sp 2) under "full": the factors sit in their
+    blocks' FSDP2 units beside the frozen base, only they are trainable and
+    reduced; the step's metrics, raw gradients and updated factors against
+    the port's unsharded LoRA step (only the sums' order differs)."""
+    _, ref = run
+    got = _prfl_out(run, "d1_sp2_lora")
+    pparams, pgrads, pmet = ref["port_lora"]
+    assert set(pparams) and all(tlora.is_lora_name(n) for n in pparams)
+    for key, want in pmet.items():
+        np.testing.assert_allclose(float(got[key]), want, rtol=1e-5, err_msg=key)
+    assert pmet["refl_gnorm"] > 0
+    grads = {k[5:]: v for k, v in got.items() if k.startswith("grad.")}
+    assert set(grads) == set(pgrads)
+    _assert_grads(grads, pgrads, rel=1e-5)
+    _assert_params({k[6:]: v for k, v in got.items() if k.startswith("param.")}, pparams,
+                   steps=2)
 
 
 @pytest.mark.parametrize("strategy", STRATEGIES[1:])
@@ -408,9 +445,19 @@ def test_720_configs_build(tmp_path, name):
     assert trainer.state.params and trainer.step == 0
 
 
-def test_ring_size_raises_naming_ring_attention():
+def test_ring_size_raises_naming_ring_attention(caplog):
+    """--ring_size no longer raises: it is accepted and clamped as the JAX
+    CLI clamps it (ring = min(ring_size, world // ulysses_size): one
+    process runs ring 1), and --quant_attn int8 beside a ring > 1 warns and
+    keeps bf16 attention, as in the JAX CLI."""
     cli = _load_script("inference_torch")
-    with pytest.raises(NotImplementedError, match="ring attention"):
-        cli.args_init(["--ring_size", "2", "--device", "cpu"])
+    args = cli.args_init(["--ring_size", "2", "--device", "cpu"])
+    assert args.ring_size == 2 and args.quant_attn == "none"
+    mesh = tsharding.build_mesh(args.ulysses_size, "cpu", ring_size=args.ring_size)
+    assert mesh.ring == 1 and mesh.sp == 1 and mesh.seq() is None
+    with caplog.at_level("WARNING"):
+        args = cli.args_init(["--ring_size", "2", "--quant_attn", "int8", "--device", "cpu"])
+    assert args.quant_attn == "none" and "keeping bf16" in caplog.text
+    assert cli.args_init(["--quant_attn", "int8", "--device", "cpu"]).quant_attn == "int8"
     args = cli.args_init(["--ulysses_size", "4", "--ulysses_chunks", "2", "--device", "cpu"])
     assert args.ulysses_size == 4 and args.ulysses_chunks == 2

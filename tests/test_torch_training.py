@@ -396,7 +396,9 @@ def test_cli_trains_two_steps_on_the_smoke_config(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    # LoRA still raises, an unknown FSDP strategy too; dataset.sp_size > 1
+    # an unknown FSDP strategy raises; LoRA builds (its factors the only
+    # trainable parameters; tests/test_torch_lora_train.py trains it
+    # against the JAX steps); dataset.sp_size > 1
     # (one process: sp clamps to 1, as the JAX build_mesh clamps it) and
     # optimizer-state offload build (tests/test_torch_parallel_train.py
     # runs them on gloo); EMA, resume, optimizer-state export, LRM loading
@@ -405,9 +407,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     # (tests/test_torch_vae.py)
     cli = _load_script("train_prfl_torch", os.path.join(REPO, "scripts", "train_prfl_torch.py"))
     cfg = _smoke_config(tmp_path)
-    cfg["model"]["lora"] = {"use_lora": True}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        cli.build_trainer(cfg, "cpu")
+    cfg.model.lora.use_lora = True
+    cfg.model.lora.lora_rank = 4
+    trainer = cli.build_trainer(cfg, "cpu")
+    assert trainer.lora and all(".lora_" in n for n in trainer.state.names)
     cfg = _smoke_config(tmp_path)
     cfg["model"]["fsdp"] = {"fsdp_sharding_startegy": "zero3"}
     with pytest.raises(ValueError, match="zero3"):
