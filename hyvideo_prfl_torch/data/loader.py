@@ -28,9 +28,12 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterator, Sequence
 
 import numpy as np
+
+from ..utils import tracing
 
 
 class BlockDistributedSampler:
@@ -139,7 +142,10 @@ class BatchIterator:
 def _read_ahead(gen, prefetch: int):
     """``gen``'s items, made up to ``prefetch`` ahead on a daemon thread
     named "BatchIterator" (inline without prefetch); an exception in the
-    thread is raised in the consumer."""
+    thread is raised in the consumer. The consumer counts its gets
+    (``loader.get``), those that found the queue empty (``loader.empty``)
+    and the nanoseconds it waited on them (``loader.wait_ns``) in the
+    tracer's counters (utils/tracing.py)."""
     if prefetch <= 0:
         yield from gen
         return
@@ -154,7 +160,14 @@ def _read_ahead(gen, prefetch: int):
 
     threading.Thread(target=worker, daemon=True, name="BatchIterator").start()
     while True:
-        item = q.get()
+        tracing.count("loader.get")
+        try:
+            item = q.get_nowait()
+        except queue.Empty:
+            tracing.count("loader.empty")
+            t0 = time.perf_counter_ns()
+            item = q.get()
+            tracing.count("loader.wait_ns", time.perf_counter_ns() - t0)
         if isinstance(item, BaseException):
             raise item
         yield item

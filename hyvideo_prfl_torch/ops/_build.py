@@ -11,7 +11,8 @@ the first kernel launch builds.
 Each C entry point takes device pointers, sizes and the CUDA stream, and
 returns the ``cudaError_t`` of its launch; ``check`` raises on anything
 but 0. ``LAUNCHES`` counts successful launches per kernel so a run can
-show its main path went through them.
+show its main path went through them: the tracer's counters
+``launch.<kernel>`` (utils/tracing.py), read by kernel name.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import os
 import shutil
 import subprocess
 import time
-from collections import Counter
 from pathlib import Path
+
+from hyvideo_prfl_torch.utils import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hyvideo_prfl_torch"
@@ -31,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Counter = Counter()
+LAUNCHES = tracing.Counts("launch.")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu)
@@ -152,7 +154,7 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().hyv_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: cudaError {err} ({msg})")
-    LAUNCHES[name] += 1
+    tracing.count("launch." + name)
 
 
 def stream_ptr(device) -> int:

@@ -12,7 +12,10 @@ channels, patchified once with the noise) and on the CLIP features; both
 ride along with the CFG pair. ``sample_teacache`` samples with UniPC and
 TeaCache's step skipping (ops/teacache.py), whatever the solver says, as
 the JAX package does. The pipeline returns latents; the CLIs decode them
-with ``models.vae.decode`` after the DiT is freed.
+with ``models.vae.decode`` after the DiT is freed. Each CFG forward is a
+``dit.forward`` span (utils/tracing.py), under the UniPC chain's
+``solver.model`` spans; the serving CLI's ``run_request`` opens a request's
+root span, ``serve.request``.
 
 Under sequence parallelism (the model's ``sp`` group; under USP its ring
 x Ulysses ranks, as the JAX ``usp_policy`` shards the token cells over
@@ -37,6 +40,7 @@ from ..ops import teacache as tc
 from ..schedulers import dpm
 from ..schedulers import flow_match as fm
 from ..schedulers import unipc
+from ..utils import tracing
 
 
 def latent_size_for(max_area: int, aspect: float, vae_stride=(4, 8, 8),
@@ -100,7 +104,8 @@ class WanPipeline:
         # first and last frame stay neighbours for MLPProj's reshape
         y2 = torch.cat([y, y], dim=0) if y is not None else None
         clip2 = torch.cat([clip_fea, clip_fea], dim=0) if clip_fea is not None else None
-        out = self.model(x2, t2, ctx2, y=y2, clip_fea=clip2, grid=grid)
+        with tracing.span("dit.forward"):
+            out = self.model(x2, t2, ctx2, y=y2, clip_fea=clip2, grid=grid)
         cond, uncond = out[:b], out[b:]
         return uncond + guide_scale * (cond - uncond)
 
@@ -194,9 +199,10 @@ class WanPipeline:
             skip, gate = tc.should_skip(gate, e, i, n, thresh, coeffs)
             skips.append(skip)
             t2 = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
-            out, _, res2 = self.model(torch.cat([x, x], dim=0), t2, ctx2, grid=grid,
-                                      skip_blocks=skip, residual_in=res2,
-                                      output_residual=True, **image2)
+            with tracing.span("dit.forward"):
+                out, _, res2 = self.model(torch.cat([x, x], dim=0), t2, ctx2, grid=grid,
+                                          skip_blocks=skip, residual_in=res2,
+                                          output_residual=True, **image2)
             cond, uncond = out[:b], out[b:]
             return uncond + gen.guide_scale * (cond - uncond), (gate, res2)
 

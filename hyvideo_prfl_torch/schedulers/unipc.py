@@ -24,6 +24,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 COEFF_NAMES = ("sigma", "gate_c", "a_c", "b_c", "c_c", "d_c", "a_p", "b_p", "c_p")
 
 
@@ -176,18 +178,23 @@ def rollout(schedule: UniPCSchedule, velocity_fn, x_init: torch.Tensor,
 
     extra_init: a caller's carry threaded through the chain (TeaCache's
     gate and residual caches). With it, velocity_fn(x, t, i, extra) ->
-    (v, extra), and rollout returns (x_final, state_final, extra_final)."""
+    (v, extra), and rollout returns (x_final, state_final, extra_final).
+
+    Each step is a ``solver.step`` span around a ``solver.model`` span (the
+    velocity call; utils/tracing.py)."""
     n = schedule.num_steps if num_steps is None else num_steps
     x = x_init.float()
     state = init_state(x)
     extra = extra_init
     for i in range(n):
-        t = float(schedule.timesteps[i])
-        if extra_init is None:
-            v = velocity_fn(x, t)
-        else:
-            v, extra = velocity_fn(x, t, i, extra)
-        x, state = _apply(schedule.row(i), state, v, x)
+        with tracing.span("solver.step"):
+            t = float(schedule.timesteps[i])
+            with tracing.span("solver.model"):
+                if extra_init is None:
+                    v = velocity_fn(x, t)
+                else:
+                    v, extra = velocity_fn(x, t, i, extra)
+            x, state = _apply(schedule.row(i), state, v, x)
     if extra_init is None:
         return x, state
     return x, state, extra

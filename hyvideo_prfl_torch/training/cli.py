@@ -95,9 +95,9 @@ class MetricLogger:
         with open(self.path, "a") as f:
             f.write(line + "\n")
         if self.writer is not None:
+            # the writer flushes on its own timer and in close()
             for key, value in scalars.items():
                 self.writer.add_scalar(f"{prefix}/{key}", float(value), step)
-            self.writer.flush()
 
     def close(self) -> None:
         if self.writer is not None:

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel import sharding
+from ..utils import tracing
 
 _CHUNK = 64  # parameters per foreach group: bounds the optimizer's temporaries
 
@@ -152,10 +153,11 @@ class Optimizer:
                 return
             grads = acc  # zeroed below, once the update has read it
         count = step // self.k  # optimizer updates before this one
-        norm = global_norm(grads, norm_group)
-        if not bool(norm < self.max_grad_norm):
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.max_grad_norm)
+        with tracing.span("optimizer.clip"):  # the norm and its host read
+            norm = global_norm(grads, norm_group)
+            if not bool(norm < self.max_grad_norm):
+                torch._foreach_div_(grads, norm)
+                torch._foreach_mul_(grads, self.max_grad_norm)
         bc1 = 1.0 - self.b1 ** (count + 1)
         bc2 = 1.0 - self.b2 ** (count + 1)
         head = opt_state.get("head", [False] * len(params))

@@ -20,6 +20,13 @@ The finite guard is the JAX package's: a non-finite loss zeroes the
 gradients, and the optimizer still applies that update (AdamW then still
 moves the weights through its moments and the weight decay).
 
+Each phase is a span (utils/tracing.py): the refl step's
+``prfl.rollout``, ``prfl.forward`` (the gradient-carrying forward and the
+solver step), ``prfl.lrm`` (score, sigmoid, hinge), ``prfl.backward`` and
+``prfl.optimizer``; the SFT step's ``sft.forward``, ``sft.backward`` and
+``sft.optimizer``; inside each optimizer span its two host reads,
+``optimizer.finite_guard`` and ``optimizer.clip`` (training/common.py).
+
 With ``is_i2v`` (and ``is_flf2v``) the batch's ``cond`` and ``clip_fea``
 condition every DiT call, as in the JAX package: ``y`` = the 4-channel mask
 and the 16-channel condition latent (patchified once in the refl step, in
@@ -61,6 +68,7 @@ from ..models import wan_dit
 from ..parallel import sharding
 from ..schedulers import flow_match as fm
 from ..schedulers import unipc
+from ..utils import tracing
 from . import common
 from .pavrm import PavrmConfig, PavrmModel
 
@@ -112,8 +120,9 @@ def parallelize(model: PrflModel, mesh: sharding.Mesh, strategy: str = "full"
 def _finish(state, tx, loss, mesh: Optional[sharding.Mesh] = None):
     """The finite guard on the replicas' mean loss, then one optimizer call
     -> (state, loss, gnorm)."""
-    loss = (mesh or sharding.Mesh()).mean_over_data(loss.detach())
-    finite = bool(torch.isfinite(loss))
+    with tracing.span("optimizer.finite_guard"):
+        loss = (mesh or sharding.Mesh()).mean_over_data(loss.detach())
+        finite = bool(torch.isfinite(loss))
     grads = common.collect_grads(state, finite)
     state, gnorm = common.apply_grads(state, tx, grads)
     return state, (loss.detach() if finite else torch.zeros_like(loss)), gnorm
@@ -183,7 +192,7 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer,
         def velocity(x, t, dit=model.dit):
             return dit(x, t, text, y=y_t, clip_fea=clip_fea, grid=grid)
 
-        with torch.no_grad():
+        with tracing.span("prfl.rollout"), torch.no_grad():
             # the int8 weights follow the live masters: quantized in place,
             # once per step, before the rollout reads them
             for qlayer, layer in quant_pairs:
@@ -191,16 +200,20 @@ def make_refl_step(model: PrflModel, tx: common.Optimizer,
             latent, solver_state = unipc.rollout(
                 sched, lambda x, t: velocity(x, t, rollout_dit), latent0_t, num_steps=mid)
 
-        v = velocity(latent, float(sched.timesteps[mid]))
-        latent_next, _ = unipc.unipc_step(sched, solver_state, v, latent)
+        with tracing.span("prfl.forward"):
+            v = velocity(latent, float(sched.timesteps[mid]))
+            latent_next, _ = unipc.unipc_step(sched, solver_state, v, latent)
 
-        t_mid1 = float(sched.timesteps[min(mid + 1, cfg.inference_steps - 1)])
-        logits = model.lrm.score(latent_next, t_mid1, text, y=y_t, clip_fea=clip_fea,
-                                 grid=grid)
-        reward = rw.reward_sigmoid(logits)[:, 0]
-        loss = rw.prfl_hinge_loss(reward, cfg.target_reward, cfg.hinge_scale)
-        loss.backward()
-        state, loss, gnorm = _finish(state, tx, loss, mesh)
+        with tracing.span("prfl.lrm"):
+            t_mid1 = float(sched.timesteps[min(mid + 1, cfg.inference_steps - 1)])
+            logits = model.lrm.score(latent_next, t_mid1, text, y=y_t, clip_fea=clip_fea,
+                                     grid=grid)
+            reward = rw.reward_sigmoid(logits)[:, 0]
+            loss = rw.prfl_hinge_loss(reward, cfg.target_reward, cfg.hinge_scale)
+        with tracing.span("prfl.backward"):
+            loss.backward()
+        with tracing.span("prfl.optimizer"):
+            state, loss, gnorm = _finish(state, tx, loss, mesh)
         # one-shot x0 estimate, for the sanity dumps
         sigma_mid1 = float(sched.sigmas[min(mid + 1, cfg.inference_steps)])
         with torch.no_grad():
@@ -238,13 +251,16 @@ def make_sft_step(model: PrflModel, tx: common.Optimizer, schedule: fm.FlowMatch
             noise = torch.randn((b, *latents.shape[1:]), generator=generator,
                                 dtype=torch.float32, device=latents.device)
         noise = mesh.rows(noise).to(latents.device, torch.float32)
-        noisy = fm.add_noise(latents, noise, sig5)
-        target = fm.train_target(latents, noise)
-        y, clip_fea = common.prepare_conditioning(batch, cfg.is_i2v, cfg.is_flf2v)
-        v = model.dit(noisy, t, batch["text"], y=y, clip_fea=clip_fea)
-        loss = torch.mean(fm.loss_weighting(sig5) * torch.square(v - target))
-        loss.backward()
-        state, loss, gnorm = _finish(state, tx, loss, mesh)
+        with tracing.span("sft.forward"):
+            noisy = fm.add_noise(latents, noise, sig5)
+            target = fm.train_target(latents, noise)
+            y, clip_fea = common.prepare_conditioning(batch, cfg.is_i2v, cfg.is_flf2v)
+            v = model.dit(noisy, t, batch["text"], y=y, clip_fea=clip_fea)
+            loss = torch.mean(fm.loss_weighting(sig5) * torch.square(v - target))
+        with tracing.span("sft.backward"):
+            loss.backward()
+        with tracing.span("sft.optimizer"):
+            state, loss, gnorm = _finish(state, tx, loss, mesh)
         return state, {"loss": loss, "grad_norm": gnorm}
 
     return sft_step

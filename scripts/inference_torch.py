@@ -95,12 +95,19 @@ runs the self-attention's q k^T on the int8 path (kernel K10) wherever
 its keys stream in several blocks. Either flag works alone.
 ``--offload_model``, ``--t5_fsdp``, ``--t5_cpu`` and ``--dit_fsdp`` are
 accepted and do nothing, as in the JAX CLI.
+
+With tracing on (``HYV_TRACE=1``, utils/tracing.py) each request prints
+one JSON line once its device work is done: ``record``, ``seed`` and
+``trace``, its spans (``serve.request``, ``solver.step``,
+``solver.model``, ``dit.forward``: calls, host and device milliseconds)
+and the counters' increments.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import random
@@ -125,7 +132,7 @@ from hyvideo_prfl_torch.pipelines.pipeline import (  # noqa: E402
 )
 from hyvideo_prfl_torch.training import lora as lora_mod  # noqa: E402
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
-from hyvideo_prfl_torch.utils import encoders, safetensors_io, video_io  # noqa: E402
+from hyvideo_prfl_torch.utils import encoders, safetensors_io, tracing, video_io  # noqa: E402
 from hyvideo_prfl_torch.utils.tokenizers import HuggingfaceTokenizer  # noqa: E402
 
 TASKS = ("t2v", "t2i", "i2v", "flf2v")
@@ -502,28 +509,30 @@ def image_conditions(args, records, vae, grid, device) -> List[Dict]:
 
 
 def run_request(pipe: WanT2V, req: Request, size: str) -> torch.Tensor:
-    """Latents [1, F, H, W, 16] fp32 for one request."""
-    sp = pipe.model.sp
-    lat_f, lat_h, lat_w = latent_grid(size, req.frame_num, sp.size if sp is not None else 1)
-    gen = GenerateConfig(sampling_steps=req.sample_steps, shift=req.sample_shift,
-                         guide_scale=req.guide_scale, sample_solver=req.sample_solver)
-    g = torch.Generator(device=req.context.device).manual_seed(req.seed)
-    if isinstance(pipe, WanI2V):
-        want = (1, lat_f, lat_h, lat_w, 16)
-        if tuple(req.cond_latent.shape) != want:
-            raise ValueError(f"cond_latent {tuple(req.cond_latent.shape)}, expected {want}")
-        return pipe.generate(g, req.context, req.context_null, req.clip_fea,
-                             req.cond_latent, gen)
-    if req.teacache_thresh is not None:
-        shape = (1, lat_f, lat_h, lat_w, pipe.cfg.out_dim)
-        lat = pipe.sample_teacache(g, shape, req.context, req.context_null, gen,
-                                   thresh=req.teacache_thresh, coeffs_key=req.teacache_key)
-        skipped = [i for i, s in enumerate(pipe.teacache_skips) if s]
-        logging.info("TeaCache (UniPC, %s coefficients, threshold %g): computed %d of %d "
-                     "steps, skipped %s", req.teacache_key, req.teacache_thresh,
-                     req.sample_steps - len(skipped), req.sample_steps, skipped)
-        return lat
-    return pipe.generate(g, req.context, req.context_null, lat_f, lat_h, lat_w, gen)
+    """Latents [1, F, H, W, 16] fp32 for one request: a ``serve.request``
+    span (utils/tracing.py) with the request's seed."""
+    with tracing.span("serve.request", req.seed):
+        sp = pipe.model.sp
+        lat_f, lat_h, lat_w = latent_grid(size, req.frame_num, sp.size if sp is not None else 1)
+        gen = GenerateConfig(sampling_steps=req.sample_steps, shift=req.sample_shift,
+                             guide_scale=req.guide_scale, sample_solver=req.sample_solver)
+        g = torch.Generator(device=req.context.device).manual_seed(req.seed)
+        if isinstance(pipe, WanI2V):
+            want = (1, lat_f, lat_h, lat_w, 16)
+            if tuple(req.cond_latent.shape) != want:
+                raise ValueError(f"cond_latent {tuple(req.cond_latent.shape)}, expected {want}")
+            return pipe.generate(g, req.context, req.context_null, req.clip_fea,
+                                 req.cond_latent, gen)
+        if req.teacache_thresh is not None:
+            shape = (1, lat_f, lat_h, lat_w, pipe.cfg.out_dim)
+            lat = pipe.sample_teacache(g, shape, req.context, req.context_null, gen,
+                                       thresh=req.teacache_thresh, coeffs_key=req.teacache_key)
+            skipped = [i for i, s in enumerate(pipe.teacache_skips) if s]
+            logging.info("TeaCache (UniPC, %s coefficients, threshold %g): computed %d of %d "
+                         "steps, skipped %s", req.teacache_key, req.teacache_thresh,
+                         req.sample_steps - len(skipped), req.sample_steps, skipped)
+            return lat
+        return pipe.generate(g, req.context, req.context_null, lat_f, lat_h, lat_w, gen)
 
 
 def output_file(save_file: str, idx: int, n: int) -> str:
@@ -566,6 +575,12 @@ def main(argv=None):
         latents.append(run_request(pipe, req, args.size))
         logging.info("record %d/%d (seed %d) latents %s", idx + 1, len(records), req.seed,
                      tuple(latents[-1].shape))
+        if tracing.enabled():
+            if device.type == "cuda":  # the request's device work, for its span times
+                torch.cuda.current_stream(device).synchronize()
+            trace = tracing.drain()
+            if mesh.is_main:
+                print(json.dumps({"record": idx, "seed": req.seed, "trace": trace}), flush=True)
     del pipe, images
     if device.type == "cuda":
         torch.cuda.empty_cache()

@@ -33,9 +33,11 @@ and backward, the pool and the head, the optimizer.
 
 Each run prints one JSON line with both wall times, the device time and
 the kernel calls by group (K1, K2, K3, K3s, K4, K5, K6, K7, K8, K9, K10, R, GEMM, other) from
-the traced run, and the idle share: 1 - device busy time / untraced wall
-time. ``HYV_FLASH_BOUNDED=0`` profiles the shifted route (K2, K3s). Needs a
-CUDA device.
+the traced run, and ``spans``: the port's tracer's totals for the traced
+call (utils/tracing.py: calls, host, device and self seconds per span, e.g.
+the refl step's ``prfl.rollout``, ``prfl.backward``, ``prfl.optimizer``).
+``HYV_FLASH_BOUNDED=0`` profiles the shifted route (K2, K3s). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch  # noqa: E402
 from hyvideo_prfl_torch.configs import dit_config_for_task  # noqa: E402
 from hyvideo_prfl_torch.models import wan_dit  # noqa: E402
 from hyvideo_prfl_torch.pipelines.pipeline import latent_size_for  # noqa: E402
+from hyvideo_prfl_torch.utils import tracing  # noqa: E402
 from hyvideo_prfl_torch.utils.checkpoint import quantize_model  # noqa: E402
 
 # kernel-name fragment -> group; first match wins
@@ -84,7 +87,8 @@ def group_of(name: str) -> str:
 
 
 def _profile(run, label: dict) -> dict:
-    """Warm-up, one untraced and one traced call of ``run``; device time by group."""
+    """Warm-up, one untraced and one traced call of ``run``; device time by
+    group and the tracer's spans of the traced call."""
     run()  # warm-up: cuBLAS plans, rope tables, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()  # wall time with the profiler off
@@ -92,6 +96,7 @@ def _profile(run, label: dict) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tracing.reset()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
@@ -109,9 +114,8 @@ def _profile(run, label: dict) -> dict:
         kernels.append((ms, evt.count, evt.key[:80]))
     if not groups:
         raise SystemExit("the profiler recorded no device time")
-    busy = sum(groups.values())
     return {**label, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
-            "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "spans": tracing.totals()["spans"],
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "calls_by_group": calls,
             "top_kernels": [{"ms": ms, "calls": n, "name": name}

@@ -20,7 +20,15 @@ between steps, at every world size.
 Every outer step runs one PRFL reward ("refl") step and then one
 flow-matching SFT step on the same batch, as the JAX loop does, and logs
 refl_loss, reward, grad_norm, sft_loss, t_refl and t_sft (wall seconds,
-each after a device synchronize) as one JSON line. Each outer step draws
+each after a device synchronize) as one JSON line. Each outer step is a
+``train.step`` span holding ``train.batch`` (the loader's next batch and
+its copy to the device), the steps' phases (training/prfl.py) and
+``train.log`` (the EMA and the metrics' reads); with tracing on
+(utils/tracing.py: ``HYV_TRACE=1``, or a torch.profiler recording) the
+line, written once the step's spans have closed, also holds ``trace``:
+the step's spans (calls, host and device milliseconds) and the counters'
+increments. The logger's own time (its start, each line's write, its
+close) is ``train.record``, in the next line's trace. Each outer step draws
 from a generator seeded by (train.seed, step), and a resumed run replays
 the data stream up to its step, so it reads and draws what an
 uninterrupted one does.
@@ -86,7 +94,7 @@ from hyvideo_prfl_torch.training.prfl import (  # noqa: E402
     PrflConfig, PrflModel, make_refl_step, make_sft_step, parallelize,
 )
 from hyvideo_prfl_torch.utils import checkpoint as ck  # noqa: E402
-from hyvideo_prfl_torch.utils import encoders, safetensors_io, video_io  # noqa: E402
+from hyvideo_prfl_torch.utils import encoders, safetensors_io, tracing, video_io  # noqa: E402
 
 LORA_FORMATS = ("transformer", "kohya", "diffusers")
 # the JAX trainer's TensorBoard scalars, train/<key>
@@ -268,35 +276,43 @@ def sanity_dump(trainer: Trainer, sanity_dir: str, step: int, m_refl) -> None:
 def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
     """``steps`` more outer steps (refl then SFT); returns their metrics."""
     config = trainer.config
-    logger = cli.MetricLogger(config, trainer.out_dir, trainer.mesh.is_main)
+    with tracing.span("train.record"):
+        logger = cli.MetricLogger(config, trainer.out_dir, trainer.mesh.is_main)
     sanity_dir = config.save.sanity_check_dir or os.path.join(trainer.out_dir, "sanity_check")
     interval = int(config.train.sanity_check_interval)
     dev, main = trainer.device, trainer.mesh.is_main
     history = []
     for step in range(trainer.step, trainer.step + steps):
-        raw = next(trainer.loader)
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
-                 if not isinstance(v, list)}
-        gen = common.step_generator(dev, trainer.seed + 2, step)
-        cli.sync(dev)
-        t0 = time.perf_counter()
-        trainer.state, m_refl = trainer.refl_fn(trainer.state, batch, gen)
-        cli.sync(dev)
-        t_refl = time.perf_counter() - t0
-        if interval > 0 and step <= 50 and step % interval == 0 and main:
-            sanity_dump(trainer, sanity_dir, step, m_refl)
-        t0 = time.perf_counter()
-        trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, gen)
-        cli.sync(dev)
-        t_sft = time.perf_counter() - t0
-        if trainer.ema is not None:
-            ema_mod.ema_update(trainer.ema, trainer.state.local_params(),
-                               float(config.model.ema.ema_decay))
-        metrics = {"step": step, "refl_loss": float(m_refl["loss"]),
-                   "reward": float(m_refl["reward"]), "grad_norm": float(m_refl["grad_norm"]),
-                   "sft_loss": float(m_sft["loss"]), "mid": int(m_refl["mid"]),
-                   "t_refl": t_refl, "t_sft": t_sft}
-        logger.log(metrics, step, {k: metrics[k] for k in TB_KEYS})
+        with tracing.span("train.step", step):
+            with tracing.span("train.batch"):
+                raw = next(trainer.loader)
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
+                         if not isinstance(v, list)}
+            gen = common.step_generator(dev, trainer.seed + 2, step)
+            cli.sync(dev)
+            t0 = time.perf_counter()
+            trainer.state, m_refl = trainer.refl_fn(trainer.state, batch, gen)
+            cli.sync(dev)
+            t_refl = time.perf_counter() - t0
+            if interval > 0 and step <= 50 and step % interval == 0 and main:
+                sanity_dump(trainer, sanity_dir, step, m_refl)
+            t0 = time.perf_counter()
+            trainer.state, m_sft = trainer.sft_fn(trainer.state, batch, gen)
+            cli.sync(dev)
+            t_sft = time.perf_counter() - t0
+            with tracing.span("train.log"):
+                if trainer.ema is not None:
+                    ema_mod.ema_update(trainer.ema, trainer.state.local_params(),
+                                       float(config.model.ema.ema_decay))
+                metrics = {"step": step, "refl_loss": float(m_refl["loss"]),
+                           "reward": float(m_refl["reward"]),
+                           "grad_norm": float(m_refl["grad_norm"]),
+                           "sft_loss": float(m_sft["loss"]), "mid": int(m_refl["mid"]),
+                           "t_refl": t_refl, "t_sft": t_sft}
+        with tracing.span("train.record", step):  # in the next line's trace
+            if tracing.enabled():
+                metrics["trace"] = tracing.drain()
+            logger.log(metrics, step, {k: metrics[k] for k in TB_KEYS})
         if (step + 1) % 100 == 0:
             health = common.validate_params(trainer.model.dit)
             if not health["finite"]:
@@ -304,7 +320,8 @@ def run(trainer: Trainer, steps: int) -> List[Dict[str, float]]:
         if (step + 1) % int(config.train.save_interval) == 0:
             save_checkpoint(trainer, step + 1)
         history.append(metrics)
-    logger.close()
+    with tracing.span("train.record"):
+        logger.close()
     trainer.step += steps
     return history
 
