@@ -10,12 +10,14 @@ Phases, each of which raises on failure:
    build time, each slice kernel's registers and spills (K1-K5, K3s, K7,
    K9, K10, the probes and the norm kernels' wide instances must have
    none),
-   the shared memory of the forward, K4 (and K5's dk/dv pass), K5's dq pass
-   and K10, and the warpgroup MMA and TMA load instructions in the
+   the shared memory of the forward, K4, K5's dq pass and K10, and the
+   warpgroup MMA and TMA load instructions in the
    disassembly of K1, K2, K3, K3s, K4, both K5 passes (HGMMA, UTMALDG), K10
    and the int8 probe (IGMMA, UTMALDG), the bf16 probe (HGMMA, UTMALDG),
    K7 (UTMALDG; K7 and the probes without global atomics) and K9's two
    instances (UBLKCP, the bulk copies of its ring): all must be there.
+   K5's dk/dv kernel must keep the registers and SASS instruction count
+   of the kernel its PERF.md time was measured on.
 2. Hold each forward kernel (K8 ln_scale_shift, K6 qk-norm+rope, K1
    streaming and K3 single-block flash forward, K10 int8-score flash
    forward) against its plain PyTorch version at the t2v-1.3B 832*480
@@ -59,7 +61,10 @@ Phases, each of which raises on failure:
    K5 at the self-attention (in turns with K4 too, as k4_ms) and at lq
    1,024 (short_q_*: the split route through the autograd op, the dq
    pass's key range split as the wrapper picks it, and unsplit as
-   short_q_unsplit_ms).
+   short_q_unsplit_ms); then K4 and K5 in turns at every shape the
+   training paths hand K4 (K4_SHAPES: the self-attention, the 512 text and
+   257 image keys, 12k, the sp4 shard and a ring hop; turns_<shape>_ms),
+   K5's self-attention time printed beside its PERF.md time (K5_SELF_MS).
    5b. K4 and K5 with a key mask: within their bound, masked keys'
    gradients exactly 0.
 6. Whole-model gradient check: the 2-block full-width WanModel (fp32
@@ -286,6 +291,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1151,6 +1157,7 @@ def phase_bwd_kernels(results):
             del again
         del q, k, v, o, lse, do, got, ref
         torch.cuda.empty_cache()
+    _k4_k5_turns(results)
 
     # K7 at the self-attention q/k (rope), cross q (norm only, 32,760 rows)
     # and cross k (norm only, the 512 text rows). Bound: dx rounds to bf16
@@ -1208,6 +1215,55 @@ def phase_bwd_kernels(results):
     del x
     torch.cuda.empty_cache()
     return route_launches
+
+
+# K5 at the 81-frame self-attention (12 x 32,760, batch 1), PERF.md's
+# kernel table; its dk/dv kernel as ptxas and cuobjdump read it
+# when that time was measured. Phase 1 holds the kernel to its registers
+# and SASS instruction count: its time alone moves several percent from
+# card to card, more than a change to the kernel would have to show
+K5_SELF_MS = 33.618
+K5_DKV_REGISTERS = 168
+K5_DKV_INSTRUCTIONS = 2280
+# (tag, B, heads, lq, lk) of every shape the training paths hand K4
+K4_SHAPES = (("self", 1, 12, 32760, 32760), ("text", 1, 12, 32760, TEXT_LEN),
+             ("image", 1, 12, 9360, 257), ("12k_self", 1, 40, 32760, 32760),
+             ("sp4_self", 1, 10, 75600, 75600), ("ring_hop", 2, 10, 37800, 37800))
+
+
+def _k4_k5_turns(results):
+    """K4 and K5 in turns at each shape of K4_SHAPES, the time of each
+    beside the bound of the five products; recorded as turns_<tag>_ms.
+    K5's time at the self-attention is printed beside K5_SELF_MS, not held
+    to it (phase 1 holds K5's code)."""
+    import torch
+
+    from hyvideo_prfl_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    for tag, b, n, lq, lk in K4_SHAPES:
+        q = torch.randn(b, n, lq, 128, device=dev, generator=g).bfloat16()
+        k = torch.randn(b, n, lk, 128, device=dev, generator=g).bfloat16()
+        v = torch.randn(b, lk, n, 128, device=dev, generator=g).bfloat16()
+        o, lse = fa.flash_fwd_kernel(q, k, v, fa.uses_single_block(lk))
+        do = torch.randn(o.shape, device=dev, generator=g).bfloat16()
+        expect(fa.uses_merged_bwd(lq, lk), f"K4 turns {tag}: the backward takes the split route")
+        calls = 1 if lk > TEXT_LEN else 20
+        t = timed_turns({"K4": lambda: fa.bwd_kernel(q, k, v, o, lse, do, True),
+                         "K5": lambda: fa.bwd_kernel(q, k, v, o, lse, do, False)},
+                        reps=3, calls=calls)
+        bnd = bound(0, bf16=10 * b * n * lq * lk * 128)["bound_ms"]
+        print(f"  K4/K5 turns, {tag} ({b} x {n} x {lq:,} x {lk:,}): K4 {t['K4']:.4f} ms "
+              f"({bnd / t['K4']:.3f} of the {bnd:.4f} ms bound), K5 {t['K5']:.4f} ms "
+              f"({bnd / t['K5']:.3f}); {CARD}")
+        for name in ("K4", "K5"):
+            results[name][f"turns_{tag}_ms"] = t[name]
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    ms = results["K5"]["turns_self_ms"]
+    print(f"  K5 self-attention {ms:.4f} ms against PERF.md's {K5_SELF_MS} "
+          f"({ms / K5_SELF_MS - 1:+.2%}); {CARD}")
 
 
 def phase_masked_bwd():
@@ -5055,6 +5111,10 @@ def print_ptxas(log: str, smem: dict) -> None:
                     or "wide" in current or current.startswith("P1/P2"):
                 expect("spill" not in line or " 0 bytes spill stores" in line,
                        f"ptxas: {current} spills: {line.strip()}")
+            expect(current != "K5 dk/dv" or "registers" not in line
+                   or f"Used {K5_DKV_REGISTERS} registers" in line,
+                   f"ptxas: K5 dk/dv is not the kernel K5_SELF_MS was measured on "
+                   f"({K5_DKV_REGISTERS} registers): {line.strip()}")
     print("  dynamic shared memory per block: "
           + ", ".join(f"{name} {n} bytes" for name, n in smem.items()))
 
@@ -5067,7 +5127,8 @@ def check_sass(lib_path) -> None:
     the int8 probe IGMMA; the forward and K10 store o by TMA (UTMASTG), K4
     adds dq by TMA reductions (UTMAREDG), K5's dq pass needs neither; K7
     and the probes use no global atomics (ATOM, RED; K9 takes its grid's
-    ticket by one, on a counter, never on the data)."""
+    ticket by one, on a counter, never on the data). K5's dk/dv kernel
+    must have K5_DKV_INSTRUCTIONS instructions."""
     from hyvideo_prfl_torch.ops import _build
 
     kernels = {"flash_fwd_kernelILb0ELb1E": "K1", "flash_fwd_kernelILb1ELb1E": "K2",
@@ -5091,6 +5152,8 @@ def check_sass(lib_path) -> None:
         if "Function :" in line:
             current = next((v for k, v in kernels.items() if k in line), None)
         elif current:
+            if re.search(r"/\*[0-9a-f]{4,}\*/", line):  # an instruction, after its address
+                counts[current]["all"] = counts[current].get("all", 0) + 1
             for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UTMAREDG", "UBLKCP"):
                 if op in line:
                     counts[current][op] = counts[current].get(op, 0) + 1
@@ -5105,6 +5168,9 @@ def check_sass(lib_path) -> None:
                f"{name}'s kernel lacks {ld} or {op}: {c}")
         expect(name not in ("K7 rope", "K7", "P int8", "P bf16") or not c.get("global atomic"),
                f"{name}'s kernel uses global atomics: {c}")
+    expect(counts["K5 dk/dv"].get("all") == K5_DKV_INSTRUCTIONS,
+           f"K5 dk/dv has {counts['K5 dk/dv'].get('all')} SASS instructions, not the "
+           f"{K5_DKV_INSTRUCTIONS} of the kernel K5_SELF_MS was measured on")
 
 
 def main() -> int:
@@ -5144,7 +5210,7 @@ def main() -> int:
           f"(loaded in {time.perf_counter() - t0:.2f} s)")
     lib = _build.lib()
     print_ptxas(_build.build_log, {"K1/K2/K3/K3s": lib.hyv_flash_fwd_smem(),
-                                   "K4 and K5 dk/dv": lib.hyv_flash_bwd_merged_smem(),
+                                   "K4": lib.hyv_flash_bwd_merged_smem(),
                                    "K5 dq": lib.hyv_flash_bwd_dq_smem(),
                                    "K10": lib.hyv_flash_fwd_qk8_smem()})
     check_sass(_build.build())

@@ -28,7 +28,10 @@
 // shape (12 heads x 32,760 x 32,760 x 128) the five products are 1.65e13
 // flop against well under 1 GB of traffic: 16.7 ms at the 989 TFLOP/s bf16
 // peak. K5 computes s and dp in both passes (seven products); the bound
-// counts the algorithm's five for both.
+// counts the algorithm's five for both. K4 reaches ~0.55-0.58 of it: per q
+// tile its softmax leaves the tensor cores idle (both warpgroups form it at
+// once) and its dq staging and ds^T stores share the shared memory with the
+// products (~384 KB a tile); PERF.md keeps the measurements.
 //
 // Design (FlashAttention-3's backward shape, simplified):
 // * A prologue kernel forms, once per call, q' and q_s = bf16(q * scale)
@@ -38,29 +41,50 @@
 //   kernels' tiles arrive ready for the tensor cores. For K5 it also forms
 //   k_s = bf16(k * scale) in a [B*N, Lk, 128] scratch: JAX rounds k * scale
 //   to bf16 before the product, so the scale cannot move onto dq.
-// * The dk/dv kernel (K4, and K5's first pass: the two instances of
-//   bwd_kv<kMerged>). A block owns 128 keys of one (batch, head), keeps
-//   their dk and dv in fp32 registers and sweeps q tiles of 64 rows; 384
-//   threads: warpgroup 0 is the producer (24 registers after setmaxnreg;
-//   one thread issues every load), warpgroups 1 and 2 are consumers (240
-//   registers) owning 64 keys each. k and v arrive once by TMA; the q',
-//   q_s and dO tiles and the statistics stream through a ring of two
-//   stages, each with a full barrier (TMA bytes) and an empty one.
-//   s^T = k q'^T and dp^T = v dO^T (m64n64, both operands in shared
-//   memory) leave p^T and ds^T in the accumulator layout, which is the
-//   register A operand of dv += p^T dO and dk += ds^T q_s (m64n128, dO and
-//   q_s read with B's transpose bit). K5's instance stops there: four
-//   products a cell, and each stage returns to the producer once its
-//   products have retired.
-// * K4 alone: for dq = ds k_s, each warpgroup writes bf16(ds^T) to a shared
-//   [128 keys x 64 q] tile, read as A with the transpose bit, and computes
-//   64 of the 128 features of the q tile's dq over all 128 keys (m64n64),
-//   with k_s formed once per block in shared memory. Its fp32 64 x 64
-//   share is staged in the stage's own q' or q_s buffer and added to the
-//   fp32 [B*N, Lq, 128] dq with two TMA reduce-adds (boxes of 32 features
-//   x 64 rows; rows past Lq are clipped); the stage returns to the producer
-//   when the reduction has read it. The order of the adds across blocks
-//   changes from run to run: K4's dq is not bitwise deterministic.
+// * The dk/dv block (K4's flash_bwd_merged_kernel and K5's first pass,
+//   flash_bwd_dkv_kernel: two bodies). A block owns 128 keys of one (batch,
+//   head), keeps their dk and dv in fp32 registers and sweeps q tiles of 64
+//   rows; 384 threads: warpgroup 0 is the producer (24 registers after
+//   setmaxnreg; one thread issues every load), warpgroups 1 and 2 are
+//   consumers (240 registers) owning 64 keys each. k and v arrive once by
+//   TMA; the q', q_s and dO tiles and the statistics stream through a ring
+//   of two stages. s^T = k q'^T and dp^T = v dO^T (m64n64, both operands in
+//   shared memory) leave p^T and ds^T in the accumulator layout, which is
+//   the register A operand of dv += p^T dO and dk += ds^T q_s (m64n128, dO
+//   and q_s read with B's transpose bit). K5's body stops there: four
+//   products a cell, one stage barrier pair, and each stage returns to the
+//   producer once its products have retired.
+// * K4 adds dq = bf16(ds) k_s (k_s formed once per block in shared memory):
+//   each warpgroup computes 64 of the 128 features of a q tile's dq over all
+//   128 keys (m64n64), reading the whole bf16 [128 keys x 64 q] ds^T tile as
+//   A with the transpose bit. Per q tile i, each consumer warpgroup:
+//     1. waits for stage i, issues s^T and dp^T and waits for them;
+//     2. forms p and ds and packs them to bf16 A fragments (the statistics
+//        from the stage, exp2 on the multi-function unit);
+//     3. waits for tile i - 1's ds^T to be whole (both halves stored a
+//        tile ago), issues its dq product, then dv and dk of tile i;
+//     4. while dv and dk are in flight: waits for that dq product alone,
+//        stores its fp32 64 x 64 share into the warpgroup's own staging
+//        tile (once the writer has freed it), waits for the other
+//        warpgroup's s^T to retire (q' is then dead), stores bf16(ds^T) of
+//        tile i into stage i's q' buffer, one proxy fence for both, and
+//        signals the writer and the other warpgroup;
+//     5. waits for dv and dk.
+//   A warp arrives for a barrier's phase i only after that barrier's phase
+//   i - 1 has completed in its own view: the barriers count arrivals.
+//   The dq product runs a tile behind so that no warpgroup waits for the
+//   other's ds^T; it is issued after the softmax, not during it, because
+//   its 32-register accumulator beside s, dp, dk and dv would leave the
+//   wgmma pipeline too few of the 240 registers (ptxas C7512 then
+//   serialises every product). Lane 0 of producer warp 1 + c adds warpgroup
+//   c's staged share to the fp32 [B*N, Lq, 128] dq with two TMA reduce-adds
+//   (boxes of 32 features x 64 rows; rows past Lq are clipped) and frees the
+//   staging tile once they have read it, off the consumers' path. A stage
+//   returns in two parts: q_s, dO and the statistics when dv and dk have
+//   retired (the end of tile i: their reload for tile i + 2 runs a whole
+//   tile ahead), q' (then ds^T) when both dq products have read it (midway
+//   through tile i + 1). The order of the adds across blocks changes from
+//   run to run: K4's dq is not bitwise deterministic.
 // * Short key ranges (the text cross-attention, 4 key tiles a head): the
 //   wrapper splits each key tile's q sweep over `kv_splits` blocks so that
 //   the grid fills the SMs; each split writes fp32 dk/dv partials, which
@@ -80,9 +104,14 @@
 //   alone leave SMs idle (lq 1,024: 96 tiles for 132 SMs), the wrapper
 //   splits each q tile's key range over `dq_splits` blocks, each writing an
 //   fp32 partial that the wrapper sums in a fixed order.
-// * Shared memory: dk/dv kernel k, v, k_s 3 x 32 KB, ds^T 16 KB, two stages
-//   of q', q_s, dO (16 KB each) and statistics (512 B): 211 KB. dq pass:
-//   q' and dO 2 x 32 KB, three stages of k, v, k_s (16 KB each): 209 KB.
+// * Shared memory: K4 k, v, k_s 3 x 32 KB, two fp32 dq staging tiles of 16
+//   KB, two stages of q' (then ds^T), q_s, dO (16 KB each), their statistics
+//   (512 B each) and barriers: 226 KB with the alignment slack (a block may
+//   have 227). K5's dk/dv pass: k, v, 48 KB it leaves unused, two stages of
+//   q', q_s, dO and statistics: 211 KB. dq pass: q' and dO 2 x 32 KB, three stages of k, v, k_s (16 KB
+//   each): 209 KB.
+#include <type_traits>
+
 #include "sm90.cuh"
 #include "tensor_core.cuh"
 
@@ -96,8 +125,10 @@ constexpr int kBlockM = 64;   // q rows per dk/dv stage, and per statistics tile
 constexpr int kThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// dk/dv kernel shared memory, byte offsets from a 1024-aligned base; every
-// tile is two 64-feature halves of 128-byte-swizzled rows
+// Tile sizes, and K5's dk/dv shared memory (byte offsets from a
+// 1024-aligned base); every tile is two 64-feature halves of
+// 128-byte-swizzled rows. K5 leaves k_s and ds^T unused: without them its
+// SASS would no longer be that of the kernel PERF.md timed
 constexpr uint32_t kKvTile = kBlockN * kD * 2;   // k, v or k_s: 32 KB
 constexpr uint32_t kKvHalf = kKvTile / 2;
 constexpr uint32_t kQTile = kBlockM * kD * 2;    // q', q_s or dO: 16 KB
@@ -123,18 +154,370 @@ struct KvArgs {
   float scale;
 };
 
-// The dk/dv block of K4 (kMerged, which also adds dq) and of K5's first
-// pass. dqmap is read only by K4.
-template <bool kMerged>
-__device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMap& vmap,
-                                       const CUtensorMap& qpmap, const CUtensorMap& qsmap,
-                                       const CUtensorMap& domap, const CUtensorMap* dqmap,
-                                       const KvArgs& args) {
+// The dk/dv epilogue of a block's consumer thread (key rows row0 and
+// row0 + 8 of its (batch, head)): rows past Lk are dropped; one split writes
+// bf16 dk (head-major) and dv (token-major), several write fp32 partials
+__device__ __forceinline__ void write_dkdv(const float (&dk)[64], const float (&dv)[64],
+                                           const KvArgs& args, int b, int h, int bh, int split,
+                                           int row0, int q_lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = row0 + 8 * half;
+    if (key >= args.Lk) continue;
+    if (args.splits == 1) {
+      __nv_bfloat16* dkr = args.dk + b * args.dk_sb + h * args.dk_sh + key * args.dk_sl;
+      __nv_bfloat16* dvr = args.dv + b * args.dv_sb + h * args.dv_sh + key * args.dv_sl;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = 8 * j + q_lane;
+        *reinterpret_cast<uint32_t*>(dkr + d) =
+            hyv::pack_bf16x2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + d) =
+            hyv::pack_bf16x2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
+    } else {
+      const long long plane = (long long)gridDim.y * args.Lk * kD;  // one split's [B*N, Lk, 128]
+      float* dkr = args.part + ((long long)split * gridDim.y + bh) * args.Lk * kD +
+                   (long long)key * kD;
+      float* dvr = dkr + args.splits * plane;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const int d = 8 * j + q_lane;
+        *reinterpret_cast<float2*>(dkr + d) =
+            make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<float2*>(dvr + d) =
+            make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+}
+
+// ---- K4: the merged dk/dv/dq block ----------------------------------------
+
+// shared memory, byte offsets from a 1024-aligned base: k, v, k_s; one fp32
+// dq staging tile per consumer warpgroup; two stages of q', q_s, dO (the q'
+// buffer holds the tile's bf16 ds^T once both warpgroups' s^T products have
+// retired); the two stages' statistics; barriers
+constexpr uint32_t kMDqTile = kBlockM * 64 * 4;  // 64 q x 64 features fp32: 16 KB
+constexpr uint32_t kMOffDq = 3 * kKvTile;
+constexpr uint32_t kMOffStage = kMOffDq + 2 * kMDqTile;
+constexpr uint32_t kMStageBytes = 3 * kQTile;  // q' (then ds^T), q_s, dO
+constexpr uint32_t kMOffStat = kMOffStage + 2 * kMStageBytes;
+constexpr uint32_t kMOffBar = kMOffStat + 2 * kStatBytes;
+constexpr int kMSmemBytes = kMOffBar + 128 + 1024;  // + barriers + alignment slack
+static_assert(kMSmemBytes <= 232448, "K4's shared memory exceeds a block's 227 KB");
+// barriers, 8 B each, two of a kind indexed by stage or warpgroup: a stage
+// full; its q_s/dO/statistics and its q' free; a staging tile full and
+// free; k/v full; both warpgroups' s^T retired (q' may take ds^T); the ds^T
+// tile whole
+constexpr uint32_t kMFull = 0, kMQdEmpty = 16, kMQpEmpty = 32, kMDqFull = 48, kMDqEmpty = 64,
+                   kMKvFull = 80, kMAdone = 88, kMDsFull = 96;
+
+// K4's block: 128 keys of one (batch, head), their dk and dv in registers,
+// dq of each q tile added to the global fp32 dq by TMA reductions
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_merged_kernel(const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap qpmap,
+                        const __grid_constant__ CUtensorMap qsmap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const __grid_constant__ CUtensorMap dqmap, const KvArgs args) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t bar = base + kMOffBar;
+
+  const int bh = blockIdx.y, b = bh / args.N, h = bh - b * args.N;
+  const int kt = blockIdx.x / args.splits, split = blockIdx.x - kt * args.splits;
+  const int n0 = kt * kBlockN;
+  const int lk = args.valid != nullptr ? min(args.valid[bh], args.Lk) : args.Lk;
+  const int qt0 = (int)((long long)split * args.n_qt / args.splits);
+  const int qt1 = (int)((long long)(split + 1) * args.n_qt / args.splits);
+  const int n_tiles = n0 < lk ? qt1 - qt0 : 0;  // all keys masked: write zeros
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bar + kMFull + 8 * i, 1);
+      // one lane per consumer warp of both warpgroups
+      mbar_init(bar + kMQdEmpty + 8 * i, 8);
+      mbar_init(bar + kMQpEmpty + 8 * i, 8);
+      // one lane per warp of warpgroup i; its writer
+      mbar_init(bar + kMDqFull + 8 * i, 4);
+      mbar_init(bar + kMDqEmpty + 8 * i, 1);
+    }
+    mbar_init(bar + kMKvFull, 1);
+    mbar_init(bar + kMAdone, 8);
+    mbar_init(bar + kMDsFull, 8);
+    fence_barrier_init();
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    prefetch_map(&qpmap);
+    prefetch_map(&qsmap);
+    prefetch_map(&domap);
+    prefetch_map(&dqmap);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+  if (wg == 0) {
+    // ---- producer warpgroup: lane 0 of warp 0 issues every load; lane 0
+    // of warp 1 + c adds consumer warpgroup c's dq ----
+    reg_dealloc<24>();
+    const int warp = threadIdx.x >> 5;
+    if (lane != 0 || warp > 2 || n_tiles == 0) return;
+    if (warp == 0) {
+      mbar_expect_tx(bar + kMKvFull, 2 * kKvTile);
+      tma_load_4d(base + kOffK, &kmap, bar + kMKvFull, 0, n0, h, b);
+      tma_load_4d(base + kOffK + kKvHalf, &kmap, bar + kMKvFull, 64, n0, h, b);
+      tma_load_4d(base + kOffV, &vmap, bar + kMKvFull, 0, n0, h, b);
+      tma_load_4d(base + kOffV + kKvHalf, &vmap, bar + kMKvFull, 64, n0, h, b);
+      // not unrolled: the loop must fit the producer's 24 registers
+#pragma unroll 1
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it & 1, qt = qt0 + it, m0 = qt * kBlockM;
+        const uint32_t parity = ((it >> 1) & 1) ^ 1;
+        const uint32_t sb = base + kMOffStage + st * kMStageBytes, full = bar + kMFull + 8 * st;
+        // q_s, dO and the statistics once the stage's dv and dk products
+        // have retired, q' once its ds^T has been read by the dq products
+        mbar_wait(bar + kMQdEmpty + 8 * st, parity);
+        mbar_expect_tx(full, 3 * kQTile + kStatBytes);
+        tma_load_4d(sb + kSQs, &qsmap, full, 0, m0, h, b);
+        tma_load_4d(sb + kSQs + kQHalf, &qsmap, full, 64, m0, h, b);
+        tma_load_4d(sb + kSDo, &domap, full, 0, m0, h, b);
+        tma_load_4d(sb + kSDo + kQHalf, &domap, full, 64, m0, h, b);
+        bulk_load(base + kMOffStat + st * kStatBytes,
+                  args.stats + ((long long)bh * args.n_qt + qt) * (2 * kBlockM), kStatBytes, full);
+        mbar_wait(bar + kMQpEmpty + 8 * st, parity);
+        tma_load_4d(sb + kSQp, &qpmap, full, 0, m0, h, b);
+        tma_load_4d(sb + kSQp + kQHalf, &qpmap, full, 64, m0, h, b);
+      }
+    } else {
+      const int c = warp - 1;
+      const uint32_t stg = base + kMOffDq + c * kMDqTile;
+#pragma unroll 1
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(bar + kMDqFull + 8 * c, it & 1);
+        const int m0 = (qt0 + it) * kBlockM;
+        tma_reduce_add_4d(&dqmap, stg, c * 64, m0, h, b);
+        tma_reduce_add_4d(&dqmap, stg + kMDqTile / 2, c * 64 + 32, m0, h, b);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(bar + kMDqEmpty + 8 * c);
+      }
+      bulk_wait();
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroups 1 and 2, 64 keys each ----
+  reg_alloc<240>();
+  const int cw = wg - 1;             // consumer warpgroup, 0 or 1
+  const int wt = threadIdx.x & 127;  // thread in the warpgroup
+  // this thread's key rows in the block (accumulator rows): key_row, key_row + 8
+  const int key_row = cw * 64 + (wt >> 5) * 16 + (lane >> 2);
+  const int q_lane = (lane & 3) * 2;  // its first q (or feature) column in a group of 8
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n_tiles > 0) {
+    // k_s = bf16(k * scale) over this warpgroup's 64 keys, in k's layout;
+    // the other warpgroup's dq products read it after their first ds^T wait
+    mbar_wait(bar + kMKvFull, 0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = wt + 128 * i, r = cw * 64 + (idx >> 4), c = idx & 15;
+      const uint32_t off = (c >> 3) * kKvHalf + hyv::swz128(r, c & 7);
+      float f[8];
+      hyv::unpack8(*reinterpret_cast<const uint4*>(smem + kOffK + off), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(f[e], args.scale);
+      *reinterpret_cast<uint4*>(smem + kOffKs + off) = hyv::pack8(f);
+    }
+    fence_proxy_async();
+  }
+
+  // dq = bf16(ds) k_s over all 128 keys, this warpgroup's 64 features, for
+  // the tile whose ds^T lies in stage `stage`'s q' buffer
+  float dq[32];
+  auto issue_dq = [&](int stage) {
+    const uint32_t ds = base + kMOffStage + stage * kMStageBytes + kSQp;
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
+      wgmma_m64n64k16_ss<1, 1>(dq, desc_sw128(ds + kk * 2048, 1, 64),
+                               desc_sw128(base + kOffKs + cw * kKvHalf + kk * 2048, 1, 64),
+                               kk > 0);
+    wgmma_commit();
+  };
+  // dq of tile `it` (fp32, 64 q x 64 features) into this warpgroup's staging
+  // tile as two 128-byte-swizzled boxes of 32 features, for its writer
+  // (after a proxy fence, with kMDqFull); tile it - 1's reduction must have
+  // read the tile first
+  auto store_dq = [&](int it) {
+    mbar_wait(bar + kMDqEmpty + 8 * cw, (it & 1) ^ 1);
+    const uint32_t wrow = (wt >> 5) * 16 + (lane >> 2);
+    const uint32_t stg = base + kMOffDq + cw * kMDqTile + wrow * 128 + (lane & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t chunk = 2 * (j & 3) + ((lane & 3) >> 1);
+        const uint32_t addr =
+            stg + (j >> 2) * (kMDqTile / 2) + half * 1024 + ((chunk ^ (wrow & 7)) << 4);
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+                     "f"(dq[4 * j + 2 * half]), "f"(dq[4 * j + 2 * half + 1])
+                     : "memory");
+      }
+  };
+
+  // The accumulators live across the loop and only wgmma writes them
+  // while a product is in flight; every register write between an issue
+  // and its wait would serialise the wgmma pipeline (ptxas note C7513).
+  float s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dq[i] = 0.f;
+  const bool tail = n0 + kBlockN > lk;
+  // one q tile; `after_first` (a std::true_type past tile 0) adds the
+  // previous tile's dq, so no product is issued under a branch
+  auto tile = [&](const int it, auto after_first) {
+    constexpr bool kPrev = decltype(after_first)::value;
+    const int st = it & 1;
+    const uint32_t sb = base + kMOffStage + st * kMStageBytes;
+    const float* stat = reinterpret_cast<const float*>(smem + kMOffStat + st * kStatBytes);
+    mbar_wait(bar + kMFull + 8 * st, (it >> 1) & 1);
+
+    // s^T = k q'^T and dp^T = v dO^T (this warpgroup's 64 keys x 64 q rows)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_ss<0, 0>(
+          s, desc_sw128(base + kOffK + (kk >> 2) * kKvHalf + cw * 8192 + (kk & 3) * 32, 1, 64),
+          desc_sw128(sb + kSQp + (kk >> 2) * kQHalf + (kk & 3) * 32, 1, 64), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n64k16_ss<0, 0>(
+          dp, desc_sw128(base + kOffV + (kk >> 2) * kKvHalf + cw * 8192 + (kk & 3) * 32, 1, 64),
+          desc_sw128(sb + kSDo + (kk >> 2) * kQHalf + (kk & 3) * 32, 1, 64), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // this warp is done with q': the other warpgroup may write its ds^T there
+    if (lane == 0) mbar_arrive(bar + kMAdone);
+
+    // p = exp2(s - lse * log2e); keys at or past lk get p = 0 (q rows past
+    // Lq have lse * log2e = +inf, so p = 0 there too); ds^T = p^T (dp^T -
+    // delta); then bf16(p^T) and bf16(ds^T), pair by pair: the accumulator
+    // fragments of q columns 16kk..16kk+15 are the A operand of k-step kk;
+    // [kk][i] holds q columns 16kk + 8(i / 2).. of key row key_row + 8(i % 2)
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 8 * kk + 2 * i + e, q = (x >> 2) * 8 + q_lane + e;
+          p[e] = exp2_mufu(s[x] - stat[q]);
+          if (tail && n0 + key_row + 8 * (i & 1) >= lk) p[e] = 0.f;
+          ds[e] = p[e] * (dp[x] - stat[kBlockM + q]);
+        }
+        pf[kk][i] = hyv::pack_bf16x2(p[0], p[1]);
+        dsf[kk][i] = hyv::pack_bf16x2(ds[0], ds[1]);
+      }
+
+    // the previous tile's dq (its ds^T whole by now), then dv += bf16(p)^T dO
+    // and dk += bf16(ds)^T q_s. (In flight during the softmax, dq's
+    // accumulator would leave the wgmma pipeline too few registers: ptxas
+    // note C7512.)
+    if constexpr (kPrev) mbar_wait(bar + kMDsFull, (it - 1) & 1);
+    wgmma_fence();
+    if constexpr (kPrev) issue_dq(st ^ 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_rs<1>(dv, pf[kk], desc_sw128(sb + kSDo + kk * 2048, kQHalf >> 4, 64), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_rs<1>(dk, dsf[kk], desc_sw128(sb + kSQs + kk * 2048, kQHalf >> 4, 64), 1);
+    wgmma_commit();
+
+    if constexpr (kPrev) {
+      // the previous tile's dq has retired: its q' buffer (its ds^T) is free
+      // of this warp, and its dq goes to the writer
+      wgmma_wait<1>();
+      reg_fence(dq);
+      if (lane == 0) mbar_arrive(bar + kMQpEmpty + 8 * (st ^ 1));
+      store_dq(it - 1);
+    }
+
+    // bf16(ds^T) into this warpgroup's 64 key rows of the [128 keys x 64 q]
+    // tile in the stage's q' buffer, once both warpgroups' s^T have read q';
+    // one proxy fence for both tiles' stores
+    mbar_wait(bar + kMAdone, it & 1);
+    const uint32_t dsb = sb + kSQp + key_row * 128 + (lane & 3) * 4;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t addr = dsb + (i & 1) * 1024 + (((2 * kk + (i >> 1)) ^ (key_row & 7)) << 4);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(dsf[kk][i]) : "memory");
+      }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      if constexpr (kPrev) mbar_arrive(bar + kMDqFull + 8 * cw);
+      mbar_arrive(bar + kMDsFull);
+    }
+
+    // dv and dk have retired: q_s, dO and the statistics return to the
+    // producer
+    wgmma_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      reg_fence(pf[kk]);
+      reg_fence(dsf[kk]);
+    }
+    if (lane == 0) mbar_arrive(bar + kMQdEmpty + 8 * st);
+  };
+  if (n_tiles > 0) {
+    tile(0, std::false_type{});
+    for (int it = 1; it < n_tiles; ++it) tile(it, std::true_type{});
+    // the last tile's dq
+    mbar_wait(bar + kMDsFull, (n_tiles - 1) & 1);
+    wgmma_fence();
+    issue_dq((n_tiles - 1) & 1);
+    wgmma_wait<0>();
+    reg_fence(dq);
+    store_dq(n_tiles - 1);
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + kMDqFull + 8 * cw);
+  }
+  write_dkdv(dk, dv, args, b, h, bh, split, n0 + key_row, q_lane);
+}
+
+// ---- K5's dk/dv pass ------------------------------------------------------
+
+// K5's first pass: a block owns 128 keys, as K4's, and computes dk and dv
+// alone (four products a cell); each stage returns to the producer once
+// its products have retired
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap qpmap,
+                     const __grid_constant__ CUtensorMap qsmap,
+                     const __grid_constant__ CUtensorMap domap, const KvArgs args) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bar = base + kOffBar;
+  uint8_t* smem = smem_raw + (base - raw);
 
   const int bh = blockIdx.y, b = bh / args.N, h = bh - b * args.N;
   const int kt = blockIdx.x / args.splits, split = blockIdx.x - kt * args.splits;
@@ -147,9 +530,7 @@ __device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMa
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(bar + kFull + 8 * i, 1);
-      // K4: one thread per consumer warpgroup, once its dq reduction has
-      // read the stage; K5: one lane per consumer warp
-      mbar_init(bar + kEmpty + 8 * i, kMerged ? 2 : 8);
+      mbar_init(bar + kEmpty + 8 * i, 8);  // one lane per consumer warp
     }
     mbar_init(bar + kKvFull, 1);
     fence_barrier_init();
@@ -158,7 +539,6 @@ __device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMa
     prefetch_map(&qpmap);
     prefetch_map(&qsmap);
     prefetch_map(&domap);
-    if constexpr (kMerged) prefetch_map(dqmap);
   }
   __syncthreads();
 
@@ -201,36 +581,17 @@ __device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMa
   float dk[64], dv[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
-
-  if constexpr (kMerged) {
-    if (n_tiles > 0) {
-      // k_s = bf16(k * scale) over this warpgroup's 64 keys, in k's layout
-      mbar_wait(bar + kKvFull, 0);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int idx = wt + 128 * i, r = cw * 64 + (idx >> 4), c = idx & 15;
-        const uint32_t off = (c >> 3) * kKvHalf + hyv::swz128(r, c & 7);
-        float f[8];
-        hyv::unpack8(*reinterpret_cast<const uint4*>(smem + kOffK + off), f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = __fmul_rn(f[e], args.scale);
-        *reinterpret_cast<uint4*>(smem + kOffKs + off) = hyv::pack8(f);
-      }
-      fence_proxy_async();  // read by the dq products, after the ds^T barrier
-    }
-  } else {
-    if (n_tiles > 0) mbar_wait(bar + kKvFull, 0);
-  }
+  if (n_tiles > 0) mbar_wait(bar + kKvFull, 0);
 
   // The accumulators live across the loop and only wgmma writes them
   // while a product is in flight; every register write between an issue
   // and its wait would serialise the wgmma pipeline (ptxas note C7513).
-  float s[32], dp[32], dq[32];
+  float s[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dq[i] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
   const bool tail = n0 + kBlockN > lk;
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, m0 = (qt0 + it) * kBlockM;
+    const int st = it & 1;
     const uint32_t sb = base + kOffStage + st * kStageBytes;
     const float* stat =
         reinterpret_cast<const float*>(smem + kOffStage + st * kStageBytes + kSStat);
@@ -249,14 +610,6 @@ __device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMa
           dp, desc_sw128(base + kOffV + (kk >> 2) * kKvHalf + cw * 8192 + (kk & 3) * 32, 1, 64),
           desc_sw128(sb + kSDo + (kk >> 2) * kQHalf + (kk & 3) * 32, 1, 64), kk > 0);
     wgmma_commit();
-    if constexpr (kMerged) {
-      // the previous tile's dq reductions have read their staging buffer:
-      // return that stage to the producer
-      if (it > 0 && wt == 0) {
-        bulk_wait_read();
-        mbar_arrive(bar + kEmpty + 8 * (st ^ 1));
-      }
-    }
     wgmma_wait<0>();
     reg_fence(s);
     reg_fence(dp);
@@ -283,20 +636,6 @@ __device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMa
         pf[kk][i] = hyv::pack_bf16x2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
         dsf[kk][i] = hyv::pack_bf16x2(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
       }
-    if constexpr (kMerged) {
-      // bf16(ds^T) into the shared [128 keys x 64 q] tile, before any
-      // product reads dsf
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = key_row + 8 * (i & 1);
-          const uint32_t addr =
-              base + kOffDs + hyv::swz128(row, 2 * kk + (i >> 1)) + (lane & 3) * 4;
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(dsf[kk][i]) : "memory");
-        }
-      fence_proxy_async();
-    }
 
     // dv += bf16(p)^T dO and dk += bf16(ds)^T q_s
     wgmma_fence();
@@ -307,119 +646,18 @@ __device__ __forceinline__ void bwd_kv(const CUtensorMap& kmap, const CUtensorMa
     for (int kk = 0; kk < 4; ++kk)
       wgmma_m64n128k16_rs<1>(dk, dsf[kk], desc_sw128(sb + kSQs + kk * 2048, kQHalf >> 4, 64), 1);
     wgmma_commit();
-    if constexpr (!kMerged) {
-      // the stage's last readers have retired: return it to the producer
-      wgmma_wait<0>();
-      reg_fence(dk);
-      reg_fence(dv);
+    // the stage's last readers have retired: return it to the producer
+    wgmma_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        reg_fence(pf[kk]);
-        reg_fence(dsf[kk]);
-      }
-      if (lane == 0) mbar_arrive(bar + kEmpty + 8 * st);
-    } else {
-      named_bar_sync(1, 256);  // the whole ds^T tile (and k_s) is in place
-
-      // dq = bf16(ds) k_s over all 128 keys, this warpgroup's 64 features
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk)
-        wgmma_m64n64k16_ss<1, 1>(dq, desc_sw128(base + kOffDs + kk * 2048, 1, 64),
-                                 desc_sw128(base + kOffKs + cw * kKvHalf + kk * 2048, 1, 64),
-                                 kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      reg_fence(dq);
-      reg_fence(dk);
-      reg_fence(dv);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        reg_fence(pf[kk]);
-        reg_fence(dsf[kk]);
-      }
-      named_bar_sync(2, 256);  // both warpgroups are done with this stage and ds^T
-
-      // stage dq (fp32, 64 q x 64 features) in the stage's q' (warpgroup 0)
-      // or q_s (warpgroup 1) buffer as two 128-byte-swizzled boxes of 32
-      // features, then add it to the global dq with two TMA reductions
-      const uint32_t stg = sb + (cw == 0 ? kSQp : kSQs);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = (wt >> 5) * 16 + (lane >> 2) + 8 * half;
-          const int chunk = 2 * (j & 3) + ((lane & 3) >> 1);
-          const uint32_t addr =
-              stg + (j >> 2) * 8192 + row * 128 + ((chunk ^ (row & 7)) << 4) + (lane & 1) * 8;
-          asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
-                       "f"(dq[4 * j + 2 * half]), "f"(dq[4 * j + 2 * half + 1])
-                       : "memory");
-        }
-      fence_proxy_async();
-      named_bar_sync(3 + cw, 128);
-      if (wt == 0) {
-        tma_reduce_add_4d(dqmap, stg, cw * 64, m0, h, b);
-        tma_reduce_add_4d(dqmap, stg + 8192, cw * 64 + 32, m0, h, b);
-        bulk_commit();
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      reg_fence(pf[kk]);
+      reg_fence(dsf[kk]);
     }
+    if (lane == 0) mbar_arrive(bar + kEmpty + 8 * st);
   }
-  if constexpr (kMerged) {
-    if (wt == 0 && n_tiles > 0) bulk_wait();
-  }
-
-  // epilogue: rows past Lk are dropped; one split writes bf16 dk (head-major)
-  // and dv (token-major), several write fp32 partials
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = n0 + key_row + 8 * half;
-    if (key >= args.Lk) continue;
-    if (args.splits == 1) {
-      __nv_bfloat16* dkr = args.dk + b * args.dk_sb + h * args.dk_sh + key * args.dk_sl;
-      __nv_bfloat16* dvr = args.dv + b * args.dv_sb + h * args.dv_sh + key * args.dv_sl;
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const int d = 8 * j + q_lane;
-        *reinterpret_cast<uint32_t*>(dkr + d) =
-            hyv::pack_bf16x2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
-        *reinterpret_cast<uint32_t*>(dvr + d) =
-            hyv::pack_bf16x2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
-      }
-    } else {
-      const long long plane = (long long)gridDim.y * args.Lk * kD;  // one split's [B*N, Lk, 128]
-      float* dkr = args.part + ((long long)split * gridDim.y + bh) * args.Lk * kD +
-                   (long long)key * kD;
-      float* dvr = dkr + args.splits * plane;
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        const int d = 8 * j + q_lane;
-        *reinterpret_cast<float2*>(dkr + d) =
-            make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
-        *reinterpret_cast<float2*>(dvr + d) =
-            make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_merged_kernel(const __grid_constant__ CUtensorMap kmap,
-                        const __grid_constant__ CUtensorMap vmap,
-                        const __grid_constant__ CUtensorMap qpmap,
-                        const __grid_constant__ CUtensorMap qsmap,
-                        const __grid_constant__ CUtensorMap domap,
-                        const __grid_constant__ CUtensorMap dqmap, const KvArgs args) {
-  bwd_kv<true>(kmap, vmap, qpmap, qsmap, domap, &dqmap, args);
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap kmap,
-                     const __grid_constant__ CUtensorMap vmap,
-                     const __grid_constant__ CUtensorMap qpmap,
-                     const __grid_constant__ CUtensorMap qsmap,
-                     const __grid_constant__ CUtensorMap domap, const KvArgs args) {
-  bwd_kv<false>(kmap, vmap, qpmap, qsmap, domap, nullptr, args);
+  write_dkdv(dk, dv, args, b, h, bh, split, n0 + key_row, q_lane);
 }
 
 // ---- K5's dq pass ---------------------------------------------------------
@@ -777,10 +1015,10 @@ cudaError_t launch_prologue_and_kv(const void* q, const void* k, const void* v, 
   const dim3 grid(((Lk + kBlockN - 1) / kBlockN) * splits, BN);
   if constexpr (kMerged) {
     err = cudaFuncSetAttribute(flash_bwd_merged_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmemBytes);
     if (err != cudaSuccess) return err;
-    flash_bwd_merged_kernel<<<grid, kThreads, kSmemBytes, st>>>(kmap, vmap, qpmap, qsmap, domap,
-                                                                dqmap, args);
+    flash_bwd_merged_kernel<<<grid, kThreads, kMSmemBytes, st>>>(kmap, vmap, qpmap, qsmap,
+                                                                 domap, dqmap, args);
   } else {
     err = cudaFuncSetAttribute(flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
@@ -877,5 +1115,5 @@ extern "C" int hyv_flash_bwd(
 
 // the dynamic shared memory each block of the dk/dv kernel (K4, K5's first
 // pass) and of K5's dq pass asks for, for reports
-extern "C" int hyv_flash_bwd_merged_smem() { return kSmemBytes; }
+extern "C" int hyv_flash_bwd_merged_smem() { return kMSmemBytes; }
 extern "C" int hyv_flash_bwd_dq_smem() { return kDqSmemBytes; }

@@ -164,8 +164,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lq,lk", [(100, 77), (1024, 4680), (4680, 512), (4680, 4680)])
-def test_flash_bwd_matches_plain(cuda, lq, lk):
+@pytest.mark.parametrize("lq,lk,k4", [
+    (100, 77, False), (1024, 4680, False), (4680, 512, False), (4680, 4680, False),
+    # K4 at the edges of its pipeline (k4: taken where the JAX rule would
+    # take K5): a q sweep of one and of two tiles, shorter than its ring of
+    # two stages; an odd tile count with lq not a multiple of 64; kv_splits
+    # 11 at 512 keys (two or three tiles a block); the 257 image keys
+    (64, 77, True), (128, 300, True), (4650, 4680, False), (2048, 512, False),
+    (4680, 257, False)])
+def test_flash_bwd_matches_plain(cuda, lq, lk, k4, monkeypatch):
+    if k4:
+        monkeypatch.setattr(tfa, "uses_merged_bwd", lambda lq, lk: True)
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(1, 12, lq, 128, device=cuda, generator=g).bfloat16().requires_grad_()
     k = torch.randn(1, 12, lk, 128, device=cuda, generator=g).bfloat16().requires_grad_()
@@ -362,7 +371,10 @@ def test_shifted_flash_is_finite_where_the_bounded_one_overflows(cuda, scale):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lq,lk,merged", [(4680, 4680, True), (4680, 512, True),
-                                          (1024, 4680, False), (200, 77, False)])
+                                          (1024, 4680, False), (200, 77, False),
+                                          # K4: a masked tail at the 257 image keys and
+                                          # kv_splits 11 over 32 q tiles
+                                          (4650, 257, True), (2048, 512, True)])
 def test_masked_flash_bwd_matches_plain(cuda, lq, lk, merged):
     g = torch.Generator(device=cuda).manual_seed(13)
     q = torch.randn(2, lq, 12, 128, device=cuda, generator=g).bfloat16().requires_grad_()

@@ -62,3 +62,41 @@ def profile():
 ])
 def test_profile_groups_name_each_kernel(profile, name, group):
     assert profile.group_of(name) == group
+
+
+FLASH_BWD = os.path.join(os.path.dirname(SCRIPT), os.pardir, "hyvideo_prfl_torch", "csrc",
+                         "flash_bwd.cu")
+DEVTRACE = os.path.join(os.path.dirname(SCRIPT), os.pardir, "benchmark", "harness",
+                        "devtrace.py")
+
+
+def _global_kernels(path):
+    """The demangled name of every kernel a .cu file defines: each
+    ``__global__`` function, and a ``template <bool ...>`` one at both
+    arguments."""
+    import re
+
+    text = open(path).read()
+    names = []
+    for m in re.finditer(r"(template\s*<bool \w+>\s*)?__global__\s+void\s+"
+                         r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", text):
+        insts = ("<false>", "<true>") if m.group(1) else ("",)
+        names += [f"void (anonymous namespace)::{m.group(2)}{i}(...)" for i in insts]
+    return names
+
+
+def test_every_flash_bwd_kernel_lands_in_k4_or_k5():
+    # the benchmark's frozen groups file each kernel of the flash backward
+    # under K4 or K5, never "other", so attn_bwd_roofline reads all of it
+    import sys
+
+    spec = importlib.util.spec_from_file_location("bench_devtrace", DEVTRACE)
+    devtrace = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = devtrace  # its dataclass looks its module up
+    spec.loader.exec_module(devtrace)
+    groups = {name.split("::")[1].split("(")[0]: devtrace.group_of(name)
+              for name in _global_kernels(FLASH_BWD)}
+    # K4 launches the prologue's <false> instance and the merged kernel
+    assert groups == {"flash_bwd_merged_kernel": "K4", "flash_bwd_prologue_kernel<false>": "K4",
+                      "flash_bwd_prologue_kernel<true>": "K5", "flash_bwd_dkv_kernel": "K5",
+                      "flash_bwd_dq_kernel": "K5"}
